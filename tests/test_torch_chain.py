@@ -1,0 +1,222 @@
+"""The torch port's flagship chain, chain runner and pipeline manager
+against the JAX package, bit for bit (0 differing pixels, equal dtypes).
+
+Inputs are numpy arrays from seeded generators, handed to both packages.
+The tests marked ``cuda`` run the chain on the card and skip where there
+is none; jax is imported inside the tests that use it.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from yamimageprocessor_tpu.models.stages import preprocess_steps
+from yamimageprocessor_tpu.ops.schema import Stage
+from yamimageprocessor_tpu.pipeline.step import PipelineStep
+from yamimageprocessor_tpu_torch import cuda_kernels as ck
+from yamimageprocessor_tpu_torch.models.stages import flagship_forward
+from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
+from yamimageprocessor_tpu_torch.pipeline.compiler import CompiledChain
+from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+torch.set_num_threads(1)
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+cuda = pytest.mark.cuda
+needs_card = pytest.mark.skipif(
+    "not torch.cuda.is_available()", reason="needs a CUDA card (the kernels run only there)"
+)
+
+
+def _same(got, want) -> None:
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert int((got != want).sum()) == 0
+
+
+def _frames(shape, seed=0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+def _gamma_step(value=0.7) -> PipelineStep:
+    return PipelineStep(
+        name="Gamma", op_id="preprocessing.gamma", stage=Stage.PREPROCESSING, params={"value": value}
+    )
+
+
+def _counts():
+    return (sep_filter_u8.launches, ck.histogram256_batch.launches, ck.lut_apply_batch.launches)
+
+
+# ---------------------------------------------------------------------------
+# the flagship chain
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (3, 37, 101), (1, 256, 256)])
+def test_flagship_forward_matches_jax(shape):
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.models.stages import flagship_forward as jax_forward
+
+    images = _frames(shape, seed=shape[1])
+    want = np.asarray(jax.jit(jax_forward)(jnp.asarray(images)))
+    before = _counts()
+    _same(flagship_forward(torch.from_numpy(images)), want)
+    assert _counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the pipeline manager on 2-D frames
+
+_CASES = {
+    "flagship": (preprocess_steps, lambda: _frames((61, 83), 1)),
+    "constant_frame": (preprocess_steps, lambda: np.full((40, 52), 137, np.uint8)),
+    "no_equalize": (lambda: preprocess_steps(equalize=False), lambda: _frames((45, 70), 2)),
+    "ksize3": (lambda: preprocess_steps(ksize=3), lambda: _frames((33, 64), 3)),
+    "ksize7": (lambda: preprocess_steps(ksize=7), lambda: _frames((50, 41), 4)),
+    "gamma_run_of_3": (lambda: preprocess_steps() + [_gamma_step()], lambda: _frames((64, 64), 5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_manager_apply_matches_jax_and_golden(case):
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+
+    make_steps, make_frame = _CASES[case]
+    frame = make_frame()
+    ours = PipelineManager(make_steps(), device="cpu").apply(frame)
+    ref = JaxManager(make_steps())
+    _same(ours, np.asarray(ref.apply(frame)))
+    _same(ours, ref.apply_host(frame))
+
+
+@pytest.mark.parametrize(
+    "make_steps, shape, batch",
+    [
+        (preprocess_steps, (40, 50), 0),
+        (preprocess_steps, (3, 40, 50), 3),
+        (lambda: preprocess_steps() + [_gamma_step()], (40, 50), 0),
+        (lambda: preprocess_steps(equalize=False) + [_gamma_step()], (40, 50), 0),
+        (preprocess_steps, (40, 50, 3), 0),
+    ],
+)
+def test_lut_runs_match_jax(make_steps, shape, batch):
+    from yamimageprocessor_tpu.pipeline.compiler import CompiledChain as JaxChain
+
+    ours = CompiledChain(make_steps(), shape, np.uint8, batch, device="cpu")
+    assert ours.lut_runs == JaxChain(make_steps(), shape, np.uint8, batch).lut_runs
+
+
+def test_nd_stack_batches_through_the_chain():
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+
+    stack = _frames((2, 3, 30, 40), 6)
+    ours = PipelineManager(preprocess_steps(), device="cpu").apply(stack)
+    _same(ours, JaxManager(preprocess_steps()).apply_host(stack))
+
+
+def test_colour_gaussian_runs_on_channel_planes():
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+
+    steps = preprocess_steps(equalize=False)
+    bgr = _frames((37, 58, 3), 7)
+    ours = PipelineManager(steps, device="cpu").apply(bgr)
+    _same(ours, np.asarray(JaxManager(steps).apply(bgr)))
+    _same(ours, JaxManager(steps).apply_host(bgr))
+
+
+def test_host_step_splits_the_chain_into_segments():
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+
+    invert = PipelineStep(name="Invert", function=lambda img: 255 - img)
+    steps = preprocess_steps()
+    steps.insert(1, invert)
+    chain = CompiledChain(steps, (30, 44), np.uint8, device="cpu")
+    assert [p.kind for p in chain.plans] == ["device", "host", "device"]
+    frame = _frames((30, 44), 8)
+    _same(PipelineManager(steps, device="cpu").apply(frame), JaxManager(steps).apply_host(frame))
+
+
+def test_clone_keeps_the_device():
+    manager = PipelineManager(preprocess_steps(), device="cpu")
+    twin = manager.clone()
+    assert isinstance(twin, PipelineManager) and twin.device == manager.device
+
+
+# ---------------------------------------------------------------------------
+# what is not ported raises
+
+
+@pytest.mark.parametrize(
+    "steps, frame_shape",
+    [
+        ([PipelineStep(name="Sharpen", op_id="preprocessing.sharpen", stage=Stage.PREPROCESSING)], (20, 20)),
+        (
+            [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"method": "Median", "ksize": 3})],
+            (20, 20),
+        ),
+        (
+            [PipelineStep(name="histogram_equalization", op_id="preprocessing.histogram_equalization",
+                          stage=Stage.PREPROCESSING)],
+            (20, 20, 3),
+        ),
+    ],
+)
+def test_unported_device_ops_raise(steps, frame_shape):
+    manager = PipelineManager(steps, device="cpu")
+    with pytest.raises(NotImplementedError):
+        manager.apply(np.zeros(frame_shape, np.uint8))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from yamimageprocessor_tpu_torch.models.stages import flagship_forward, preprocess_steps\n"
+        "from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager\n"
+        "x = np.random.default_rng(0).integers(0, 256, (2, 24, 40), dtype=np.uint8)\n"
+        "out = flagship_forward(torch.from_numpy(x))\n"
+        "m = PipelineManager(preprocess_steps(), device='cpu')\n"
+        "assert (m.apply(x[0]) == m.apply_host(x[0])).all()\n"
+        "assert (out[0].numpy() == m.apply_host(x[0])).all()\n"
+        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if k.startswith('jax'))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO_ROOT), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the chain on the card
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("shape", [(2, 64, 96), (3, 37, 101)])
+def test_cuda_flagship_matches_cpu_and_launches_every_kernel(shape):
+    images = torch.from_numpy(_frames(shape, seed=shape[2]))
+    before = _counts()
+    got = flagship_forward(images.cuda())
+    torch.cuda.synchronize()
+    assert all(b > a for a, b in zip(before, _counts()))
+    _same(got, flagship_forward(images))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_cuda_manager_apply_matches_golden(case):
+    make_steps, make_frame = _CASES[case]
+    frame = make_frame()
+    manager = PipelineManager(make_steps(), device="cuda")
+    _same(manager.apply(frame), manager.apply_host(frame))

@@ -1,0 +1,159 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` compile into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds, not minutes)::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/torch_kernels/yam_kernels_<hash>.so csrc/*.cu
+
+The file name carries a hash of the sources and flags: the library is built
+at first use and rebuilt only when a source changes.  nvcc is taken from
+``PATH``, else from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).  A
+failed build or load raises; nothing falls back.
+
+Every C function takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",  # registers, shared memory and spills of each kernel, into the log
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+#: argtypes of every exported C function
+SIGNATURES: Dict[str, Tuple] = {
+    "yam_sepconv_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "yam_histogram256_u8": (_P, _P, _L, _I, _I, _P),
+    "yam_lut_apply_u8": (_P, _P, _P, _L, _L, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"yam_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the CUDA kernels "
+        "are compiled from csrc/ at first use"
+    )
+
+
+def build() -> Tuple[Path, float]:
+    """Compile ``csrc/*.cu`` unless the library for them exists.
+
+    Returns the library path and the seconds spent compiling (0.0 when it
+    was already built).  The compiler's output goes to ``<library>.log``.
+    """
+
+    path = library_path()
+    if path.is_file():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a private name, then an atomic rename: concurrent builders never see
+    # a half-written library
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    path.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return path, seconds
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.yam_cuda_error_string.argtypes = (ctypes.c_int,)
+            lib.yam_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def on_card(name: str, tensor) -> bool:
+    """True for a CUDA tensor (the wrapper launches its kernel), False for
+    a CPU tensor (it runs its plain version); raises for any other device."""
+
+    if tensor.is_cuda:
+        return True
+    if tensor.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} takes CPU or CUDA tensors, got {tensor.device}")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call C function ``name`` on ``device``'s current CUDA stream; raise
+    if the launch was refused (``cudaGetLastError()`` not 0)."""
+
+    import torch
+
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, name)(*args, stream)
+    if code != 0:
+        message = lib.yam_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({message})")
+
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library", "library_path", "launch", "on_card"]

@@ -1,0 +1,139 @@
+"""256-level histograms and 256-entry table lookups: the CUDA kernels of
+``csrc/lut_hist.cu`` and their plain versions.
+
+Port of ``yamimageprocessor_tpu/pallas_kernels.py`` (``histogram256`` /
+``histogram256_batch`` and ``lut_apply`` / ``lut_apply_batch``).  The TPU
+needed bit-plane counters and select trees because it has no scatter and
+no per-lane table read; the card has both, so the kernels count with
+shared-memory atomics and read the table directly.
+
+Both wrappers take frames flattened to ``(N, L)``.  For a CUDA tensor they
+launch the kernel (counted in ``<wrapper>.launches``) or raise; for a CPU
+tensor they run the plain version.  :mod:`.ops.lutops` shapes images for
+them.
+"""
+from __future__ import annotations
+
+import torch
+
+from yamimageprocessor_tpu_torch import _build
+
+_THREADS = 256
+#: bytes a block covers per pass of its grid-stride loop, times 8 passes
+_BYTES_PER_BLOCK = _THREADS * 16 * 8
+_MAX_GRID_Y = 65535
+
+
+def _blocks_per_frame(frame_len: int) -> int:
+    return max(1, -(-frame_len // _BYTES_PER_BLOCK))
+
+
+def _check_frames(name: str, frames: torch.Tensor) -> None:
+    if frames.dtype != torch.uint8 or frames.ndim != 2:
+        raise ValueError(f"{name} takes (N, L) uint8, got {tuple(frames.shape)} {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous tensor")
+    if frames.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"{name} takes at most {_MAX_GRID_Y} frames, got {frames.shape[0]}")
+
+
+# ---------------------------------------------------------------------------
+# histogram
+
+
+def histogram256_batch_plain(frames: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``(N, L)`` uint8 -> ``(N, 256)`` int32 counts."""
+
+    n = frames.shape[0]
+    offsets = torch.arange(n, device=frames.device).mul_(256).unsqueeze(1)
+    flat = (frames.to(torch.int64) + offsets).reshape(-1)
+    return torch.bincount(flat, minlength=256 * n).reshape(n, 256).to(torch.int32)
+
+
+def histogram256_batch(frames: torch.Tensor) -> torch.Tensor:
+    """``(N, L)`` uint8 frames -> ``(N, 256)`` int32 level counts."""
+
+    if not _build.on_card("histogram256_batch", frames):
+        return histogram256_batch_plain(frames)
+    _check_frames("histogram256_batch", frames)
+    n, frame_len = frames.shape
+    if frame_len >= 2**31:
+        raise ValueError("histogram256_batch counts in int32: frames must hold < 2**31 pixels")
+    out = torch.zeros((n, 256), dtype=torch.int32, device=frames.device)
+    if frames.numel() == 0:
+        return out
+    _build.launch(
+        "yam_histogram256_u8",
+        frames.device,
+        frames.data_ptr(),
+        out.data_ptr(),
+        frame_len,
+        n,
+        _blocks_per_frame(frame_len),
+    )
+    histogram256_batch.launches += 1
+    return out
+
+
+histogram256_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# table lookup
+
+
+def lut_apply_batch_plain(frames: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``(N, L)`` uint8 through a shared ``(256,)`` table or
+    one ``(N, 256)`` table per frame."""
+
+    index = frames.to(torch.int64)
+    if luts.ndim == 1:
+        return luts[index]
+    return torch.gather(luts, 1, index)
+
+
+def lut_apply_batch(frames: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """``luts[frames]`` for ``(N, L)`` uint8 frames and uint8 tables of
+    shape ``(256,)`` (shared) or ``(N, 256)`` (one per frame)."""
+
+    if not _build.on_card("lut_apply_batch", frames):
+        return lut_apply_batch_plain(frames, luts)
+    _check_frames("lut_apply_batch", frames)
+    n, frame_len = frames.shape
+    if (
+        luts.device != frames.device
+        or luts.dtype != torch.uint8
+        or luts.shape not in ((256,), (n, 256))
+        or not luts.is_contiguous()
+    ):
+        raise ValueError(
+            f"lut_apply_batch takes contiguous uint8 tables (256,) or ({n}, 256) "
+            f"on {frames.device}, got {tuple(luts.shape)} {luts.dtype} on {luts.device}"
+        )
+    out = torch.empty_like(frames)
+    if frames.numel() == 0:
+        return out
+    _build.launch(
+        "yam_lut_apply_u8",
+        frames.device,
+        frames.data_ptr(),
+        out.data_ptr(),
+        luts.data_ptr(),
+        frame_len,
+        0 if luts.ndim == 1 else 256,
+        n,
+        _blocks_per_frame(frame_len),
+    )
+    lut_apply_batch.launches += 1
+    return out
+
+
+lut_apply_batch.launches = 0
+
+
+__all__ = [
+    "histogram256_batch",
+    "histogram256_batch_plain",
+    "lut_apply_batch",
+    "lut_apply_batch_plain",
+]

@@ -1,0 +1,141 @@
+"""Torch device functions of the preprocessing ops on the flagship path
+(the port of part of ``ops/preprocess.py``).
+
+Ported: ``preprocessing.noise_reduction`` (Gaussian, on 2-D and
+``(H, W, C)`` items), ``preprocessing.histogram_equalization`` (2-D items),
+``preprocessing.brightness_contrast`` and ``preprocessing.gamma``, each
+with its table function.  Median and Bilateral noise reduction and the
+colour (YCrCb) equalization raise ``NotImplementedError``.
+
+Each function takes a batch ``(B, *item_shape)`` of uint8 items (see
+:mod:`.registry`).  No value is read back to the host: the equalization
+table's first bin, remainder and constant-frame case are tensor ops.
+"""
+from __future__ import annotations
+
+import torch
+
+from yamimageprocessor_tpu_torch.ops.filters import to_uint8
+from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
+from yamimageprocessor_tpu_torch.ops.registry import register_op
+from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8, sep_filter_u8_planes
+
+
+def _require_uint8(op_id: str, imgs: torch.Tensor) -> None:
+    if imgs.dtype != torch.uint8:
+        raise NotImplementedError(f"{op_id}: only uint8 images are ported to torch, got {imgs.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# Brightness / contrast (cv2.convertScaleAbs)
+
+
+def brightness_contrast_lut(imgs, dyn):
+    """``(256,)`` table of the uint8 action: per level ``v`` the same f32
+    arithmetic as on a pixel of value ``v`` (a multiply, then an add)."""
+
+    levels = torch.arange(256, dtype=torch.float32, device=dyn["alpha"].device)
+    return to_uint8(torch.abs(levels * dyn["alpha"] + dyn["beta"]))
+
+
+def brightness_contrast(imgs, dyn):
+    _require_uint8("preprocessing.brightness_contrast", imgs)
+    return apply_lut(imgs, brightness_contrast_lut(imgs, dyn))
+
+
+register_op(
+    "preprocessing.brightness_contrast",
+    device_fn=brightness_contrast,
+    lut_fn=brightness_contrast_lut,
+)
+
+
+# ---------------------------------------------------------------------------
+# Gamma (the table comes from the reference split)
+
+
+def gamma(imgs, dyn):
+    _require_uint8("preprocessing.gamma", imgs)
+    return apply_lut(imgs, dyn["lut"])
+
+
+register_op("preprocessing.gamma", device_fn=gamma, lut_fn=lambda imgs, dyn: dyn["lut"])
+
+
+# ---------------------------------------------------------------------------
+# Histogram equalization (cv2.equalizeHist), gray items
+
+
+def equalization_lut(hist: torch.Tensor) -> torch.Tensor:
+    """cv2.equalizeHist tables from ``(N, 256)`` histograms -> ``(N, 256)``
+    uint8.  Bins up to the first non-zero one map to 0, the others to
+    ``rint(255 / remainder * (cumsum - cumsum[first]))``; a constant frame
+    (remainder 0) keeps the identity.  The f32 divide is a tensor-by-tensor
+    division, which is correctly rounded on the CPU and the card (``255 /
+    tensor`` would be a reciprocal times 255, not a division)."""
+
+    idx = torch.arange(256, device=hist.device)
+    first = (hist > 0).to(torch.uint8).argmax(dim=-1, keepdim=True)
+    cumsum = torch.cumsum(hist, dim=-1)
+    remainder = hist.sum(dim=-1, keepdim=True) - torch.gather(hist, -1, first)
+    rem_f = remainder.clamp_min(1).to(torch.float32)
+    scale = torch.full_like(rem_f, 255.0) / rem_f
+    lut_f = (cumsum - torch.gather(cumsum, -1, first)).to(torch.float32) * scale
+    lut = to_uint8(lut_f)
+    lut = torch.where(idx <= first, torch.zeros_like(lut), lut)
+    return torch.where(remainder == 0, idx.to(torch.uint8), lut)
+
+
+def equalization_lut_from_images(imgs):
+    """The ``(B, 256)`` tables that equalize each 2-D item of ``imgs``."""
+
+    return equalization_lut(histogram256_batch(imgs))
+
+
+def histogram_equalization(imgs, dyn):
+    if imgs.ndim != 3:
+        raise NotImplementedError(
+            "preprocessing.histogram_equalization: colour (YCrCb) equalization "
+            "is not ported to torch yet"
+        )
+    _require_uint8("preprocessing.histogram_equalization", imgs)
+    return apply_lut(imgs, equalization_lut_from_images(imgs))
+
+
+register_op(
+    "preprocessing.histogram_equalization",
+    device_fn=histogram_equalization,
+    lut_fn=lambda imgs, dyn: equalization_lut_from_images(imgs),
+)
+
+
+# ---------------------------------------------------------------------------
+# Noise reduction
+
+
+def noise_reduction(imgs, dyn, *, method: str = "Gaussian", ksize: int = 5):
+    if method in ("Median", "Bilateral"):
+        raise NotImplementedError(
+            f"preprocessing.noise_reduction: method {method!r} is not ported to torch yet"
+        )
+    if method != "Gaussian":
+        return imgs  # the reference passes unknown methods through
+    _require_uint8("preprocessing.noise_reduction", imgs)
+    taps = dyn["taps"]
+    if imgs.ndim == 3:
+        return sep_filter_u8(imgs.contiguous(), taps, taps)
+    return sep_filter_u8_planes(imgs, taps, taps)
+
+
+register_op("preprocessing.noise_reduction", device_fn=noise_reduction)
+
+
+__all__ = [
+    "brightness_contrast",
+    "brightness_contrast_lut",
+    "equalization_lut",
+    "equalization_lut_from_images",
+    "gamma",
+    "histogram_equalization",
+    "noise_reduction",
+]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its
-flagship preprocess chain once.
+"""Build and check the torch port on one CUDA card, then drive its two
+main paths once each: the flagship preprocess chain and the segmentation
+chain.
 
     python3 chip_smoke.py
 
@@ -8,24 +9,35 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 1. device: a CUDA card must be present; prints its nvidia-smi name and
    power limit;
-2. build: compiles ``yamimageprocessor_tpu_torch/csrc/*.cu`` with nvcc;
-3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   bit for bit, at the chain's shapes and at awkward ones; then each
-   kernel's and its plain version's device time at 8 x 2048^2 (CUDA
-   events, median of 20 runs);
-4. slice: the flagship chain (Gaussian 5x5 -> histogram equalization ->
-   brightness/contrast) on an 8 x 2048^2 uint8 batch from
-   ``np.random.default_rng(0)``, against the port's own CPU run (bit for
-   bit) and the numpy golden on frame 0; the pipeline manager on one frame
-   against the golden; every kernel's launch count must have risen during
-   that run; then the chain's rate in MPix * steps / s over 20 batches
-   back to back, and its device time per batch.
+2. build: compiles ``yamimageprocessor_tpu_torch/csrc/*.cu`` with nvcc,
+   one process per source;
+3. kernels: each of the six CUDA kernels against its plain PyTorch version
+   on the card, bit for bit, at the main paths' shapes and at awkward
+   ones; then each kernel's, its plain version's and (where one PyTorch
+   call computes the same function) that call's device time;
+4. flagship: the flagship chain (Gaussian 5x5 -> histogram equalization
+   -> brightness/contrast) on an 8 x 2048^2 uint8 batch from
+   ``np.random.default_rng(0)`` through ``flagship_forward`` and the
+   pipeline manager, against the port's own CPU run and a SHA-256 digest
+   of the JAX package's output; the chain's rate back to back and its
+   device time;
+5. segmentation: the segmentation chain (Otsu -> open -> close -> marker
+   watershed) on ``_dense_scene(2048, seed=3)`` through
+   ``segmentation_forward`` and the pipeline manager, against the digest
+   of the JAX package's output, and at 512^2 against the port's CPU run;
+   the flood's sweep count, frames/s over 12 frames back to back and the
+   time per frame.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every kernel's launch count is set to 0 just before each main path and
+read just after; a kernel of the path that did not launch fails the run.
+The digests come from ``scripts/torch_port_digests.py`` (the JAX package
+on a CPU).  The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.  Nothing falls
+back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -35,10 +47,23 @@ import time
 import numpy as np
 import torch
 
-SHAPE = (8, 2048, 2048)
-STEPS = 3  # Gaussian, histogram equalization, brightness/contrast
+FLAGSHIP_SHAPE = (8, 2048, 2048)
+FLAGSHIP_STEPS = 3  # Gaussian, histogram equalization, brightness/contrast
+SEG_SIDE = 2048
+SEG_CPU_SIDE = 512
+SEG_FRAMES = 12
 RUNS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+# JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
+DIGESTS = {
+    "segmentation_input": "789006ca990ec8e56fe63d5aa294f3853622819e9d010fb70d302ba9730050c0",
+    "segmentation_output": "aa7c92f3bfcf004e955ee8c8fed24bc3fcaedd8c795647601d35b654ed2c9995",
+    "flagship_input": "956e4093da8177e9fba7b1360a123a36cb89407283c92393f3e507b7d86299c9",
+    "flagship_output": "e011c3251bc66a362d078629522d14501958087ad9288d38d7773facc84be595",
+}
 
 
 def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
@@ -47,7 +72,7 @@ def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     Each run first queues a ~1 ms sleep on the stream, so the host has
     queued the start event, ``fn``'s launches and the end event before the
     device reaches them: the pair measures device time, not the host's
-    launch latency."""
+    launch latency (unless ``fn`` waits for the device itself)."""
 
     for _ in range(warmup):
         fn()
@@ -83,17 +108,89 @@ def back_to_back_ms(fn, calls: int = RUNS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / calls
 
 
+def profiled_device_ms(fn, runs: int = 5):
+    """Device time of one ``fn()`` in ms, summed over its kernels by
+    ``torch.profiler``: for a function that waits on the host between its
+    launches, where an event pair would count those waits.  None when the
+    profiler sees no device activity."""
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        e.device_time_total for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return total_us / 1e3 / runs if total_us > 0 else None
+
+
+def paired_ms(kernel, plain, runs: int = RUNS, plain_runs: int = RUNS):
+    """(kernel ms, plain ms), each the mean of two medians taken in the
+    order plain, kernel, kernel, plain."""
+
+    p1 = time_ms(plain, plain_runs, warmup=1)
+    k1, k2 = time_ms(kernel, runs), time_ms(kernel, runs)
+    p2 = time_ms(plain, plain_runs, warmup=1)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def exact(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
-    """Max absolute difference, which must be 0, with equal shape and dtype."""
+    """Max absolute difference, which must be 0, with equal shape and dtype
+    (float tensors are compared by their bits)."""
 
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(
             f"{name}: got {tuple(got.shape)} {got.dtype}, want {tuple(want.shape)} {want.dtype}"
         )
+    if got.dtype == torch.float32:
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name}: max abs err {float((got - want).abs().max())}")
+        return 0
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
     if err:
         raise AssertionError(f"{name}: max abs err {err}")
     return err
+
+
+def sha256(array) -> str:
+    if isinstance(array, torch.Tensor):
+        array = array.cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def check_digest(name: str, array) -> None:
+    got = sha256(array)
+    if got != DIGESTS[name]:
+        raise AssertionError(f"{name}: sha256 {got}, the JAX package's is {DIGESTS[name]}")
+
+
+def dense_scene(side: int, seed: int = 3) -> np.ndarray:
+    """A copy of ``bench.py:_dense_scene``: a grid of noisy disks, 128
+    apart (the segmentation benchmarks' input)."""
+
+    rng = np.random.default_rng(seed)
+    img = np.zeros((side, side), np.uint8)
+    pitch = 128
+    for cy in range(pitch // 2, side, pitch):
+        for cx in range(pitch // 2, side, pitch):
+            r = 40 + int(rng.integers(0, 12))
+            y0, y1 = max(0, cy - r), min(side, cy + r + 1)
+            x0, x1 = max(0, cx - r), min(side, cx + r + 1)
+            yy, xx = np.ogrid[y0:y1, x0:x1]
+            box = img[y0:y1, x0:x1]
+            box[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 170 + int(rng.integers(0, 60))
+    noise = rng.integers(-12, 13, img.shape, dtype=np.int16)
+    return (img.astype(np.int16) + noise).clip(0, 255).astype(np.uint8)
+
+
+def bound_ms(nbytes: float, f32_ops: float = 0.0):
+    """(least time in ms, what bounds it) on an H100 SXM."""
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, f32_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_device() -> str:
@@ -109,7 +206,7 @@ def phase_device() -> str:
     print(f"card: {smi}")
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
-        f"devices {torch.cuda.device_count()} ({torch.cuda.get_device_name(0)})"
+        f"numpy {np.__version__} devices {torch.cuda.device_count()} ({torch.cuda.get_device_name(0)})"
     )
     return smi
 
@@ -126,24 +223,66 @@ def phase_build() -> None:
             print(f"  {line.strip()}")
 
 
+def _spiral(side: int) -> np.ndarray:
+    fg = np.zeros((side, side), np.uint8)
+    top, bottom, left, right = 0, side - 1, 0, side - 1
+    while top < bottom and left < right:
+        fg[top, left : right + 1] = 1
+        fg[top : bottom + 1, right] = 1
+        fg[bottom, left : right + 1] = 1
+        fg[top : bottom + 1, left] = 1
+        top, bottom, left, right = top + 4, bottom - 4, left + 4, right - 4
+    return fg
+
+
+def _watershed_inputs(imgs: torch.Tensor):
+    """(opening, markers) the watershed step builds from ``(B, H, W)``
+    gray frames: the distance kernel's input and the flood's markers."""
+
+    from yamimageprocessor_tpu_torch.ops import morphology as M
+    from yamimageprocessor_tpu_torch.ops.segmentation import watershed_markers
+    from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_threshold
+
+    se = np.ones((3, 3), np.uint8)
+    opening = M.open_(binary(imgs, otsu_threshold(imgs), inverse=True), se, 2).contiguous()
+    factor = torch.tensor(0.7, dtype=torch.float32, device=imgs.device)
+    return opening, watershed_markers(imgs, factor)
+
+
+def _closed_mask(scene: torch.Tensor) -> torch.Tensor:
+    """The segmentation chain's mask before the watershed (Otsu -> open ->
+    close): the watershed step's input on the main path."""
+
+    from yamimageprocessor_tpu_torch.models.stages import segmentation_steps
+    from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain
+
+    steps = segmentation_steps(watershed=False)
+    fn, dyn = get_compiled_chain(steps, scene.shape, np.uint8, batch=1, device=scene.device).pure_callable()
+    return fn(scene, dyn)[-1].contiguous()
+
+
 def phase_kernels(dev) -> dict:
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
-    from yamimageprocessor_tpu_torch.ops.registry import get_impl, dyn_to_torch
+    from yamimageprocessor_tpu_torch.ops.distance import MAX_WIDTH, distance_transform, distance_transform_plain
+    from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index, cc_min_index_plain
+    from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import (
         sep_filter_u8,
-        sep_filter_u8_planes,
         sep_filter_u8_plain,
+        sep_filter_u8_planes,
     )
+    from yamimageprocessor_tpu_torch.ops.watershed import flood, flood_plain
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def rand(shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
 
+    def noise_mask(shape, fraction):
+        return (torch.rand(shape, generator=gen, device=dev) < fraction).to(torch.uint8) * 255
+
     def taps(ksize):
-        _, dyn = get_impl("preprocessing.noise_reduction").split_params(
-            {"method": "Gaussian", "ksize": ksize}
-        )
+        _, dyn = get_impl("preprocessing.noise_reduction").split({"method": "Gaussian", "ksize": ksize})
         return dyn_to_torch(dyn, dev)["taps"]
 
     def unaligned(shape):
@@ -151,13 +290,13 @@ def phase_kernels(dev) -> dict:
         n = int(np.prod(shape))
         return rand((n + 1,))[1:].view(shape)
 
-    big = rand(SHAPE)
+    big = rand(FLAGSHIP_SHAPE)
     odd = rand((3, 37, 1001))
-    err = {"sepconv": 0, "histogram256": 0, "lut_apply": 0}
+    err = {name: 0 for name in ("sepconv", "histogram256", "lut_apply", "distance", "cc", "flood")}
 
     for ksize in (3, 5, 13):
         t = taps(ksize)
-        err["sepconv"] |= exact(f"sepconv k{ksize} {SHAPE}", sep_filter_u8(big, t, t), sep_filter_u8_plain(big, t, t))
+        err["sepconv"] |= exact(f"sepconv k{ksize} {FLAGSHIP_SHAPE}", sep_filter_u8(big, t, t), sep_filter_u8_plain(big, t, t))
     for ksize in (3, 5, 13, 33):
         t = taps(ksize)
         err["sepconv"] |= exact(f"sepconv k{ksize} odd", sep_filter_u8(odd, t, t), sep_filter_u8_plain(odd, t, t))
@@ -172,7 +311,7 @@ def phase_kernels(dev) -> dict:
 
     constant = torch.full((2, 1000 * 1000), 77, dtype=torch.uint8, device=dev)
     for name, frames in (
-        ("(8,2048,2048)", big.view(SHAPE[0], -1)),
+        ("(8,2048,2048)", big.view(FLAGSHIP_SHAPE[0], -1)),
         ("constant", constant),
         ("(3,37,1001)", odd.view(3, -1)),
         ("unaligned", unaligned((3, 37037))),
@@ -183,7 +322,7 @@ def phase_kernels(dev) -> dict:
     print("kernels: histogram256 bit-exact on (8,2048,2048), constant, (3,37,1001), unaligned")
 
     for name, frames in (
-        ("(8,2048,2048)", big.view(SHAPE[0], -1)),
+        ("(8,2048,2048)", big.view(FLAGSHIP_SHAPE[0], -1)),
         ("(3,37,1001)", odd.view(3, -1)),
         ("unaligned", unaligned((3, 37037))),
     ):
@@ -196,65 +335,224 @@ def phase_kernels(dev) -> dict:
             )
     print("kernels: lut_apply bit-exact, per-frame and shared tables, on (8,2048,2048), (3,37,1001), unaligned")
 
+    scene = torch.from_numpy(dense_scene(SEG_SIDE)).to(dev)[None]
+    closed = _closed_mask(scene)  # the main path's watershed input
+    opening, markers = _watershed_inputs(closed)
+    cases = [
+        ("scene opening 2048^2", opening),
+        ("30% noise 2048^2", noise_mask((1, SEG_SIDE, SEG_SIDE), 0.7)),
+        ("all foreground 2048^2", torch.full((1, SEG_SIDE, SEG_SIDE), 255, dtype=torch.uint8, device=dev)),
+        ("(3,37,1001)", noise_mask((3, 37, 1001), 0.7)),
+    ] + [(f"width {w}", noise_mask((2, 19, w), 0.6)) for w in (1, 2, 3, 4, 5, MAX_WIDTH)]
+    for name, masks in cases:
+        err["distance"] |= exact(f"distance {name}", distance_transform(masks), distance_transform_plain(masks))
+    if float(distance_transform(cases[2][1]).min()) < 2.9e8:
+        raise AssertionError("distance: an all-foreground frame must stay near INF")
+    try:
+        distance_transform(noise_mask((1, 2, MAX_WIDTH + 1), 0.6))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"distance: a frame {MAX_WIDTH + 1} wide must be refused")
+    print(f"kernels: distance bit-exact on the scene's opening, 30% noise, all foreground (stays INF), "
+          f"(3,37,1001), widths 1-5 and {MAX_WIDTH} (the widest; one more is refused)")
+
+    sure_fg = (markers > 1).to(torch.uint8)
+    for name, fg in (
+        ("55% noise 2048^2", (noise_mask((1, SEG_SIDE, SEG_SIDE), 0.45) > 0).to(torch.uint8)),
+        ("spiral 1024^2", torch.from_numpy(_spiral(1024)).to(dev)[None]),
+        ("scene sure foreground 2048^2", sure_fg),
+        ("scene opening 2048^2", (opening > 0).to(torch.uint8)),
+    ):
+        err["cc"] |= exact(f"cc {name}", cc_min_index(fg), cc_min_index_plain(fg))
+    print("kernels: cc (min-index field) bit-exact on 55% noise, a spiral, the scene's sure foreground and opening")
+
+    small = torch.from_numpy(dense_scene(512)).to(dev)[None]
+    bgr = torch.stack([scene[0], scene[0].roll(3, 1), (255 - scene[0]) // 2], dim=-1)[None].contiguous()
+    for name, imgs in (
+        ("chain input 2048^2", closed),
+        ("raw scene 512^2", small),
+        ("raw scene 2048^2", scene),
+        ("raw BGR scene 2048^2", bgr),
+    ):
+        mk = markers if imgs is closed else _watershed_inputs(imgs[..., 0] if imgs.ndim == 4 else imgs)[1]
+        err["flood"] |= exact(f"flood {name}", flood(imgs, mk), flood_plain(imgs, mk))
+        print(f"  flood {name}: {flood.last_sweeps} sweeps")
+    print("kernels: flood bit-exact on the chain's watershed input, the raw scene at 512^2 and 2048^2 "
+          "and a BGR scene")
+
     t5 = taps(5)
-    flat = big.view(SHAPE[0], -1)
-    luts = rand((SHAPE[0], 256))
-    pairs = {
-        "sepconv": (lambda: sep_filter_u8(big, t5, t5), lambda: sep_filter_u8_plain(big, t5, t5)),
-        "histogram256": (lambda: ck.histogram256_batch(flat), lambda: ck.histogram256_batch_plain(flat)),
-        "lut_apply": (lambda: ck.lut_apply_batch(flat, luts), lambda: ck.lut_apply_batch_plain(flat, luts)),
+    flat = big.view(FLAGSHIP_SHAPE[0], -1)
+    luts = rand((FLAGSHIP_SHAPE[0], 256))
+    one = flat[:1]
+    times = {
+        "sepconv": paired_ms(lambda: sep_filter_u8(big, t5, t5), lambda: sep_filter_u8_plain(big, t5, t5)),
+        "histogram256": paired_ms(lambda: ck.histogram256_batch(flat), lambda: ck.histogram256_batch_plain(flat)),
+        "lut_apply": paired_ms(lambda: ck.lut_apply_batch(flat, luts), lambda: ck.lut_apply_batch_plain(flat, luts)),
+        "distance": paired_ms(
+            lambda: distance_transform(opening), lambda: distance_transform_plain(opening), plain_runs=3
+        ),
+        "cc": paired_ms(lambda: cc_min_index(sure_fg), lambda: cc_min_index_plain(sure_fg), plain_runs=5),
+        "flood": paired_ms(lambda: flood(closed, markers), lambda: flood_plain(closed, markers), plain_runs=3),
     }
-    times = {}
-    for name, (kernel, plain) in pairs.items():
-        # plain, kernel, kernel, plain: each number is the mean of two medians
-        p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel, plain))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"time {name} at {SHAPE}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms")
-    return {"err": err, "times": times}
+    library = {
+        "histogram256": time_ms(lambda: torch.bincount(one.view(-1), minlength=256)),
+    }
+    hist_one_ms = time_ms(lambda: ck.histogram256_batch(one))
+    # flood() reads its state back between sweep batches, so its event-pair
+    # time holds those host round trips; the profiler sums its kernels alone
+    flood_device_ms = profiled_device_ms(lambda: flood(closed, markers))
+    for name, (k, p) in times.items():
+        print(f"time {name}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    print(f"time histogram256 on one 2048^2 frame: kernel {hist_one_ms:.4f} ms, "
+          f"torch.bincount {library['histogram256']:.4f} ms")
+    print(f"time flood: {flood_device_ms} ms of device time by the profiler (its event-pair "
+          "time above includes the host's state checks)")
+
+    n_flag = float(np.prod(FLAGSHIP_SHAPE))
+    n_seg = float(SEG_SIDE * SEG_SIDE)
+    bounds = {
+        # u8 in and out; 5 + 5 taps, a multiply and an add each
+        "sepconv": bound_ms(2 * n_flag, 20 * n_flag),
+        "histogram256": bound_ms(n_flag + FLAGSHIP_SHAPE[0] * 256 * 4),
+        "lut_apply": bound_ms(2 * n_flag + FLAGSHIP_SHAPE[0] * 256),
+        # u8 mask in, f32 out; per pixel and pass 7 adds, 7 mins, 2 scans
+        "distance": bound_ms(5 * n_seg, 2 * 20 * n_seg),
+        # u8 mask in, int32 out
+        "cc": bound_ms(5 * n_seg),
+        # u8 image and int32 markers in, int32 labels out, one pass
+        "flood": bound_ms(9 * n_seg),
+    }
+    return {
+        "err": err,
+        "times": times,
+        "library": library,
+        "bounds": bounds,
+        "hist_one_ms": hist_one_ms,
+        "flood_device_ms": flood_device_ms,
+        "flood_sweeps": flood.last_sweeps,
+    }
 
 
-def phase_slice(dev) -> dict:
+def _counters():
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
-    from yamimageprocessor_tpu_torch.models.stages import (
-        flagship_chain,
-        flagship_forward,
-        preprocess_steps,
-    )
+    from yamimageprocessor_tpu_torch.ops.distance import distance_transform
+    from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
+    from yamimageprocessor_tpu_torch.ops.watershed import flood
+
+    return {
+        "sepconv": sep_filter_u8,
+        "histogram256": ck.histogram256_batch,
+        "lut_apply": ck.lut_apply_batch,
+        "distance": distance_transform,
+        "cc": cc_min_index,
+        "flood": flood,
+    }
+
+
+def drive(name: str, kernels, fn) -> dict:
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; the named kernels must have launched."""
+
+    counters = _counters()
+    for counter in counters.values():
+        counter.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: counters[k].launches for k in kernels}
+    print(f"{name}: launches during the main path {launches}")
+    missing = [k for k, count in launches.items() if count < 1]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched on the main path: {missing}")
+    return {"out": out, "launches": launches}
+
+
+def phase_flagship(dev) -> dict:
+    from yamimageprocessor_tpu_torch.models.stages import flagship_chain, flagship_forward, preprocess_steps
     from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
 
-    images = np.random.default_rng(0).integers(0, 256, SHAPE, dtype=np.uint8)
+    images = np.random.default_rng(0).integers(0, 256, FLAGSHIP_SHAPE, dtype=np.uint8)
+    check_digest("flagship_input", images)
     x = torch.from_numpy(images).to(dev)
     manager = PipelineManager(preprocess_steps(), device=dev)
-    counters = (sep_filter_u8, ck.histogram256_batch, ck.lut_apply_batch)
 
-    for fn in counters:
-        fn.launches = 0
-    out = flagship_forward(x)
-    frame_out = manager.apply(images[0])
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"slice: launches during the main path {launches}")
-    missing = [name for name, count in launches.items() if count < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    run = drive(
+        "flagship",
+        ("sepconv", "histogram256", "lut_apply"),
+        lambda: (flagship_forward(x), manager.apply(images[0])),
+    )
+    out, frame_out = run["out"]
+    check_digest("flagship_output", out)
+    exact("flagship manager.apply frame 0", torch.from_numpy(frame_out), out[0].cpu())
+    cpu_out = flagship_forward(torch.from_numpy(images[:2]))
+    exact("flagship cuda vs cpu (frames 0-1)", out[:2].cpu(), cpu_out)
+    print(f"flagship: {FLAGSHIP_SHAPE} on cuda == the JAX package's digest == the port's CPU run; "
+          "manager.apply == forward")
 
-    cpu_out = flagship_forward(torch.from_numpy(images))
-    exact("flagship cuda vs cpu", out.cpu(), cpu_out)
-    golden = manager.apply_host(images[0])
-    exact("flagship frame 0 vs numpy golden", out[0].cpu(), torch.from_numpy(golden))
-    exact("manager.apply vs numpy golden", torch.from_numpy(frame_out), torch.from_numpy(golden))
-    print(f"slice: flagship {SHAPE} on cuda == cpu run, frame 0 == numpy golden; manager.apply == golden")
-
-    fn, dyn = flagship_chain(SHAPE, dev)
+    fn, dyn = flagship_chain(FLAGSHIP_SHAPE, dev)
     device_ms = time_ms(lambda: fn(x, dyn))
     loop_ms = back_to_back_ms(lambda: fn(x, dyn))
-    rate = SHAPE[0] * SHAPE[1] * SHAPE[2] * STEPS / 1e6 / (loop_ms / 1e3)
+    rate = float(np.prod(FLAGSHIP_SHAPE)) * FLAGSHIP_STEPS / 1e6 / (loop_ms / 1e3)
     print(
-        f"slice: flagship chain {loop_ms:.4f} ms per batch back to back "
-        f"({RUNS} batches), {rate:.1f} MPix*steps/s; device time {device_ms:.4f} ms per batch"
+        f"flagship: {loop_ms:.4f} ms per batch back to back ({RUNS} batches), "
+        f"{rate:.1f} MPix*steps/s; device time {device_ms:.4f} ms per batch"
     )
-    return {"launches": launches}
+    return run["launches"]
+
+
+def phase_segmentation(dev) -> dict:
+    from yamimageprocessor_tpu_torch.models.stages import (
+        segmentation_chain,
+        segmentation_forward,
+        segmentation_steps,
+    )
+    from yamimageprocessor_tpu_torch.ops.watershed import flood
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    scene = dense_scene(SEG_SIDE)
+    check_digest("segmentation_input", scene)
+    x = torch.from_numpy(scene).to(dev)[None]
+    manager = PipelineManager(segmentation_steps(), device=dev)
+
+    run = drive(
+        "segmentation",
+        ("histogram256", "distance", "cc", "flood"),
+        lambda: (segmentation_forward(x), manager.apply(scene)),
+    )
+    out, frame_out = run["out"]
+    sweeps = flood.last_sweeps
+    check_digest("segmentation_output", out[0])
+    exact("segmentation manager.apply", torch.from_numpy(frame_out), out[0].cpu())
+    small = dense_scene(SEG_CPU_SIDE)
+    exact(
+        f"segmentation {SEG_CPU_SIDE}^2 cuda vs cpu",
+        segmentation_forward(torch.from_numpy(small).to(dev)[None]).cpu(),
+        segmentation_forward(torch.from_numpy(small)[None]),
+    )
+    print(f"segmentation: {SEG_SIDE}^2 on cuda == the JAX package's digest; {SEG_CPU_SIDE}^2 == the port's "
+          f"CPU run; manager.apply == forward; flood sweeps {sweeps}")
+
+    fn, dyn = segmentation_chain(x.shape, dev)
+    frames = [torch.from_numpy(dense_scene(SEG_SIDE, seed=k)).to(dev)[None] for k in range(SEG_FRAMES)]
+    for f in frames[:2]:
+        fn(f, dyn)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for f in frames:
+        fn(f, dyn)
+    end.record()
+    end.synchronize()
+    loop_ms = start.elapsed_time(end) / SEG_FRAMES
+    frame_ms = time_ms(lambda: fn(x, dyn), runs=10)
+    print(
+        f"segmentation: {loop_ms:.4f} ms per frame back to back over {SEG_FRAMES} frames "
+        f"= {1e3 / loop_ms:.2f} frames/s; {frame_ms:.4f} ms per call on the seed-3 scene "
+        f"(event pair behind a queued sleep; the flood's host checks included)"
+    )
+    return run["launches"]
 
 
 def main() -> None:
@@ -262,35 +560,56 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     kern = phase_kernels(dev)
-    sl = phase_slice(dev)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    launches = {}
+    for path_launches in (phase_flagship(dev), phase_segmentation(dev)):
+        for name, count in path_launches.items():
+            launches[name] = launches.get(name, 0) + count
+    loaded = sorted(
+        k for k in sys.modules
+        if k == "jax" or k.startswith("jax.") or k == "yamimageprocessor_tpu" or k.startswith("yamimageprocessor_tpu.")
+    )
+    if loaded:
+        raise AssertionError(f"the port loaded jax or the JAX package: {loaded[:10]}")
 
     rows = [
-        ("sepconv", "sep_filter_u8", "yamimageprocessor_tpu_torch/csrc/sepconv.cu",
-         "yamimageprocessor_tpu/ops/sepconv_pallas.py:118"),
-        ("histogram256", "histogram256_batch", "yamimageprocessor_tpu_torch/csrc/lut_hist.cu",
-         "yamimageprocessor_tpu/pallas_kernels.py:585"),
-        ("lut_apply", "lut_apply_batch", "yamimageprocessor_tpu_torch/csrc/lut_hist.cu",
-         "yamimageprocessor_tpu/pallas_kernels.py:161"),
+        ("sepconv", "yamimageprocessor_tpu_torch/csrc/sepconv.cu", "yamimageprocessor_tpu/ops/sepconv_pallas.py:118",
+         "no single call: conv2d takes float input and needs a separate pad and a rounding cast"),
+        ("histogram256", "yamimageprocessor_tpu_torch/csrc/lut_hist.cu", "yamimageprocessor_tpu/pallas_kernels.py:585",
+         "torch.bincount on one 2048^2 frame (the Otsu shape); the kernel on that frame: ms_one_frame"),
+        ("lut_apply", "yamimageprocessor_tpu_torch/csrc/lut_hist.cu", "yamimageprocessor_tpu/pallas_kernels.py:161",
+         "no single call: every PyTorch table read needs an int64 copy of the uint8 frames first"),
+        ("distance", "yamimageprocessor_tpu_torch/csrc/distance.cu", "yamimageprocessor_tpu/ops/distance_pallas.py:219",
+         "none: PyTorch has no distance transform"),
+        ("cc", "yamimageprocessor_tpu_torch/csrc/labeling.cu", "yamimageprocessor_tpu/ops/labeling_pallas.py:214",
+         "none: PyTorch has no connected-components labeling"),
+        ("flood", "yamimageprocessor_tpu_torch/csrc/watershed.cu", "yamimageprocessor_tpu/ops/watershed_pallas.py:233",
+         "none: PyTorch has no watershed"),
     ]
-    report = {
-        "kernels": [
-            {
-                "name": name,
-                "route": "cuda",
-                "source": source,
-                "replaces": replaces,
-                "launches": sl["launches"][wrapper],
-                "max_abs_err": kern["err"][name],
-                "ms": kern["times"][name][0],
-                "plain_ms": kern["times"][name][1],
-            }
-            for name, wrapper, source, replaces in rows
-        ],
-    }
+    entries = []
+    for name, source, replaces, library_note in rows:
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": kern["err"][name],
+            "ms": kern["times"][name][0],
+            "plain_ms": kern["times"][name][1],
+            "bound_ms": kern["bounds"][name][0],
+            "bound_by": kern["bounds"][name][1],
+            "library_ms": kern["library"].get(name),
+            "library_note": library_note,
+        }
+        if name == "histogram256":
+            entry["ms_one_frame"] = kern["hist_one_ms"]
+        if name == "flood":
+            entry["sweeps"] = kern["flood_sweeps"]
+            entry["ms_includes_host_checks"] = True
+            entry["device_ms"] = kern["flood_device_ms"]
+        entries.append(entry)
     print(f"card: {smi}")
-    print(json.dumps(report))
+    print(json.dumps({"kernels": entries}))
     print(
         json.dumps(
             {

@@ -2,8 +2,10 @@
 against the JAX package, bit for bit (0 differing pixels, equal dtypes).
 
 Inputs are numpy arrays from seeded generators, handed to both packages.
-The tests marked ``cuda`` run the chain on the card and skip where there
-is none; jax is imported inside the tests that use it.
+The port runs its own steps; the JAX package runs the same steps loaded
+through the shared ``to_dict`` wire format (:func:`_jax_steps`).  The
+tests marked ``cuda`` run the chain on the card and skip where there is
+none; jax is imported inside the tests that use it.
 """
 from __future__ import annotations
 
@@ -16,14 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from yamimageprocessor_tpu.models.stages import preprocess_steps
-from yamimageprocessor_tpu.ops.schema import Stage
-from yamimageprocessor_tpu.pipeline.step import PipelineStep
+from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
 from yamimageprocessor_tpu_torch import cuda_kernels as ck
-from yamimageprocessor_tpu_torch.models.stages import flagship_forward
+from yamimageprocessor_tpu_torch.models.stages import flagship_forward, preprocess_steps
+from yamimageprocessor_tpu_torch.ops.schema import Stage
 from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
 from yamimageprocessor_tpu_torch.pipeline.compiler import CompiledChain
 from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
 
 torch.set_num_threads(1)
 
@@ -40,6 +42,12 @@ def _same(got, want) -> None:
     assert got.dtype == want.dtype, (got.dtype, want.dtype)
     assert got.shape == want.shape, (got.shape, want.shape)
     assert int((got != want).sum()) == 0
+
+
+def _jax_steps(steps):
+    """The JAX package's steps for the port's: the same wire payloads."""
+
+    return [JaxStep.from_dict(s.to_dict(), function=s.function) for s in steps]
 
 
 def _frames(shape, seed=0) -> np.ndarray:
@@ -94,7 +102,7 @@ def test_manager_apply_matches_jax_and_golden(case):
     make_steps, make_frame = _CASES[case]
     frame = make_frame()
     ours = PipelineManager(make_steps(), device="cpu").apply(frame)
-    ref = JaxManager(make_steps())
+    ref = JaxManager(_jax_steps(make_steps()))
     _same(ours, np.asarray(ref.apply(frame)))
     _same(ours, ref.apply_host(frame))
 
@@ -113,7 +121,7 @@ def test_lut_runs_match_jax(make_steps, shape, batch):
     from yamimageprocessor_tpu.pipeline.compiler import CompiledChain as JaxChain
 
     ours = CompiledChain(make_steps(), shape, np.uint8, batch, device="cpu")
-    assert ours.lut_runs == JaxChain(make_steps(), shape, np.uint8, batch).lut_runs
+    assert ours.lut_runs == JaxChain(_jax_steps(make_steps()), shape, np.uint8, batch).lut_runs
 
 
 def test_nd_stack_batches_through_the_chain():
@@ -121,7 +129,7 @@ def test_nd_stack_batches_through_the_chain():
 
     stack = _frames((2, 3, 30, 40), 6)
     ours = PipelineManager(preprocess_steps(), device="cpu").apply(stack)
-    _same(ours, JaxManager(preprocess_steps()).apply_host(stack))
+    _same(ours, JaxManager(_jax_steps(preprocess_steps())).apply_host(stack))
 
 
 def test_colour_gaussian_runs_on_channel_planes():
@@ -130,8 +138,8 @@ def test_colour_gaussian_runs_on_channel_planes():
     steps = preprocess_steps(equalize=False)
     bgr = _frames((37, 58, 3), 7)
     ours = PipelineManager(steps, device="cpu").apply(bgr)
-    _same(ours, np.asarray(JaxManager(steps).apply(bgr)))
-    _same(ours, JaxManager(steps).apply_host(bgr))
+    _same(ours, np.asarray(JaxManager(_jax_steps(steps)).apply(bgr)))
+    _same(ours, JaxManager(_jax_steps(steps)).apply_host(bgr))
 
 
 def test_host_step_splits_the_chain_into_segments():
@@ -143,7 +151,7 @@ def test_host_step_splits_the_chain_into_segments():
     chain = CompiledChain(steps, (30, 44), np.uint8, device="cpu")
     assert [p.kind for p in chain.plans] == ["device", "host", "device"]
     frame = _frames((30, 44), 8)
-    _same(PipelineManager(steps, device="cpu").apply(frame), JaxManager(steps).apply_host(frame))
+    _same(PipelineManager(steps, device="cpu").apply(frame), JaxManager(_jax_steps(steps)).apply_host(frame))
 
 
 def test_clone_keeps_the_device():
@@ -178,16 +186,24 @@ def test_unported_device_ops_raise(steps, frame_shape):
 
 
 def test_port_imports_no_jax():
+    """The port runs both chains, through the chain functions and the
+    manager, without loading jax or any module of the JAX package."""
+
     code = (
         "import sys, numpy as np, torch\n"
-        "from yamimageprocessor_tpu_torch.models.stages import flagship_forward, preprocess_steps\n"
+        "from yamimageprocessor_tpu_torch.models.stages import (\n"
+        "    flagship_forward, preprocess_steps, segmentation_forward, segmentation_steps)\n"
         "from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager\n"
         "x = np.random.default_rng(0).integers(0, 256, (2, 24, 40), dtype=np.uint8)\n"
         "out = flagship_forward(torch.from_numpy(x))\n"
         "m = PipelineManager(preprocess_steps(), device='cpu')\n"
-        "assert (m.apply(x[0]) == m.apply_host(x[0])).all()\n"
-        "assert (out[0].numpy() == m.apply_host(x[0])).all()\n"
-        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if k.startswith('jax'))\n"
+        "assert (m.apply(x[0]) == out[0].numpy()).all()\n"
+        "seg = segmentation_forward(torch.from_numpy(x))\n"
+        "s = PipelineManager(segmentation_steps(), device='cpu')\n"
+        "assert (s.apply(x[1]) == seg[1].numpy()).all()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'yamimageprocessor_tpu' or k.startswith('yamimageprocessor_tpu.'))\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO_ROOT), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
@@ -219,4 +235,4 @@ def test_cuda_manager_apply_matches_golden(case):
     make_steps, make_frame = _CASES[case]
     frame = make_frame()
     manager = PipelineManager(make_steps(), device="cuda")
-    _same(manager.apply(frame), manager.apply_host(frame))
+    _same(manager.apply(frame), PipelineManager(make_steps(), device="cpu").apply(frame))

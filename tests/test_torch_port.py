@@ -1,0 +1,156 @@
+"""The port's own copies of the JAX package's host code against the
+originals: op records, step-name resolution, parameter splits and halos,
+the tap and table constructors, and the step wire format.  The port
+imports nothing of the JAX package, so these copies must stay equal.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from yamimageprocessor_tpu.ops import _kernels as JK
+from yamimageprocessor_tpu.ops.registry import get_impl as jax_impl
+from yamimageprocessor_tpu.ops.schema import Stage as JaxStage
+from yamimageprocessor_tpu.ops.schema import op_by_identifier as jax_schema
+from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
+from yamimageprocessor_tpu_torch.models import stages as S
+from yamimageprocessor_tpu_torch.ops import tables as T
+from yamimageprocessor_tpu_torch.ops.registry import get_impl
+from yamimageprocessor_tpu_torch.ops.schema import ALL_OPS, Stage, op_by_identifier
+from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep, StepExecutionMetadata
+
+PORTED = sorted(op.identifier for op in ALL_OPS)
+
+
+def test_the_port_has_the_eleven_ops_of_its_two_chains():
+    assert PORTED == sorted(
+        [
+            "preprocessing.noise_reduction",
+            "preprocessing.histogram_equalization",
+            "preprocessing.brightness_contrast",
+            "preprocessing.gamma",
+            "segmentation.global_threshold",
+            "segmentation.otsu",
+            "segmentation.opening",
+            "segmentation.closing",
+            "segmentation.dilation",
+            "segmentation.erosion",
+            "segmentation.watershed",
+        ]
+    )
+
+
+@pytest.mark.parametrize("identifier", PORTED)
+def test_records_and_flags_match_jax(identifier):
+    ours, ref = op_by_identifier(identifier), jax_schema(identifier)
+    assert (ours.identifier, ours.stage.value, ours.method, ours.step_name) == (
+        ref.identifier,
+        ref.stage.value,
+        ref.method,
+        ref.step_name,
+    )
+    impl, jimpl = get_impl(identifier), jax_impl(identifier)
+    assert (impl.lut_fn is not None) == (jimpl.lut_fn is not None)
+    assert impl.lut_needs_image == jimpl.lut_needs_image
+    assert tuple(impl.lut_ndims) == tuple(jimpl.lut_ndims)
+
+
+@pytest.mark.parametrize("identifier", PORTED)
+def test_step_names_resolve_alike(identifier):
+    op = op_by_identifier(identifier)
+    ours = PipelineStep(name=op.step_name, stage=op.stage)
+    ref = JaxStep(name=op.step_name, stage=JaxStage(op.stage.value))
+    assert ours.op_id == ref.op_id == identifier
+
+
+_SPLIT_CASES = [
+    ("preprocessing.noise_reduction", {}),
+    ("preprocessing.noise_reduction", {"method": "Gaussian", "ksize": 5}),
+    ("preprocessing.noise_reduction", {"method": "Gaussian", "ksize": 8}),
+    ("preprocessing.noise_reduction", {"method": "Gaussian", "ksize": 13}),
+    ("preprocessing.noise_reduction", {"method": "Median", "ksize": 3}),
+    ("preprocessing.histogram_equalization", {}),
+    ("preprocessing.brightness_contrast", {}),
+    ("preprocessing.brightness_contrast", {"alpha": 1.2, "beta": 4.0}),
+    ("preprocessing.gamma", {"value": 0.7}),
+    ("preprocessing.gamma", {"value": 2.2}),
+    ("segmentation.global_threshold", {}),
+    ("segmentation.global_threshold", {"threshold": 90}),
+    ("segmentation.otsu", {}),
+    ("segmentation.watershed", {}),
+    ("segmentation.watershed", {"kernel_size": 5, "opening_iterations": 1, "dilation_iterations": 2,
+                                "distance_threshold_factor": 0.5}),
+    ("segmentation.opening", {"kernel_shape": "Rectangular", "kernel_size": 3, "iterations": 2}),
+    ("segmentation.closing", {"kernel_shape": "Elliptical", "kernel_size": 5, "iterations": 1}),
+    ("segmentation.dilation", {}),
+    ("segmentation.erosion", {"kernel_shape": "Cross", "kernel_size": 7, "iterations": 0}),
+]
+
+
+@pytest.mark.parametrize("identifier, params", _SPLIT_CASES)
+def test_splits_and_halos_match_jax(identifier, params):
+    static, dyn = get_impl(identifier).split(params)
+    jstatic, jdyn = jax_impl(identifier).split_params(params, (40, 60))
+    assert static == jstatic
+    assert sorted(dyn) == sorted(jdyn)
+    for key in dyn:
+        ours, ref = np.asarray(dyn[key]), np.asarray(jdyn[key])
+        assert ours.dtype == ref.dtype and ours.shape == ref.shape
+        assert (ours == ref).all()
+    assert get_impl(identifier).halo_for(params) == jax_impl(identifier).halo_for(params)
+
+
+@pytest.mark.parametrize("ksize", [1, 3, 5, 7, 9, 11, 13, 19, 31])
+def test_gaussian_tables_match_jax(ksize):
+    assert T.gaussian_sigma_for_ksize(ksize) == JK.gaussian_sigma_for_ksize(ksize)
+    for sigma in (0.0, 1.5):
+        ours, ref = T.gaussian_taps(ksize, sigma), JK.gaussian_taps(ksize, sigma)
+        assert ours.dtype == ref.dtype and (ours == ref).all()
+
+
+def test_gamma_tables_and_structuring_elements_match_jax():
+    for value in (0.1, 0.45, 1.0, 2.2, 10.0):
+        assert (T.gamma_lut(value) == JK.gamma_lut(value)).all()
+    for shape in ("Rectangular", "Elliptical", "Cross", "unknown"):
+        for size in (1, 2, 3, 4, 5, 7, 9):
+            ours, ref = T.structuring_element(shape, size), JK.structuring_element(shape, size)
+            assert ours.dtype == ref.dtype and (ours == ref).all()
+
+
+@pytest.mark.parametrize(
+    "make_steps", [S.preprocess_steps, S.segmentation_steps, S.full_pipeline_steps], ids=["pre", "seg", "full"]
+)
+def test_stage_chains_match_jax_and_round_trip(make_steps):
+    from yamimageprocessor_tpu.models import stages as JS
+
+    ours = make_steps()
+    ref = getattr(JS, make_steps.__name__)()
+    assert [s.to_dict() for s in ours] == [s.to_dict() for s in ref]
+    loaded = [PipelineStep.from_dict(s.to_dict()) for s in ref]
+    assert [s.to_dict() for s in loaded] == [s.to_dict() for s in ref]
+
+
+def test_step_execution_metadata_round_trips():
+    step = PipelineStep(
+        name="Gamma",
+        stage=Stage.PREPROCESSING,
+        params={"value": 2.0},
+        execution=StepExecutionMetadata(supports_inplace=True),
+        supports_tiled_input=True,
+    )
+    ref = JaxStep.from_dict(step.to_dict())
+    assert ref.to_dict() == step.to_dict()
+    assert PipelineStep.from_dict(ref.to_dict()).to_dict() == step.to_dict()
+    assert step.clone().to_dict() == step.to_dict()
+
+
+def test_unknown_ops_and_host_steps():
+    with pytest.raises(NotImplementedError):
+        op_by_identifier("preprocessing.sharpen")
+    with pytest.raises(NotImplementedError):
+        _ = PipelineStep(name="Sharpen", op_id="preprocessing.sharpen").impl
+    host = PipelineStep(name="Invert", function=lambda img: 255 - img)
+    assert host.impl is None and not host.is_device_capable()
+    assert (host.apply(np.zeros((2, 2), np.uint8)) == 255).all()
+    with pytest.raises(NotImplementedError):
+        PipelineStep(name="Otsu", stage=Stage.SEGMENTATION).apply(np.zeros((2, 2), np.uint8))

@@ -1,0 +1,463 @@
+"""The torch port's segmentation slice against the JAX package, bit for bit.
+
+Thresholds, morphology, the chamfer distance, connected components, the
+watershed flood and the whole segmentation chain (Otsu -> open -> close
+-> marker watershed), each on the same numpy inputs in both packages: 0
+differing values and equal dtypes.  On the CPU every wrapper runs its
+plain PyTorch version; the Pallas kernels the CUDA kernels replace run in
+interpret mode at one small shape each.  The tests marked ``cuda`` hold
+each kernel against its plain version on the card, and the chain on the
+card against the port's CPU run; they skip where there is no card::
+
+    python -m pytest --noconftest tests/test_torch_segmentation.py -m cuda
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
+from yamimageprocessor_tpu_torch.models.stages import (
+    full_pipeline_steps,
+    segmentation_forward,
+    segmentation_steps,
+)
+from yamimageprocessor_tpu_torch.ops import morphology as M
+from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+from yamimageprocessor_tpu_torch.ops.distance import MAX_WIDTH, distance_transform, distance_transform_plain
+from yamimageprocessor_tpu_torch.ops.labeling import (
+    SENTINEL,
+    cc_min_index,
+    cc_min_index_plain,
+    label,
+    label_seeds,
+)
+from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_from_hist, otsu_threshold
+from yamimageprocessor_tpu_torch.ops.watershed import flood, flood_plain, paint_boundaries
+from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+torch.set_num_threads(1)
+
+cuda = pytest.mark.cuda
+needs_card = pytest.mark.skipif(
+    "not torch.cuda.is_available()", reason="needs a CUDA card (the kernels run only there)"
+)
+
+
+def _same(got, want) -> None:
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert int((got != want).sum()) == 0
+
+
+def _t(array) -> torch.Tensor:
+    """A numpy frame as a batch of one."""
+
+    return torch.from_numpy(np.ascontiguousarray(array))[None]
+
+
+def _jax_steps(steps):
+    return [JaxStep.from_dict(s.to_dict(), function=s.function) for s in steps]
+
+
+def _scene(side: int, seed: int = 3, pitch: int = 64, bgr: bool = False) -> np.ndarray:
+    """``bench.py:_dense_scene`` with a smaller pitch and radii: a grid of
+    noisy disks, so a 256^2 frame has 16 cells."""
+
+    rng = np.random.default_rng(seed)
+    img = np.zeros((side, side), np.uint8)
+    yy, xx = np.ogrid[:side, :side]
+    for cy in range(pitch // 2, side, pitch):
+        for cx in range(pitch // 2, side, pitch):
+            r = pitch * 5 // 16 + int(rng.integers(0, pitch // 10))
+            img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 170 + int(rng.integers(0, 60))
+    noise = rng.integers(-12, 13, img.shape, dtype=np.int16)
+    gray = (img.astype(np.int16) + noise).clip(0, 255).astype(np.uint8)
+    if not bgr:
+        return gray
+    tint = rng.integers(-20, 21, (1, 1, 3), dtype=np.int16)
+    return (gray[..., None].astype(np.int16) + tint).clip(0, 255).astype(np.uint8)
+
+
+def _disks(h, w, seed=0, blobs=6):
+    rng = np.random.default_rng(seed)
+    fg = np.zeros((h, w), bool)
+    yy, xx = np.mgrid[:h, :w]
+    for _ in range(blobs):
+        cy, cx = rng.integers(0, h), rng.integers(0, w)
+        r = int(rng.integers(3, max(4, min(h, w) // 5)))
+        fg |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+    return fg
+
+
+def _spiral(side: int) -> np.ndarray:
+    fg = np.zeros((side, side), bool)
+    top, bottom, left, right = 0, side - 1, 0, side - 1
+    while top < bottom and left < right:
+        fg[top, left : right + 1] = True
+        fg[top : bottom + 1, right] = True
+        fg[bottom, left : right + 1] = True
+        fg[top : bottom + 1, left] = True
+        top, bottom, left, right = top + 4, bottom - 4, left + 4, right - 4
+    return fg
+
+
+def _flood_scene(h, w, seed=0, blobs=3):
+    """A gray scene with disks and point markers (the JAX flood tests')."""
+
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    markers = np.zeros((h, w), np.int32)
+    for i in range(blobs):
+        cy, cx = rng.integers(8, h - 8), rng.integers(8, w - 8)
+        r = int(rng.integers(4, max(5, min(h, w) // 6)))
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 150 + i * 30
+        markers[cy, cx] = i + 2
+    img = (img.astype(np.int16) + rng.integers(-8, 9, img.shape)).clip(0, 255).astype(np.uint8)
+    markers[img > 250] = 1
+    markers[1, 1] = 1
+    return img, markers
+
+
+# ---------------------------------------------------------------------------
+# Otsu and the thresholds
+
+
+def _histograms() -> np.ndarray:
+    """About 100 histograms: empty, constant, two-level, uniform noise,
+    sparse, and unimodal and bimodal levels of megapixel frames."""
+
+    rng = np.random.default_rng(21)
+    hists = [np.zeros(256, np.int64)]
+    for level in (0, 77, 255):
+        h = np.zeros(256, np.int64)
+        h[level] = 4096
+        hists.append(h)
+    for a, b in ((0, 255), (10, 11), (30, 200), (254, 255)):
+        h = np.zeros(256, np.int64)
+        h[a], h[b] = rng.integers(1, 10**6, 2)
+        hists.append(h)
+    for k in range(88):
+        kind = k % 4
+        if kind == 0:
+            h = rng.integers(0, 5000, 256)
+        elif kind == 1:
+            h = np.bincount(rng.normal(rng.uniform(40, 220), rng.uniform(2, 40), 2**20).clip(0, 255).astype(int), minlength=256)
+        elif kind == 2:
+            lo = rng.normal(rng.uniform(20, 110), rng.uniform(3, 25), 2**19)
+            hi = rng.normal(rng.uniform(140, 235), rng.uniform(3, 25), 2**19)
+            h = np.bincount(np.concatenate([lo, hi]).clip(0, 255).astype(int), minlength=256)
+        else:
+            h = rng.integers(0, 4, 256) * (rng.random(256) < 0.08)
+        hists.append(h)
+    return np.stack(hists).astype(np.int32)
+
+
+def test_otsu_from_hist_matches_jax_on_every_histogram():
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.threshold import otsu_from_hist_j
+
+    hists = _histograms()
+    want = np.asarray(jax.jit(jax.vmap(otsu_from_hist_j))(jnp.asarray(hists)))
+    got = otsu_from_hist(torch.from_numpy(hists))
+    _same(got, want)
+    # one histogram alone (the unbatched chain's form) gives the same
+    for h in hists[:12]:
+        assert int(jax.jit(otsu_from_hist_j)(jnp.asarray(h))) == int(otsu_from_hist(torch.from_numpy(h)[None])[0])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_otsu_and_binary_match_jax_on_a_scene(inverse):
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.color import bgr_to_gray_j
+    from yamimageprocessor_tpu.ops.threshold import binary_j, otsu_threshold_j
+
+    bgr = _scene(96, seed=5, pitch=48, bgr=True)
+    gray_j = bgr_to_gray_j(jnp.asarray(bgr))
+    gray = bgr_to_gray(_t(bgr))
+    _same(gray[0], gray_j)
+    t = otsu_threshold(gray)
+    assert t.dtype == torch.int32 and int(t[0]) == int(otsu_threshold_j(gray_j))
+    _same(binary(gray, t, inverse=inverse)[0], binary_j(gray_j, otsu_threshold_j(gray_j), inverse=inverse))
+    _same(binary(gray, torch.tensor(100, dtype=torch.int32))[0], binary_j(gray_j, np.int32(100)))
+
+
+# ---------------------------------------------------------------------------
+# morphology
+
+
+@pytest.mark.parametrize("op", ["erode", "dilate", "open", "close"])
+@pytest.mark.parametrize("shape", [(23, 31), (16, 16, 3), (5, 40)])
+def test_morphology_matches_jax(op, shape):
+    from yamimageprocessor_tpu.ops import morphology as JM
+
+    rng = np.random.default_rng(len(shape) * 7 + shape[0])
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    img[img < 100] = 0  # plateaus and edges
+    ours = {"erode": M.erode, "dilate": M.dilate, "open": M.open_, "close": M.close}[op]
+    ref = getattr(JM, f"{op}_j")
+    for kernel_shape, size in (("Rectangular", 3), ("Rectangular", 5), ("Elliptical", 5), ("Cross", 3)):
+        se = M.make_se(kernel_shape, size)
+        for iterations in (0, 1, 2):
+            _same(ours(_t(img), se, iterations)[0], ref(img, se, iterations))
+
+
+# ---------------------------------------------------------------------------
+# chamfer distance
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (8, 1030), (1, 5), (6, 1), (3, 2)])
+def test_distance_matches_jax_bit_for_bit(shape):
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.distance import distance_transform_j
+
+    rng = np.random.default_rng(shape[1])
+    mask = (rng.random(shape) > 0.3).astype(np.uint8) * 255
+    mask[shape[0] // 3 :, : shape[1] // 2] = 255
+    want = np.asarray(jax.jit(distance_transform_j)(jnp.asarray(mask)))
+    got = distance_transform(_t(mask))[0]
+    _same(got.view(torch.int32), want.view(np.int32))
+
+
+def test_distance_all_foreground_and_batches():
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.distance import distance_transform_j
+
+    masks = np.stack([np.full((37, 53), 255, np.uint8), _disks(37, 53, seed=2).astype(np.uint8)])
+    masks[1] = 255 - masks[1] * 255
+    got = distance_transform(torch.from_numpy(masks))
+    for i in range(2):
+        want = np.asarray(jax.jit(distance_transform_j)(jnp.asarray(masks[i])))
+        _same(got[i].view(torch.int32), want.view(np.int32))
+    assert float(got[0].min()) > 2.9e8  # no zero pixel: everything stays near INF
+
+
+def test_distance_matches_the_pallas_kernel_in_interpret_mode():
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.distance_pallas import distance_transform_pallas
+
+    rng = np.random.default_rng(4)
+    mask = (rng.random((16, 130)) > 0.6).astype(np.uint8) * 255
+    want = np.asarray(distance_transform_pallas(jnp.asarray(mask), interpret=True))
+    _same(distance_transform_plain(_t(mask))[0].view(torch.int32), want.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# connected components
+
+
+def _fg_cases():
+    rng = np.random.default_rng(11)
+    return {
+        "disks": _disks(40, 56, seed=56),
+        "noise": rng.random((48, 160)) > 0.55,
+        "spiral": _spiral(64),
+        "empty": np.zeros((24, 36), bool),
+        "full": np.ones((24, 36), bool),
+        "corners": np.pad(np.ones((1, 1), bool), ((0, 29), (0, 39))) | np.pad(np.ones((1, 1), bool), ((29, 0), (39, 0))),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_fg_cases()))
+def test_label_matches_jax_and_scipy(case):
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.labeling import label_j, label_np
+
+    fg = _fg_cases()[case]
+    got = label(_t(fg))[0]
+    _same(got, np.asarray(jax.jit(label_j)(jnp.asarray(fg))))
+    _same(got, label_np(fg))
+    seeds = label_seeds(_t(fg))[0].numpy()
+    assert seeds.dtype == np.int32 and (seeds[~fg] == 1).all()
+    # distinct per component, as the flood needs: an injective relabeling
+    ref = label_np(fg)[fg]
+    assert len(set(zip(ref.tolist(), seeds[fg].tolist()))) == len(set(ref.tolist()))
+
+
+def test_cc_min_index_matches_the_pallas_kernel_in_interpret_mode():
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.labeling_pallas import SENTINEL as PALLAS_SENTINEL
+    from yamimageprocessor_tpu.ops.labeling_pallas import cc_pallas
+
+    fg = _disks(40, 56, seed=3) | (np.random.default_rng(3).random((40, 56)) > 0.8)
+    want = np.asarray(cc_pallas(jnp.asarray(fg), block_rows=8, interpret=True))
+    assert SENTINEL == int(PALLAS_SENTINEL)
+    _same(cc_min_index(_t(fg.astype(np.uint8)))[0], want)
+
+
+# ---------------------------------------------------------------------------
+# watershed flood
+
+
+@pytest.mark.parametrize("shape", [(40, 56), (33, 48)])
+def test_flood_matches_jax(shape):
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.watershed import paint_boundaries_j, watershed_j
+
+    img, markers = _flood_scene(*shape, seed=shape[0])
+    bgr = np.stack([img, np.roll(img, 2, 1), img], axis=-1)
+    for image in (img, bgr):
+        want = np.asarray(jax.jit(watershed_j)(jnp.asarray(image), jnp.asarray(markers)))
+        got = flood(_t(image), _t(markers))[0]
+        _same(got, want)
+        _same(paint_boundaries(_t(image), got[None])[0], paint_boundaries_j(jnp.asarray(image), jnp.asarray(want)))
+
+
+def test_flood_matches_the_pallas_kernel_in_interpret_mode():
+    from yamimageprocessor_tpu.ops.watershed_pallas import flood_pallas
+
+    img, markers = _flood_scene(40, 56, seed=40)
+    want = np.asarray(flood_pallas(img, markers, block_rows=16, k_sweeps=4, interpret=True))
+    _same(flood_plain(_t(img), _t(markers))[0], want)
+
+
+def test_flood_frames_of_a_batch_flood_alone():
+    frames = [_flood_scene(40, 56, seed=s) for s in (1, 2, 3)]
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames]))
+    markers = torch.from_numpy(np.stack([f[1] for f in frames]))
+    batched = flood(imgs, markers)
+    for i in range(3):
+        _same(batched[i], flood(imgs[i : i + 1], markers[i : i + 1])[0])
+
+
+# ---------------------------------------------------------------------------
+# the chain
+
+
+def _jax_run(steps, frame):
+    from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
+
+    batch = frame.shape[0] if frame.ndim == 3 and frame.shape[-1] not in (3, 4) else 0
+    return get_compiled_chain(_jax_steps(steps), frame.shape, frame.dtype, batch=batch).run_final(frame)
+
+
+@pytest.mark.parametrize("kind", ["gray", "bgr"])
+def test_segmentation_chain_matches_jax(kind):
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+
+    frame = _scene(256, seed=3, bgr=kind == "bgr")
+    ours = PipelineManager(segmentation_steps(), device="cpu").apply(frame)
+    _same(ours, _jax_run(segmentation_steps(), frame))
+    _same(ours, JaxManager(_jax_steps(segmentation_steps())).apply_host(frame))
+    assert (ours == 0).any() and (ours == 255).any()
+
+
+def test_segmentation_chain_batches_an_nd_stack():
+    stack = np.stack([_scene(96, seed=s, pitch=48) for s in (0, 1, 2)])
+    ours = PipelineManager(segmentation_steps(), device="cpu").apply(stack)
+    _same(ours, _jax_run(segmentation_steps(), stack))
+    _same(segmentation_forward(torch.from_numpy(stack)), ours)
+
+
+def test_watershed_step_on_bgr_paints_red():
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+
+    bgr = _scene(96, seed=9, pitch=48, bgr=True)
+    steps = segmentation_steps()[3:]
+    ours = PipelineManager(steps, device="cpu").apply(bgr)
+    _same(ours, _jax_run(steps, bgr))
+    _same(ours, JaxManager(_jax_steps(steps)).apply_host(bgr))
+    assert ((ours == [0, 0, 255]).all(axis=-1)).any()
+
+
+def test_full_pipeline_matches_jax():
+    frame = _scene(96, seed=4, pitch=48)
+    ours = PipelineManager(full_pipeline_steps(), device="cpu").apply(frame)
+    _same(ours, _jax_run(full_pipeline_steps(), frame))
+
+
+# ---------------------------------------------------------------------------
+# wrappers on the CPU
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    before = (distance_transform.launches, cc_min_index.launches, flood.launches)
+    mask = torch.from_numpy(_disks(20, 30, seed=1).astype(np.uint8))[None]
+    distance_transform(mask)
+    _same(cc_min_index(mask), cc_min_index_plain(mask))
+    flood(mask * 200, label_seeds(mask > 0))
+    assert (distance_transform.launches, cc_min_index.launches, flood.launches) == before
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty((1, 4, 4), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        distance_transform(meta)
+    with pytest.raises(ValueError):
+        cc_min_index(meta)
+    with pytest.raises(ValueError):
+        flood(meta, torch.empty((1, 4, 4), dtype=torch.int32, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (on the card only)
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize(
+    "shape", [(1, 7, 5), (3, 37, 1001), (2, 300, 4100), (1, 1, 9), (1, 9, 1), (1, 3, MAX_WIDTH)]
+)
+def test_cuda_distance_matches_plain(shape):
+    gen = torch.Generator(device="cuda").manual_seed(shape[2])
+    masks = (torch.rand(shape, generator=gen, device="cuda") > 0.3).to(torch.uint8) * 255
+    before = distance_transform.launches
+    got = distance_transform(masks)
+    torch.cuda.synchronize()
+    assert distance_transform.launches == before + 1
+    _same(got.view(torch.int32), distance_transform_plain(masks).view(torch.int32).cpu())
+
+
+@cuda
+@needs_card
+def test_cuda_distance_refuses_frames_wider_than_shared_memory():
+    with pytest.raises(ValueError):
+        distance_transform(torch.zeros((1, 2, MAX_WIDTH + 1), dtype=torch.uint8, device="cuda"))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("case", sorted(_fg_cases()))
+def test_cuda_cc_matches_plain(case):
+    fg = torch.from_numpy(_fg_cases()[case].astype(np.uint8))[None].cuda()
+    _same(cc_min_index(fg), cc_min_index_plain(fg).cpu())
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("shape", [(40, 56), (33, 48)])
+def test_cuda_flood_matches_plain(shape):
+    img, markers = _flood_scene(*shape, seed=shape[0])
+    bgr = np.stack([img, np.roll(img, 2, 1), img], axis=-1)
+    for image in (img, bgr):
+        got = flood(_t(image).cuda(), _t(markers).cuda())
+        _same(got, flood_plain(_t(image), _t(markers)))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("kind", ["gray", "bgr"])
+def test_cuda_segmentation_chain_matches_cpu(kind):
+    frame = _scene(256, seed=3, bgr=kind == "bgr")
+    before = (distance_transform.launches, cc_min_index.launches, flood.launches)
+    got = PipelineManager(segmentation_steps(), device="cuda").apply(frame)
+    after = (distance_transform.launches, cc_min_index.launches, flood.launches)
+    assert all(b > a for a, b in zip(before, after))
+    _same(got, PipelineManager(segmentation_steps(), device="cpu").apply(frame))

@@ -1,10 +1,13 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-All ``csrc/*.cu`` compile into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds, not minutes)::
+Every ``csrc/*.cu`` compiles to an object, one nvcc process per source,
+all started together, and the objects link into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes)::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/yam_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o <name>.o csrc/<name>.cu          # each source, in parallel
+    nvcc -shared -o build/torch_kernels/yam_kernels_<hash>.so *.o
 
 The file name carries a hash of the sources and flags: the library is built
 at first use and rebuilt only when a source changes.  nvcc is taken from
@@ -34,7 +37,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -49,6 +51,9 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_sepconv_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_histogram256_u8": (_P, _P, _L, _I, _I, _P),
     "yam_lut_apply_u8": (_P, _P, _P, _L, _L, _I, _I, _P),
+    "yam_chamfer_u8": (_P, _P, _I, _I, _I, _P),
+    "yam_cc_min_index": (_P, _P, _I, _I, _I, _P),
+    "yam_flood_sweeps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -85,29 +90,44 @@ def _nvcc() -> str:
 def build() -> Tuple[Path, float]:
     """Compile ``csrc/*.cu`` unless the library for them exists.
 
-    Returns the library path and the seconds spent compiling (0.0 when it
-    was already built).  The compiler's output goes to ``<library>.log``.
+    Returns the library path and the seconds spent building (0.0 when it
+    was already built).  The compilers' output goes to ``<library>.log``.
     """
 
     path = library_path()
     if path.is_file():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private name, then an atomic rename: concurrent builders never see
+    # private names, then an atomic rename: a concurrent build never sees
     # a half-written library
+    work = BUILD_DIR / f"{path.stem}.{os.getpid()}.objs"
+    work.mkdir(exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, proc))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode})")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode})")
     seconds = time.perf_counter() - start
-    path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    shutil.rmtree(work, ignore_errors=True)
+    path.with_suffix(".log").write_text("\n".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(log))
     os.replace(tmp, path)
     return path, seconds
 

@@ -10,20 +10,23 @@ colour (YCrCb) equalization raise ``NotImplementedError``.
 Each function takes a batch ``(B, *item_shape)`` of uint8 items (see
 :mod:`.registry`).  No value is read back to the host: the equalization
 table's first bin, remainder and constant-frame case are tensor ops.
+
+The parameter splits are copies of the JAX package's
+(``ops/preprocess.py:76-85, 105-110, 266-280, 576-596``), with its host
+dtypes: float32 taps, alpha and beta, a uint8 gamma table.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Mapping
+
+import numpy as np
 import torch
 
 from yamimageprocessor_tpu_torch.ops.filters import to_uint8
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
-from yamimageprocessor_tpu_torch.ops.registry import register_op
+from yamimageprocessor_tpu_torch.ops.registry import register_op, require_uint8
 from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8, sep_filter_u8_planes
-
-
-def _require_uint8(op_id: str, imgs: torch.Tensor) -> None:
-    if imgs.dtype != torch.uint8:
-        raise NotImplementedError(f"{op_id}: only uint8 images are ported to torch, got {imgs.dtype}")
+from yamimageprocessor_tpu_torch.ops.tables import gamma_lut, gaussian_taps
 
 
 # ---------------------------------------------------------------------------
@@ -39,27 +42,39 @@ def brightness_contrast_lut(imgs, dyn):
 
 
 def brightness_contrast(imgs, dyn):
-    _require_uint8("preprocessing.brightness_contrast", imgs)
+    require_uint8("preprocessing.brightness_contrast", imgs)
     return apply_lut(imgs, brightness_contrast_lut(imgs, dyn))
 
 
 register_op(
     "preprocessing.brightness_contrast",
     device_fn=brightness_contrast,
+    split=lambda params: (
+        {},
+        {
+            "alpha": np.float32(params.get("alpha", 1.0)),
+            "beta": np.float32(params.get("beta", 0.0)),
+        },
+    ),
     lut_fn=brightness_contrast_lut,
 )
 
 
 # ---------------------------------------------------------------------------
-# Gamma (the table comes from the reference split)
+# Gamma (the table comes from the split)
 
 
 def gamma(imgs, dyn):
-    _require_uint8("preprocessing.gamma", imgs)
+    require_uint8("preprocessing.gamma", imgs)
     return apply_lut(imgs, dyn["lut"])
 
 
-register_op("preprocessing.gamma", device_fn=gamma, lut_fn=lambda imgs, dyn: dyn["lut"])
+register_op(
+    "preprocessing.gamma",
+    device_fn=gamma,
+    split=lambda params: ({}, {"lut": gamma_lut(float(params.get("value", 1.0)))}),
+    lut_fn=lambda imgs, dyn: dyn["lut"],
+)
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +113,7 @@ def histogram_equalization(imgs, dyn):
             "preprocessing.histogram_equalization: colour (YCrCb) equalization "
             "is not ported to torch yet"
         )
-    _require_uint8("preprocessing.histogram_equalization", imgs)
+    require_uint8("preprocessing.histogram_equalization", imgs)
     return apply_lut(imgs, equalization_lut_from_images(imgs))
 
 
@@ -106,6 +121,8 @@ register_op(
     "preprocessing.histogram_equalization",
     device_fn=histogram_equalization,
     lut_fn=lambda imgs, dyn: equalization_lut_from_images(imgs),
+    lut_needs_image=True,
+    lut_ndims=(2,),
 )
 
 
@@ -120,14 +137,36 @@ def noise_reduction(imgs, dyn, *, method: str = "Gaussian", ksize: int = 5):
         )
     if method != "Gaussian":
         return imgs  # the reference passes unknown methods through
-    _require_uint8("preprocessing.noise_reduction", imgs)
+    require_uint8("preprocessing.noise_reduction", imgs)
     taps = dyn["taps"]
     if imgs.ndim == 3:
         return sep_filter_u8(imgs.contiguous(), taps, taps)
     return sep_filter_u8_planes(imgs, taps, taps)
 
 
-register_op("preprocessing.noise_reduction", device_fn=noise_reduction)
+def _odd(ksize: int) -> int:
+    ksize = int(ksize)
+    return ksize + 1 if ksize % 2 == 0 else ksize
+
+
+def _noise_split(params: Mapping[str, Any]):
+    """The reference split for Gaussian and Median; Bilateral's weight
+    tables are not copied, since Bilateral raises here."""
+
+    method = str(params.get("method", "Gaussian"))
+    ksize = _odd(int(params.get("ksize", 5)))
+    dyn: Dict[str, Any] = {}
+    if method == "Gaussian":
+        dyn["taps"] = gaussian_taps(ksize, 0.0).astype(np.float32)
+    return {"method": method, "ksize": ksize}, dyn
+
+
+register_op(
+    "preprocessing.noise_reduction",
+    device_fn=noise_reduction,
+    split=_noise_split,
+    halo=lambda params: max(_odd(int(params.get("ksize", 5))) // 2, 1),
+)
 
 
 __all__ = [

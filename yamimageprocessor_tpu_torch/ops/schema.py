@@ -1,0 +1,80 @@
+"""Op records of the ported ops (the port's copy of part of
+``yamimageprocessor_tpu/ops/schema.py``).
+
+A record names an op: its identifier, its stage, its settings method and
+the step name a :class:`~yamimageprocessor_tpu_torch.pipeline.step.
+PipelineStep` resolves it by.  Identifiers, methods and step names are
+letter for letter the JAX package's, so ``PipelineStep(name="Otsu",
+stage=Stage.SEGMENTATION)`` resolves to ``segmentation.otsu`` in both
+packages, and a step's ``to_dict()`` from one package loads in the other.
+Parameter specs, settings keys and the ops not ported yet are not copied.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+from typing import Dict, Optional, Tuple
+
+
+class Stage(Enum):
+    """Pipeline stages (the values are the JAX package's)."""
+
+    PREPROCESSING = "preprocessing"
+    SEGMENTATION = "segmentation"
+    ANALYSIS = "analysis"
+
+
+@dataclass(frozen=True)
+class OpSchema:
+    """Static description of one ported op."""
+
+    identifier: str  # canonical id, e.g. "preprocessing.gamma"
+    stage: Stage
+    method: str  # settings method name, e.g. "gamma" or "Otsu"
+    #: the pipeline-step name: the reference module identifier for
+    #: preprocessing ops, the method for segmentation ops
+    step_name: str
+
+
+ALL_OPS: Tuple[OpSchema, ...] = (
+    OpSchema("preprocessing.brightness_contrast", Stage.PREPROCESSING, "brightness_contrast", "BrightnessContrast"),
+    OpSchema("preprocessing.gamma", Stage.PREPROCESSING, "gamma", "Gamma"),
+    OpSchema("preprocessing.noise_reduction", Stage.PREPROCESSING, "noise_reduction", "NoiseReduction"),
+    OpSchema(
+        "preprocessing.histogram_equalization",
+        Stage.PREPROCESSING,
+        "histogram_equalization",
+        "histogram_equalization",
+    ),
+    OpSchema("segmentation.global_threshold", Stage.SEGMENTATION, "Global", "Global"),
+    OpSchema("segmentation.otsu", Stage.SEGMENTATION, "Otsu", "Otsu"),
+    OpSchema("segmentation.watershed", Stage.SEGMENTATION, "Watershed", "Watershed"),
+    OpSchema("segmentation.opening", Stage.SEGMENTATION, "Opening", "Opening"),
+    OpSchema("segmentation.closing", Stage.SEGMENTATION, "Closing", "Closing"),
+    OpSchema("segmentation.dilation", Stage.SEGMENTATION, "Dilation", "Dilation"),
+    OpSchema("segmentation.erosion", Stage.SEGMENTATION, "Erosion", "Erosion"),
+)
+
+_BY_ID: Dict[str, OpSchema] = {op.identifier: op for op in ALL_OPS}
+
+
+def op_by_identifier(identifier: str) -> OpSchema:
+    """The record of a ported op; raises ``NotImplementedError`` for any
+    other identifier."""
+
+    try:
+        return _BY_ID[identifier]
+    except KeyError:
+        raise NotImplementedError(f"op {identifier!r} has no torch implementation yet") from None
+
+
+def op_by_step_name(stage: Stage, name: str) -> Optional[OpSchema]:
+    """The ported op a step of this stage and name runs, or None."""
+
+    for op in ALL_OPS:
+        if op.stage == stage and op.step_name == name:
+            return op
+    return None
+
+
+__all__ = ["ALL_OPS", "OpSchema", "Stage", "op_by_identifier", "op_by_step_name"]

@@ -1,0 +1,80 @@
+"""Host-side constructors of filter taps, tables and structuring elements
+(the port's copy of part of ``yamimageprocessor_tpu/ops/_kernels.py``).
+
+They run in numpy on the host, in float64 where the reference does, and
+feed the device as small dynamic inputs, so a parameter change is a new
+value and not new code.  Semantics are OpenCV's (``getGaussianKernel``,
+the reference's gamma table, ``getStructuringElement``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# Fixed small-aperture Gaussian taps OpenCV uses when sigma <= 0 and
+# ksize <= 9 (cv2::getGaussianKernel small_gaussian_tab).
+_SMALL_GAUSSIAN = {
+    1: np.array([1.0]),
+    3: np.array([0.25, 0.5, 0.25]),
+    5: np.array([0.0625, 0.25, 0.375, 0.25, 0.0625]),
+    7: np.array([0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125]),
+    9: np.array([4, 13, 30, 51, 60, 51, 30, 13, 4], dtype=np.float64) / 256.0,
+}
+
+
+def gaussian_sigma_for_ksize(ksize: int) -> float:
+    """Default sigma when 0 is requested (cv2.GaussianBlur contract)."""
+
+    return 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+
+
+def gaussian_taps(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """1-D normalized Gaussian taps matching ``cv2.getGaussianKernel``."""
+
+    if ksize <= 0 and sigma > 0:
+        ksize = int(round(sigma * 6 + 1)) | 1
+    if sigma <= 0 and ksize in _SMALL_GAUSSIAN:
+        return _SMALL_GAUSSIAN[ksize].copy()
+    sigma_x = sigma if sigma > 0 else gaussian_sigma_for_ksize(ksize)
+    scale = -0.5 / (sigma_x * sigma_x)
+    centre = (ksize - 1) * 0.5
+    x = np.arange(ksize, dtype=np.float64) - centre
+    taps = np.exp(scale * x * x)
+    return taps / taps.sum()
+
+
+def gamma_lut(gamma: float) -> np.ndarray:
+    """256-entry gamma table: float64 pow, then truncation to uint8."""
+
+    inv_gamma = 1.0 / float(gamma)
+    table = (np.arange(256, dtype=np.float64) / 255.0) ** inv_gamma * 255.0
+    return table.astype(np.uint8)
+
+
+def structuring_element(shape: str, ksize: int) -> np.ndarray:
+    """Binary structuring element matching ``cv2.getStructuringElement``
+    for the rectangular, elliptical and cross shapes; any other name is a
+    full box."""
+
+    name = shape.lower()
+    rows = cols = int(ksize)
+    if name == "cross":
+        el = np.zeros((rows, cols), dtype=np.uint8)
+        el[rows // 2, :] = 1
+        el[:, cols // 2] = 1
+        return el
+    if name == "elliptical":
+        el = np.zeros((rows, cols), dtype=np.uint8)
+        r, c = rows // 2, cols // 2
+        inv_r2 = 1.0 / (r * r) if r else 0.0
+        for i in range(rows):
+            dy = i - r
+            if abs(dy) <= r:
+                dx = int(np.clip(round(c * np.sqrt(max(r * r - dy * dy, 0) * inv_r2)), 0, None))
+                j1 = max(c - dx, 0)
+                j2 = min(c + dx + 1, cols)
+                el[i, j1:j2] = 1
+        return el
+    return np.ones((rows, cols), dtype=np.uint8)
+
+
+__all__ = ["gamma_lut", "gaussian_sigma_for_ksize", "gaussian_taps", "structuring_element"]

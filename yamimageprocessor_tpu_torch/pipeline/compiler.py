@@ -1,24 +1,29 @@
 """Chain runner for a step list on one device (the port of
 ``pipeline/compiler.py``).
 
-The plan is the reference's: consecutive steps that the JAX package runs
-on its device form a device segment, the others (host-only ops and plain
-callables) a host segment that runs the numpy golden functions
-(``compiler.py:66-74``).  A device step the port has no torch
-implementation for raises ``NotImplementedError``; it is never sent to the
-host instead.
+The plan is the reference's (``compiler.py:66-74``): consecutive op steps
+form a device segment, consecutive steps that hold a plain function a
+host segment, which runs them on host arrays.  An op the port has no
+torch implementation for raises ``NotImplementedError``; it is never sent
+to the host instead.
+
+The item shape and dtype are tracked from step to step, as the reference
+does with ``eval_shape`` (``compiler.py:115-160``): each op's ``out_item``
+gives what it produces (a threshold turns an ``(H, W, C)`` item into an
+``(H, W)`` mask).
 
 Within a device segment, maximal runs of table-expressible steps collapse
 into one table exactly as in ``compiler.py:154-211``: ``composed =
 lut_j[composed]`` for each step of the run, then one :func:`apply_lut` of
-the composed table on the run's input.  A table built from the image
-(histogram equalization) may only open a run.  The composition decides
-which tables are applied, so the output bits depend on it.
+the composed table on the run's input.  Whether a step can join a run
+depends on its own input item (uint8, a rank in ``lut_ndims``).  A table
+built from the image (histogram equalization) may only open a run.  The
+composition decides which tables are applied, so the output bits depend
+on it.
 
 PyTorch runs eagerly: nothing is traced or cached, and ``batch=N`` is a
 batch axis written out (every torch device function takes ``(B, *item)``;
-an unbatched chain runs as a batch of one).  Since every ported op keeps
-the item's shape and dtype, one item shape serves a whole segment.
+an unbatched chain runs as a batch of one).
 """
 from __future__ import annotations
 
@@ -28,9 +33,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from yamimageprocessor_tpu.pipeline.step import PipelineStep
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut
-from yamimageprocessor_tpu_torch.ops.registry import OpImpl, dyn_to_torch, get_impl
+from yamimageprocessor_tpu_torch.ops.registry import OpImpl, dyn_to_torch
+from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+#: (item shape, numpy dtype) of one step's input
+ItemSpec = Tuple[Tuple[int, ...], np.dtype]
 
 
 @dataclass
@@ -40,7 +48,7 @@ class _SegmentPlan:
 
 
 def plan_segments(steps: Sequence[PipelineStep]) -> List[_SegmentPlan]:
-    """Split the steps into device and host segments, as the reference does."""
+    """Split the steps into device and host segments."""
 
     plans: List[_SegmentPlan] = []
     for i, step in enumerate(steps):
@@ -55,20 +63,34 @@ def _torch_impl(step: PipelineStep) -> Optional[OpImpl]:
     """The torch implementation of an enabled device step; None for a
     disabled step (which passes its input through)."""
 
-    if not step.enabled or step.op_id is None:
+    if not step.enabled:
         return None
-    return get_impl(step.op_id)
+    return step.impl
 
 
-def lut_runs_for(impls: Sequence[Optional[OpImpl]], item_ndim: int, is_uint8: bool) -> Dict[int, int]:
-    """``{segment-local start: run length}`` of the composed table runs."""
+def item_specs(impls: Sequence[Optional[OpImpl]], item_shape, dtype) -> List[ItemSpec]:
+    """The input item of every step of a segment whose input item is
+    ``item_shape`` of ``dtype``."""
+
+    spec: ItemSpec = (tuple(item_shape), np.dtype(dtype))
+    specs = []
+    for impl in impls:
+        specs.append(spec)
+        if impl is not None:
+            spec = impl.out_item(*spec)
+    return specs
+
+
+def lut_runs_for(impls: Sequence[Optional[OpImpl]], specs: Sequence[ItemSpec]) -> Dict[int, int]:
+    """``{segment-local start: run length}`` of the composed table runs,
+    given each step's input item."""
 
     lut_ok = [
         impl is not None
         and impl.lut_fn is not None
-        and is_uint8
-        and item_ndim in impl.lut_ndims
-        for impl in impls
+        and dtype == np.uint8
+        and len(shape) in impl.lut_ndims
+        for impl, (shape, dtype) in zip(impls, specs)
     ]
     runs: Dict[int, int] = {}
     i = 0
@@ -132,6 +154,10 @@ class _DeviceSegment:
         return tuple(outs)
 
 
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
 class CompiledChain:
     """Runner for one step list at one input shape on ``device``."""
 
@@ -151,7 +177,8 @@ class CompiledChain:
         self.device = torch.device(device)
         self.plans = plan_segments(self.steps)
         #: seg_idx -> segment-local {start: length} of composed table runs,
-        #: for the segments whose input shape is known before running
+        #: for the segments whose input item is known before running (those
+        #: before the first host step)
         self.lut_runs: Dict[int, Dict[int, int]] = {}
         # look every device step up now: an unported op fails before any
         # work is done
@@ -159,30 +186,28 @@ class CompiledChain:
         known = True
         for seg_idx, plan in enumerate(self.plans):
             if plan.kind == "host":
-                known = False
+                known = False  # a host step's output is known only by running it
                 continue
             impls = [_torch_impl(self.steps[i]) for i in plan.indices]
             self._impls[seg_idx] = impls
             if known:
-                self.lut_runs[seg_idx] = lut_runs_for(
-                    impls, len(self._item_shape(self.shape)), self.dtype == np.uint8
-                )
+                specs = item_specs(impls, self._item_shape(self.shape), self.dtype)
+                self.lut_runs[seg_idx] = lut_runs_for(impls, specs)
 
     def _item_shape(self, shape) -> Tuple[int, ...]:
         return tuple(shape[1:]) if self.batch else tuple(shape)
 
-    def _segment(self, seg_idx: int, steps, item_shape, is_uint8: bool):
-        """(segment fn, host dyn list) for device segment ``seg_idx``."""
+    def _segment(self, seg_idx: int, steps, item_shape, dtype):
+        """(segment fn, host dyn list) for device segment ``seg_idx`` on
+        input items of ``item_shape`` and ``dtype``."""
 
         impls = self._impls[seg_idx]
         statics, dyns = [], []
         for i, impl in zip(self.plans[seg_idx].indices, impls):
-            static, dyn = ({}, {}) if impl is None else impl.split_params(steps[i].params, item_shape)
+            static, dyn = ({}, {}) if impl is None else impl.split(steps[i].params)
             statics.append(static)
             dyns.append(dyn)
-        runs = self.lut_runs.get(seg_idx)
-        if runs is None:
-            runs = lut_runs_for(impls, len(item_shape), is_uint8)
+        runs = lut_runs_for(impls, item_specs(impls, item_shape, dtype))
         return _DeviceSegment(impls, statics, runs, bool(self.batch)), dyns
 
     def run(
@@ -211,7 +236,7 @@ class CompiledChain:
                 continue
             x = torch.as_tensor(cur).to(self.device)
             fn, dyns = self._segment(
-                seg_idx, active, self._item_shape(x.shape), x.dtype == torch.uint8
+                seg_idx, active, self._item_shape(x.shape), _numpy_dtype(x.dtype)
             )
             outs = fn(x, [dyn_to_torch(d, self.device) for d in dyns])
             for i, out in zip(plan.indices, outs):
@@ -238,9 +263,7 @@ class CompiledChain:
                 "pure_callable requires a single all-device segment "
                 f"(got {[p.kind for p in self.plans]})"
             )
-        fn, dyns = self._segment(
-            0, self.steps, self._item_shape(self.shape), self.dtype == np.uint8
-        )
+        fn, dyns = self._segment(0, self.steps, self._item_shape(self.shape), self.dtype)
         return fn, [dyn_to_torch(d, self.device) for d in dyns]
 
 
@@ -262,6 +285,7 @@ __all__ = [
     "CompiledChain",
     "compose_luts",
     "get_compiled_chain",
+    "item_specs",
     "lut_runs_for",
     "plan_segments",
 ]

@@ -1,67 +1,67 @@
-"""Pipeline manager on a torch device (the port of ``pipeline/manager.py``).
+"""Pipeline manager on a torch device (the port of the execution part of
+``yamimageprocessor_tpu/pipeline/manager.py``).
 
-Step lists, history, listeners and the host path (``apply_host``, the numpy
-golden functions) are the reference's, inherited.  ``apply`` and the
-batched N-D path run the torch chain on the manager's ``device``.  A
-failure there propagates: the reference's fall back to the host path
-(``manager.py:288-298, 405-406``) is not ported.
+An ordered list of steps, run by the torch chain runner on ``device``
+(``"cuda"`` unless the caller asks for another): ``apply`` takes a 2-D
+frame or an ``(H, W, 3|4)`` colour frame, and deeper N-D stacks batch
+every leading axis through one chain when all enabled steps are op steps,
+else go plane by plane.  A failure propagates: the reference's fall back
+to its numpy host path (``manager.py:288-298, 405-406``) is not ported,
+and neither are its step editing, undo/redo history, change events,
+persistence and recovery yet.
 """
 from __future__ import annotations
 
-from typing import Any, Iterable, Optional
+from typing import Any, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from yamimageprocessor_tpu.pipeline.manager import PipelineManager as ReferencePipelineManager
-from yamimageprocessor_tpu.pipeline.step import PipelineStep
 from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain
+from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
 
 
-class PipelineManager(ReferencePipelineManager):
-    """Ordered steps with undo/redo, run by the torch chain on ``device``."""
+def _is_colour_array(array: np.ndarray) -> bool:
+    return array.ndim == 3 and array.shape[2] in (3, 4)
 
-    def __init__(self, steps: Optional[Iterable[PipelineStep]] = None, *, device, **kwargs: Any) -> None:
-        super().__init__(steps, **kwargs)
+
+class PipelineManager:
+    """Ordered steps run by the torch chain on ``device``."""
+
+    def __init__(self, steps: Optional[Iterable[PipelineStep]] = None, *, device="cuda") -> None:
+        self._steps = [s.clone() for s in (steps or [])]
         self.device = torch.device(device)
 
-    def clone(self) -> "PipelineManager":
-        duplicate = PipelineManager(
-            self._template,
-            device=self.device,
-            cache_dir=self._cache_directory,
-            recovery_root=self._recovery_root,
-            gpu_executor=self._gpu_executor,
-            prefer_device=self._prefer_device,
-            isolate_failures=self._isolate_failures,
-        )
-        duplicate._steps = [s.clone() for s in self._steps]
-        return duplicate
+    @property
+    def steps(self) -> Tuple[PipelineStep, ...]:
+        return tuple(self._steps)
 
-    def apply(self, image: Any) -> Any:
-        """Run the enabled steps through the torch chain on ``device``."""
+    def clone(self) -> "PipelineManager":
+        return PipelineManager(self._steps, device=self.device)
+
+    def apply(self, image: Any) -> np.ndarray:
+        """Run the enabled steps on a host array through the torch chain on
+        ``device``; returns a host array."""
 
         if hasattr(image, "iter_tiles"):
             raise NotImplementedError("tiled images: streaming is not ported to torch yet")
         array = np.asarray(image)
-        if self._requires_slice_processing(array):
-            return self._apply_slice_wise_nd(array)
+        if array.ndim > 2 and not _is_colour_array(array):
+            return self._apply_nd(array)
         enabled = [s for s in self._steps if s.enabled]
         if not enabled:
             return array.copy()
-        if self._prefer_device and not any(s.execution.requires_gpu for s in enabled):
-            chain = get_compiled_chain(enabled, array.shape, array.dtype, device=self.device)
-            return chain.run_final(array, enabled)
-        return self.apply_host(array)
+        chain = get_compiled_chain(enabled, array.shape, array.dtype, device=self.device)
+        return chain.run_final(array, enabled)
 
-    def _apply_slice_wise_nd(self, array: np.ndarray) -> np.ndarray:
+    def _apply_nd(self, array: np.ndarray) -> np.ndarray:
         """N-D stacks: every leading axis flattened into one batch when all
-        enabled steps run on the device, else plane by plane on the host."""
+        enabled steps are op steps, else plane by plane."""
 
         enabled = [s for s in self._steps if s.enabled]
         if not enabled:
             return array.copy()
-        if self._prefer_device and all(s.is_device_capable() for s in enabled):
+        if all(s.is_device_capable() for s in enabled):
             item_nd = 3 if array.shape[-1] in (3, 4) else 2
             flat = array.reshape((-1,) + array.shape[-item_nd:])
             chain = get_compiled_chain(
@@ -69,13 +69,7 @@ class PipelineManager(ReferencePipelineManager):
             )
             out = chain.run_final(flat, enabled)
             return out.reshape(array.shape[: array.ndim - item_nd] + out.shape[1:])
-        slices = [self.apply_host(array[i]) for i in range(array.shape[0])]
-        if not slices:
-            return array.copy()
-        try:
-            return np.stack(slices, axis=0)
-        except ValueError:
-            return np.array(slices, dtype=object)
+        return np.stack([self.apply(plane) for plane in array], axis=0)
 
 
 __all__ = ["PipelineManager"]

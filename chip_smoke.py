@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its two
-main paths once each: the flagship preprocess chain and the segmentation
-chain.
+"""Build and check the torch port on one CUDA card, then drive its three
+main paths once each: the flagship preprocess chain, the segmentation
+chain and the batched CLAHE chain.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    power limit;
 2. build: compiles ``yamimageprocessor_tpu_torch/csrc/*.cu`` with nvcc,
    one process per source;
-3. kernels: each of the six CUDA kernels against its plain PyTorch version
+3. kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the card, bit for bit, at the main paths' shapes and at awkward
    ones; then each kernel's, its plain version's and (where one PyTorch
    call computes the same function) that call's device time;
@@ -26,7 +26,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
    ``segmentation_forward`` and the pipeline manager, against the digest
    of the JAX package's output, and at 512^2 against the port's CPU run;
    the flood's sweep count, frames/s over 12 frames back to back and the
-   time per frame.
+   time per frame;
+6. clahe: the batched CLAHE chain (Gaussian 5x5 -> CLAHE, clip 2.0, grid 4
+   -> the mean of R and G; ``bench.py:_extra_batched_clahe``) on a 64 x
+   1024^2 BGR batch through the chain runner and the pipeline manager,
+   against SHA-256 digests of the JAX package's outputs at that shape and
+   at 4 x 1000^2 (where the blend's fractions are not dyadic), and at 3 x
+   120 x 100 against the port's CPU run; MPix/s back to back, the device
+   time, and the device time by kernel from ``torch.profiler``.  The frames
+   come from ``np.random.default_rng(0)``, where the bench draws them with
+   ``jax.random``: the one deviation from the bench's config.
 
 Every kernel's launch count is set to 0 just before each main path and
 read just after; a kernel of the path that did not launch fails the run.
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+from collections import defaultdict
 import statistics
 import subprocess
 import sys
@@ -52,6 +62,11 @@ FLAGSHIP_STEPS = 3  # Gaussian, histogram equalization, brightness/contrast
 SEG_SIDE = 2048
 SEG_CPU_SIDE = 512
 SEG_FRAMES = 12
+CLAHE_SHAPE = (64, 1024, 1024, 3)
+CLAHE_1000_SHAPE = (4, 1000, 1000, 3)  # tiles of 250 px: non-dyadic fractions
+CLAHE_CPU_SHAPE = (3, 120, 100, 3)
+CLAHE_CLIP = 2.0
+CLAHE_GRID = 4
 RUNS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -63,6 +78,10 @@ DIGESTS = {
     "segmentation_output": "aa7c92f3bfcf004e955ee8c8fed24bc3fcaedd8c795647601d35b654ed2c9995",
     "flagship_input": "956e4093da8177e9fba7b1360a123a36cb89407283c92393f3e507b7d86299c9",
     "flagship_output": "e011c3251bc66a362d078629522d14501958087ad9288d38d7773facc84be595",
+    "clahe_input": "db41df124b15860649329f8dcafbac2e6e39867aaf4b7459faabdbfb67a76d98",
+    "clahe_output": "2b1225c42baa82ebfe225d5a43146532233945a3e0159f162aee6f5b1a2a579a",
+    "clahe_1000_input": "bf04b8a97881f83317ecf39d8bd716417b41dca179df4050916d0da1ccddfa4d",
+    "clahe_1000_output": "ea807ad28ef69b0a41828bcdb27338f952aa4ed630f5861432df98613394d7b6",
 }
 
 
@@ -186,6 +205,38 @@ def dense_scene(side: int, seed: int = 3) -> np.ndarray:
     return (img.astype(np.int16) + noise).clip(0, 255).astype(np.uint8)
 
 
+def clahe_steps():
+    """The CLAHE chain as ``bench.py:445-463`` builds it: Gaussian 5x5 ->
+    CLAHE (clip 2.0, grid 4) -> the mean of R and G."""
+
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    return [
+        PipelineStep(
+            name="NoiseReduction",
+            stage=Stage.PREPROCESSING,
+            params={"method": "Gaussian", "ksize": 5},
+        ),
+        PipelineStep(
+            name="CLAHE",
+            op_id="preprocessing.clahe",
+            stage=Stage.PREPROCESSING,
+            params={"clip_limit": CLAHE_CLIP, "grid_size": CLAHE_GRID},
+        ),
+        PipelineStep(
+            name="SelectChannel",
+            op_id="preprocessing.select_channel",
+            stage=Stage.PREPROCESSING,
+            params={"value": "RG"},
+        ),
+    ]
+
+
+def clahe_frames(shape) -> np.ndarray:
+    return np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+
+
 def bound_ms(nbytes: float, f32_ops: float = 0.0):
     """(least time in ms, what bounds it) on an H100 SXM."""
 
@@ -263,6 +314,8 @@ def _closed_mask(scene: torch.Tensor) -> torch.Tensor:
 
 def phase_kernels(dev) -> dict:
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
+    from yamimageprocessor_tpu_torch.ops import clahe as CL
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_ycrcb
     from yamimageprocessor_tpu_torch.ops.distance import MAX_WIDTH, distance_transform, distance_transform_plain
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index, cc_min_index_plain
     from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
@@ -292,7 +345,10 @@ def phase_kernels(dev) -> dict:
 
     big = rand(FLAGSHIP_SHAPE)
     odd = rand((3, 37, 1001))
-    err = {name: 0 for name in ("sepconv", "histogram256", "lut_apply", "distance", "cc", "flood")}
+    err = {
+        name: 0
+        for name in ("sepconv", "histogram256", "lut_apply", "distance", "cc", "flood", "tile_histogram", "clahe_blend")
+    }
 
     for ksize in (3, 5, 13):
         t = taps(ksize)
@@ -382,6 +438,57 @@ def phase_kernels(dev) -> dict:
           "and a BGR scene")
 
     t5 = taps(5)
+    # the CLAHE path's Y planes: the bench's frames after the Gaussian
+    bgr = torch.from_numpy(clahe_frames(CLAHE_SHAPE)).to(dev)
+    y_bench = bgr_to_ycrcb(sep_filter_u8_planes(bgr, t5, t5))[..., 0].contiguous()
+    del bgr
+    grid4 = (CLAHE_GRID, CLAHE_GRID)
+    zeros = torch.zeros((2, 1024, 1024), dtype=torch.uint8, device=dev)
+    for name, y, grid in (
+        ("bench Y (64,1024,1024) grid 4", y_bench, grid4),
+        ("(1,1024,1024) grid 64", rand((1, 1024, 1024)), (64, 64)),
+        ("odd tiles (3,1000,999) grid 7", CL.pad_to_grid(rand((3, 1000, 999)), (7, 7)), (7, 7)),
+        ("constant 0 (2,1024,1024) grid 2", zeros, (2, 2)),
+        ("constant 255 (2,1024,1024) grid 2", zeros + 255, (2, 2)),
+        ("unaligned (2,96,120) grid 8", unaligned((2, 96, 120)), (8, 8)),
+    ):
+        err["tile_histogram"] |= exact(
+            f"tile_histogram {name}", CL.tile_histograms(y, grid), CL.tile_histograms_plain(y, grid)
+        )
+    if int(CL.tile_histograms(zeros, (2, 2))[..., 0].min()) != 512 * 512:
+        raise AssertionError("tile_histogram: a constant tile must put all its 512^2 pixels in one bin")
+    print("kernels: tile_histogram bit-exact on the bench's Y planes (64,1024,1024) at grid 4, grid 64, "
+          "odd tiles (3,1000,999) at grid 7, constant 0 and 255 (one bin holds 512^2), unaligned")
+
+    def blend_inputs(y, grid, clip):
+        work = CL.pad_to_grid(y, grid)
+        h, w = work.shape[1:]
+        hist = CL.tile_histograms_plain(work, grid)
+        luts = CL.clip_and_lut(hist, clip, (h // grid[0]) * (w // grid[1])).to(torch.uint8)
+        return work, luts, CL.interp_tensors(h, w, grid, y.shape[1], y.shape[2], y.device)
+
+    for name, y, grid, clip in (
+        ("bench Y (64,1024,1024) grid 4 clip 2", y_bench, grid4, CLAHE_CLIP),
+        ("(1,1000,1000) grid 4 clip 40", rand((1, 1000, 1000)), (4, 4), 40.0),
+        ("(2,300,200) grid 5 clip 0", rand((2, 300, 200)), (5, 5), 0.0),
+        ("(1,1000,1000) grid 2 clip 2", rand((1, 1000, 1000)), (2, 2), 2.0),
+        ("(1,1024,1024) grid 64 clip 40", rand((1, 1024, 1024)), (64, 64), 40.0),
+        ("(3,1000,999) grid 7 clip 2", rand((3, 1000, 999)), (7, 7), 2.0),
+        ("unaligned (2,96,120) grid 8 clip 40", unaligned((2, 96, 120)), (8, 8), 40.0),
+    ):
+        work, luts, interp = blend_inputs(y, grid, clip)
+        err["clahe_blend"] |= exact(
+            f"clahe_blend {name}", CL.clahe_blend(work, luts, interp), CL.clahe_blend_plain(work, luts, interp)
+        )
+        if name.startswith("(1,1000,1000) grid 4"):
+            # tables of any values, not only cumulative ones
+            noise = rand(tuple(luts.shape))
+            err["clahe_blend"] |= exact(
+                "clahe_blend random tables", CL.clahe_blend(work, noise, interp), CL.clahe_blend_plain(work, noise, interp)
+            )
+    print("kernels: clahe_blend bit-exact on the bench's Y planes, 1000^2 at grids 4 and 2, 300x200 at grid 5 "
+          "(clip 0), grid 64, (3,1000,999) at grid 7 (odd tiles, cropped), random tables, unaligned")
+
     flat = big.view(FLAGSHIP_SHAPE[0], -1)
     luts = rand((FLAGSHIP_SHAPE[0], 256))
     one = flat[:1]
@@ -394,7 +501,14 @@ def phase_kernels(dev) -> dict:
         ),
         "cc": paired_ms(lambda: cc_min_index(sure_fg), lambda: cc_min_index_plain(sure_fg), plain_runs=5),
         "flood": paired_ms(lambda: flood(closed, markers), lambda: flood_plain(closed, markers), plain_runs=3),
+        "tile_histogram": paired_ms(
+            lambda: CL.tile_histograms(y_bench, grid4), lambda: CL.tile_histograms_plain(y_bench, grid4), plain_runs=5
+        ),
     }
+    work, luts, interp = blend_inputs(y_bench, grid4, CLAHE_CLIP)
+    times["clahe_blend"] = paired_ms(
+        lambda: CL.clahe_blend(work, luts, interp), lambda: CL.clahe_blend_plain(work, luts, interp), plain_runs=5
+    )
     library = {
         "histogram256": time_ms(lambda: torch.bincount(one.view(-1), minlength=256)),
     }
@@ -411,6 +525,9 @@ def phase_kernels(dev) -> dict:
 
     n_flag = float(np.prod(FLAGSHIP_SHAPE))
     n_seg = float(SEG_SIDE * SEG_SIDE)
+    _, h_clahe, w_clahe = y_bench.shape
+    n_clahe = float(y_bench.numel())
+    n_tiles = CLAHE_SHAPE[0] * CLAHE_GRID * CLAHE_GRID
     bounds = {
         # u8 in and out; 5 + 5 taps, a multiply and an add each
         "sepconv": bound_ms(2 * n_flag, 20 * n_flag),
@@ -422,6 +539,12 @@ def phase_kernels(dev) -> dict:
         "cc": bound_ms(5 * n_seg),
         # u8 image and int32 markers in, int32 labels out, one pass
         "flood": bound_ms(9 * n_seg),
+        # u8 in, an int32 histogram of 256 bins out per tile
+        "tile_histogram": bound_ms(n_clahe + n_tiles * 256 * 4),
+        # u8 in and out, the u8 tables and the row and column arrays (12 B
+        # an entry) once; per pixel 2 subtractions, 5 multiplies, 3 FMAs of
+        # 2 operations each, a rint and 2 clamps
+        "clahe_blend": bound_ms(2 * n_clahe + n_tiles * 256 + 12 * (h_clahe + w_clahe), 16 * n_clahe),
     }
     return {
         "err": err,
@@ -436,6 +559,7 @@ def phase_kernels(dev) -> dict:
 
 def _counters():
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
+    from yamimageprocessor_tpu_torch.ops import clahe as CL
     from yamimageprocessor_tpu_torch.ops.distance import distance_transform
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
@@ -448,6 +572,8 @@ def _counters():
         "distance": distance_transform,
         "cc": cc_min_index,
         "flood": flood,
+        "tile_histogram": CL.tile_histograms,
+        "clahe_blend": CL.clahe_blend,
     }
 
 
@@ -555,13 +681,105 @@ def phase_segmentation(dev) -> dict:
     return run["launches"]
 
 
+#: substrings of the kernels' names in a profiler trace, by group
+_CLAHE_GROUPS = {
+    "sepconv_u8_kernel": "sepconv",
+    "tile_histogram_kernel": "tile_histogram",
+    "clahe_blend_kernel": "clahe_blend",
+}
+
+
+def clahe_profile(fn, runs: int = 3) -> dict:
+    """Kernels per call of ``fn`` and their device time in ms per call, by
+    group (the three kernels of the CLAHE path, then everything else by
+    name), from ``torch.profiler``."""
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    groups = {g: 0.0 for g in _CLAHE_GROUPS.values()}
+    other = defaultdict(float)
+    kernels = 0
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += 1
+        group = next((g for key, g in _CLAHE_GROUPS.items() if key in event.name), None)
+        if group is None:
+            other[event.name[:90]] += event.device_time_total
+        else:
+            groups[group] += event.device_time_total
+    split = {g: t / 1e3 / runs for g, t in groups.items()}
+    split["other"] = sum(other.values()) / 1e3 / runs
+    top = sorted(((t / 1e3 / runs, name) for name, t in other.items()), reverse=True)[:8]
+    return {"kernels": kernels / runs, "device_ms": split, "other_top": top}
+
+
+def phase_clahe(dev) -> dict:
+    from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    def chain(shape, device):
+        return get_compiled_chain(clahe_steps(), shape, np.uint8, batch=shape[0], device=device).pure_callable()
+
+    images = clahe_frames(CLAHE_SHAPE)
+    check_digest("clahe_input", images)
+    x = torch.from_numpy(images).to(dev)
+    fn, dyn = chain(CLAHE_SHAPE, dev)
+    manager = PipelineManager(clahe_steps(), device=dev)
+
+    run = drive(
+        "clahe",
+        ("sepconv", "tile_histogram", "clahe_blend"),
+        lambda: (fn(x, dyn)[-1], manager.apply(images)),
+    )
+    out, stack_out = run["out"]
+    check_digest("clahe_output", out)
+    exact("clahe manager.apply", torch.from_numpy(stack_out), out.cpu())
+    odd = clahe_frames(CLAHE_1000_SHAPE)
+    check_digest("clahe_1000_input", odd)
+    fn1000, dyn1000 = chain(CLAHE_1000_SHAPE, dev)
+    check_digest("clahe_1000_output", fn1000(torch.from_numpy(odd).to(dev), dyn1000)[-1])
+    small = np.random.default_rng(1).integers(0, 256, CLAHE_CPU_SHAPE, dtype=np.uint8)
+    card_fn, card_dyn = chain(CLAHE_CPU_SHAPE, dev)
+    cpu_fn, cpu_dyn = chain(CLAHE_CPU_SHAPE, "cpu")
+    exact(
+        "clahe (3,120,100,3) cuda vs cpu",
+        card_fn(torch.from_numpy(small).to(dev), card_dyn)[-1].cpu(),
+        cpu_fn(torch.from_numpy(small), cpu_dyn)[-1],
+    )
+    print(f"clahe: {CLAHE_SHAPE} and {CLAHE_1000_SHAPE} on cuda == the JAX package's digests; "
+          f"{CLAHE_CPU_SHAPE} == the port's CPU run; manager.apply == forward")
+
+    device_ms = time_ms(lambda: fn(x, dyn))
+    loop_ms = back_to_back_ms(lambda: fn(x, dyn))
+    mpix = float(np.prod(CLAHE_SHAPE[:3])) / 1e6
+    print(
+        f"clahe: {loop_ms:.4f} ms per batch back to back ({RUNS} batches) = {mpix / (loop_ms / 1e3):.1f} MPix/s; "
+        f"device time {device_ms:.4f} ms per batch = {mpix / (device_ms / 1e3):.1f} MPix/s"
+    )
+    split = clahe_profile(lambda: fn(x, dyn))
+    planes_px = float(np.prod(CLAHE_SHAPE))
+    print(f"clahe profile: {split['kernels']:.0f} kernels a batch; device ms a batch "
+          + ", ".join(f"{g} {t:.4f}" for g, t in split["device_ms"].items())
+          + f"; sepconv's bound on the {CLAHE_SHAPE[0] * CLAHE_SHAPE[3]} planes "
+          f"{bound_ms(2 * planes_px, 20 * planes_px)[0]:.4f} ms")
+    for t, name in split["other_top"]:
+        print(f"  other {t:9.4f} ms  {name}")
+    return run["launches"]
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kern = phase_kernels(dev)
     launches = {}
-    for path_launches in (phase_flagship(dev), phase_segmentation(dev)):
+    for path_launches in (phase_flagship(dev), phase_segmentation(dev), phase_clahe(dev)):
         for name, count in path_launches.items():
             launches[name] = launches.get(name, 0) + count
     loaded = sorted(
@@ -584,6 +802,10 @@ def main() -> None:
          "none: PyTorch has no connected-components labeling"),
         ("flood", "yamimageprocessor_tpu_torch/csrc/watershed.cu", "yamimageprocessor_tpu/ops/watershed_pallas.py:233",
          "none: PyTorch has no watershed"),
+        ("tile_histogram", "yamimageprocessor_tpu_torch/csrc/clahe.cu", "yamimageprocessor_tpu/pallas_kernels.py:457",
+         "none: no single PyTorch call counts the levels of every tile (bincount needs tile offsets added first)"),
+        ("clahe_blend", "yamimageprocessor_tpu_torch/csrc/clahe.cu", "yamimageprocessor_tpu/ops/clahe_pallas.py:137",
+         "none: no single PyTorch call blends four table lookups a pixel"),
     ]
     entries = []
     for name, source, replaces, library_note in rows:

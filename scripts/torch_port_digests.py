@@ -7,10 +7,14 @@ can be held against the reference without importing it.
 
 Prints one JSON object: the digests of the inputs (the segmentation
 chain's ``bench._dense_scene(2048, seed=3)``; the flagship chain's 8 x
-2048^2 frames from ``np.random.default_rng(0)``) and of the JAX package's
-outputs for them (``segmentation_steps()`` through its chain compiler;
+2048^2 frames from ``np.random.default_rng(0)``; the CLAHE chain's BGR
+frames from ``np.random.default_rng(0)`` at 64 x 1024^2 x 3, the bench's
+shape, and at 4 x 1000^2 x 3, where the blend's fractions are not
+dyadic) and of the JAX package's outputs for them
+(``segmentation_steps()`` and the CLAHE chain through its chain compiler,
+the CLAHE chain batched as ``bench.py:_extra_batched_clahe`` builds it;
 ``flagship_forward`` under ``jax.jit``).  ``chip_smoke.py`` keeps these as
-constants.  Takes about a minute on a CPU.
+constants.  Takes about 50 s and a few GB of memory on an 8-core CPU.
 """
 from __future__ import annotations
 
@@ -26,10 +30,35 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 SEG_SIDE = 2048
 FLAGSHIP_SHAPE = (8, 2048, 2048)
+CLAHE_SHAPES = {"clahe": (64, 1024, 1024, 3), "clahe_1000": (4, 1000, 1000, 3)}
 
 
 def digest(array: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def clahe_steps():
+    """The CLAHE chain of ``bench.py:_extra_batched_clahe``: Gaussian 5x5
+    -> CLAHE (clip 2.0, grid 4) -> the mean of R and G."""
+
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    return [
+        PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"method": "Gaussian", "ksize": 5}),
+        PipelineStep(
+            name="CLAHE",
+            op_id="preprocessing.clahe",
+            stage=Stage.PREPROCESSING,
+            params={"clip_limit": 2.0, "grid_size": 4},
+        ),
+        PipelineStep(
+            name="SelectChannel",
+            op_id="preprocessing.select_channel",
+            stage=Stage.PREPROCESSING,
+            params={"value": "RG"},
+        ),
+    ]
 
 
 def main() -> None:
@@ -46,19 +75,27 @@ def main() -> None:
     seg = np.asarray(chain.run_final(scene))
     frames = np.random.default_rng(0).integers(0, 256, FLAGSHIP_SHAPE, dtype=np.uint8)
     flagship = np.asarray(jax.jit(flagship_forward)(jnp.asarray(frames)))
-    print(
-        json.dumps(
+    result = {
+        "backend": jax.default_backend(),
+        "segmentation_input": digest(scene),
+        "segmentation_output": digest(seg),
+        "segmentation_output_shape": list(seg.shape),
+        "flagship_input": digest(frames),
+        "flagship_output": digest(flagship),
+    }
+    for name, shape in CLAHE_SHAPES.items():
+        bgr = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+        chain = get_compiled_chain(clahe_steps(), shape, np.uint8, batch=shape[0])
+        out = np.asarray(chain.run_final(bgr))
+        result.update(
             {
-                "backend": jax.default_backend(),
-                "segmentation_input": digest(scene),
-                "segmentation_output": digest(seg),
-                "segmentation_output_shape": list(seg.shape),
-                "flagship_input": digest(frames),
-                "flagship_output": digest(flagship),
-                "seconds": round(time.perf_counter() - start, 1),
+                f"{name}_input": digest(bgr),
+                f"{name}_output": digest(out),
+                f"{name}_output_shape": list(out.shape),
             }
         )
-    )
+    result["seconds"] = round(time.perf_counter() - start, 1)
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

@@ -173,8 +173,8 @@ def test_clone_keeps_the_device():
             (20, 20),
         ),
         (
-            [PipelineStep(name="histogram_equalization", op_id="preprocessing.histogram_equalization",
-                          stage=Stage.PREPROCESSING)],
+            [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING,
+                          params={"method": "Bilateral", "ksize": 5})],
             (20, 20, 3),
         ),
     ],
@@ -186,14 +186,17 @@ def test_unported_device_ops_raise(steps, frame_shape):
 
 
 def test_port_imports_no_jax():
-    """The port runs both chains, through the chain functions and the
+    """The port runs its three chains, through the chain functions and the
     manager, without loading jax or any module of the JAX package."""
 
     code = (
         "import sys, numpy as np, torch\n"
         "from yamimageprocessor_tpu_torch.models.stages import (\n"
         "    flagship_forward, preprocess_steps, segmentation_forward, segmentation_steps)\n"
+        "from yamimageprocessor_tpu_torch.ops.schema import Stage\n"
+        "from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain\n"
         "from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager\n"
+        "from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep\n"
         "x = np.random.default_rng(0).integers(0, 256, (2, 24, 40), dtype=np.uint8)\n"
         "out = flagship_forward(torch.from_numpy(x))\n"
         "m = PipelineManager(preprocess_steps(), device='cpu')\n"
@@ -201,6 +204,14 @@ def test_port_imports_no_jax():
         "seg = segmentation_forward(torch.from_numpy(x))\n"
         "s = PipelineManager(segmentation_steps(), device='cpu')\n"
         "assert (s.apply(x[1]) == seg[1].numpy()).all()\n"
+        "steps = [PipelineStep(name='NoiseReduction', stage=Stage.PREPROCESSING, params={'ksize': 5}),\n"
+        "         PipelineStep(name='CLAHE', op_id='preprocessing.clahe', stage=Stage.PREPROCESSING,\n"
+        "                      params={'clip_limit': 2.0, 'grid_size': 4}),\n"
+        "         PipelineStep(name='SelectChannel', stage=Stage.PREPROCESSING, params={'value': 'RG'})]\n"
+        "bgr = np.random.default_rng(1).integers(0, 256, (2, 30, 44, 3), dtype=np.uint8)\n"
+        "fn, dyn = get_compiled_chain(steps, bgr.shape, np.uint8, batch=2, device='cpu').pure_callable()\n"
+        "mix = fn(torch.from_numpy(bgr), dyn)[-1]\n"
+        "assert (PipelineManager(steps, device='cpu').apply(bgr) == mix.numpy()).all()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'yamimageprocessor_tpu' or k.startswith('yamimageprocessor_tpu.'))\n"
         "assert not bad, bad\n"

@@ -23,12 +23,17 @@ PORTED = sorted(op.identifier for op in ALL_OPS)
 
 
 def test_the_port_has_the_eleven_ops_of_its_two_chains():
+    """The eleven ops of the flagship and segmentation chains, and the two
+    the CLAHE chain adds."""
+
     assert PORTED == sorted(
         [
             "preprocessing.noise_reduction",
             "preprocessing.histogram_equalization",
             "preprocessing.brightness_contrast",
             "preprocessing.gamma",
+            "preprocessing.clahe",
+            "preprocessing.select_channel",
             "segmentation.global_threshold",
             "segmentation.otsu",
             "segmentation.opening",
@@ -74,6 +79,11 @@ _SPLIT_CASES = [
     ("preprocessing.brightness_contrast", {"alpha": 1.2, "beta": 4.0}),
     ("preprocessing.gamma", {"value": 0.7}),
     ("preprocessing.gamma", {"value": 2.2}),
+    ("preprocessing.clahe", {}),
+    ("preprocessing.clahe", {"clip_limit": 2.0, "grid_size": 4}),
+    ("preprocessing.clahe", {"clip_limit": 0, "grid_size": "64"}),
+    ("preprocessing.select_channel", {}),
+    ("preprocessing.select_channel", {"value": "RG"}),
     ("segmentation.global_threshold", {}),
     ("segmentation.global_threshold", {"threshold": 90}),
     ("segmentation.otsu", {}),
@@ -115,6 +125,17 @@ def test_gamma_tables_and_structuring_elements_match_jax():
         for size in (1, 2, 3, 4, 5, 7, 9):
             ours, ref = T.structuring_element(shape, size), JK.structuring_element(shape, size)
             assert ours.dtype == ref.dtype and (ours == ref).all()
+
+
+@pytest.mark.parametrize("h, w, grid", [(96, 120, (8, 8)), (1001, 1001, (7, 7)), (8, 4, (4, 4)), (1024, 1024, (64, 64))])
+def test_clahe_interp_weights_match_jax(h, w, grid):
+    from yamimageprocessor_tpu.ops.clahe import _interp_weights
+
+    from yamimageprocessor_tpu_torch.ops.clahe import interp_weights
+
+    for ours, ref in zip(interp_weights(h, w, grid), _interp_weights(h, w, grid)):
+        for a, b in zip(ours, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
 
 
 @pytest.mark.parametrize(

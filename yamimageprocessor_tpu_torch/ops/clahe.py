@@ -1,0 +1,342 @@
+"""CLAHE (contrast-limited adaptive histogram equalization) on a batch of
+uint8 planes: the CUDA kernels of ``csrc/clahe.cu`` and their plain
+versions.
+
+Port of ``yamimageprocessor_tpu/ops/clahe.py`` (``clahe_j``,
+``_clip_and_lut_j``, ``_interp_weights``) and of the Pallas kernels it
+runs on a TPU (``ops/clahe_pallas.py``: the lane-grouped tile histograms
+and ``clahe_blend_pallas``), with cv2.createCLAHE's semantics:
+
+1. pad each frame to a multiple of the grid, reflect-101;
+2. count the 256 levels of every grid tile (:func:`tile_histograms`);
+3. clip each histogram at ``max(int(clip_limit * area / 256), 1)``, spread
+   the excess evenly and the residual at a stride, and turn the cdf into a
+   table ``rint(cdf * 255 / area)`` (:func:`clip_and_lut`);
+4. blend the tables of the four tiles around each pixel bilinearly, in the
+   reference's float32 order (:func:`clahe_blend`), and crop back.
+
+The reference's TPU gates (even tiles of 16 x 256 or more), its
+``custom_vmap`` wrapper and its wrapper cache are not ported: the kernels
+take every shape the op allows, grids 2 to 64, odd tiles, clip 0 (no
+clipping).  :func:`tile_histograms` and :func:`clahe_blend` launch their
+kernels for a CUDA tensor (counted in ``<wrapper>.launches``) or raise;
+for a CPU tensor they run their plain versions.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from yamimageprocessor_tpu_torch import _build
+from yamimageprocessor_tpu_torch.ops.filters import reflect101_index, to_uint8
+
+_MAX_GRID_YZ = 65535
+#: blocks the histogram kernel aims for (132 SMs, several blocks each)
+_TARGET_BLOCKS = 2048
+
+#: (y0, y1, fy, x0, x1, fx): int32 tile rows and float32 fractions of the
+#: output rows, then the same of the output columns
+Interp = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def interp_weights(h: int, w: int, grid: Tuple[int, int]):
+    """Per row and column of an ``(h, w)`` frame padded to the grid: the
+    tiles above and below (left and right) and the fraction between their
+    centres, edge-clamped; a copy of ``ops/clahe.py:_interp_weights``.  The
+    fractions are float64 here; the caller casts them to float32 (an f32
+    computation differs by an ulp and flips outputs by 1)."""
+
+    gh, gw = grid
+    th, tw = h // gh, w // gw
+    # cv2's convention: x / tile_w - 0.5 (no pixel-center offset); indices
+    # clamp after the fraction is taken, so edge pixels blend a tile with
+    # itself
+    ys = np.arange(h) / th - 0.5
+    xs = np.arange(w) / tw - 0.5
+    fy = ys - np.floor(ys)
+    fx = xs - np.floor(xs)
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, gh - 1)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, gw - 1)
+    y1 = np.clip(np.floor(ys).astype(np.int64) + 1, 0, gh - 1)
+    x1 = np.clip(np.floor(xs).astype(np.int64) + 1, 0, gw - 1)
+    return (y0, y1, fy), (x0, x1, fx)
+
+
+@functools.lru_cache(maxsize=32)
+def interp_tensors(h: int, w: int, grid: Tuple[int, int], h_out: int, w_out: int, device) -> Interp:
+    """:func:`interp_weights` of a padded ``(h, w)`` frame, cut to its first
+    ``h_out`` rows and ``w_out`` columns, as int32 and float32 tensors on
+    ``device``.  Cached by shape, so a chain run copies nothing to the
+    device after its first call; callers share the tensors and must not
+    write to them."""
+
+    (y0, y1, fy), (x0, x1, fx) = interp_weights(h, w, grid)
+    rows = [(y0, np.int32), (y1, np.int32), (fy, np.float32)]
+    cols = [(x0, np.int32), (x1, np.int32), (fx, np.float32)]
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a[:n].astype(dtype))).to(device)
+        for n, part in ((h_out, rows), (w_out, cols))
+        for a, dtype in part
+    )
+
+
+def pad_to_grid(y: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
+    """``(B, h, w)`` frames reflect-101 padded at the bottom and right to a
+    multiple of the grid (``jnp.pad(mode="reflect")``), contiguous."""
+
+    gh, gw = grid
+    _, h, w = y.shape
+    ph, pw = (-h) % gh, (-w) % gw
+    if ph:
+        y = y.index_select(1, reflect101_index(h, ph, y.device)[ph:])
+    if pw:
+        y = y.index_select(2, reflect101_index(w, pw, y.device)[pw:])
+    return y.contiguous()
+
+
+def clip_and_lut(hist: torch.Tensor, clip_limit: float, area: int) -> torch.Tensor:
+    """``(..., 256)`` int32 tile histograms -> float32 tables of integers
+    0..255, as ``ops/clahe.py:_clip_and_lut_j``.  The limit and the scale
+    are computed on the host exactly as there; nothing is divided on the
+    device."""
+
+    limit = max(int(clip_limit * area / 256.0), 1)
+    scale = torch.tensor(np.float32(255.0 / area))  # a float32 scalar operand
+    if clip_limit > 0:
+        clipped = (hist - limit).clamp_min_(0).sum(dim=-1, dtype=torch.int32)
+        hist = hist.clamp_max(limit)
+        batch = clipped // 256
+        residual = clipped - batch * 256
+        hist = hist + batch.unsqueeze(-1)
+        # the residual goes one count a bin, at stride max(256 // residual, 1)
+        idx = torch.arange(256, dtype=torch.int32, device=hist.device)
+        step = (256 // residual.clamp_min(1)).clamp_min_(1).unsqueeze(-1)
+        take = (idx % step == 0) & (idx // step < residual.unsqueeze(-1))
+        hist = hist + take.to(torch.int32)
+    cdf = torch.cumsum(hist, dim=-1, dtype=torch.int32)
+    return torch.round(cdf.to(torch.float32) * scale).clamp_(0, 255)
+
+
+# ---------------------------------------------------------------------------
+# tile histograms (kernel A)
+
+
+def _check_planes(name: str, y: torch.Tensor, grid: Tuple[int, int]) -> None:
+    if y.dtype != torch.uint8 or y.ndim != 3:
+        raise ValueError(f"{name} takes (B, H, W) uint8, got {tuple(y.shape)} {y.dtype}")
+    if not y.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous tensor")
+    gh, gw = grid
+    if not (1 <= gh <= y.shape[1] and 1 <= gw <= y.shape[2]):
+        raise ValueError(f"{name}: grid {grid} does not fit frames of {tuple(y.shape[1:])}")
+    if y.shape[1] % gh or y.shape[2] % gw:
+        raise ValueError(f"{name}: frames {tuple(y.shape[1:])} are not padded to the grid {grid}")
+    if y.shape[0] > _MAX_GRID_YZ:
+        raise ValueError(f"{name} takes at most {_MAX_GRID_YZ} frames, got {y.shape[0]}")
+
+
+def tile_histograms_plain(y: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
+    """Plain version: ``(B, H, W)`` uint8, padded to the grid -> ``(B, gh,
+    gw, 256)`` int32 level counts of every tile."""
+
+    gh, gw = grid
+    b, h, w = y.shape
+    tiles = y.reshape(b, gh, h // gh, gw, w // gw)
+    tile_id = torch.arange(b * gh * gw, device=y.device).reshape(b, gh, 1, gw, 1)
+    flat = (tiles.to(torch.int64) + tile_id * 256).reshape(-1)
+    return torch.bincount(flat, minlength=b * gh * gw * 256).reshape(b, gh, gw, 256).to(torch.int32)
+
+
+def _vector_bytes(y: torch.Tensor, tile_w: int) -> int:
+    """The widest load (16, 4 or 1 bytes) at which every tile row starts
+    aligned."""
+
+    for v in (16, 4):
+        if y.data_ptr() % v == 0 and y.shape[2] % v == 0 and tile_w % v == 0:
+            return v
+    return 1
+
+
+def tile_histograms(y: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
+    """``(B, H, W)`` uint8 frames, padded to the grid -> ``(B, gh, gw, 256)``
+    int32 level counts of every grid tile."""
+
+    if not _build.on_card("tile_histograms", y):
+        return tile_histograms_plain(y, grid)
+    _check_planes("tile_histograms", y, grid)
+    gh, gw = grid
+    b, h, w = y.shape
+    th, tw = h // gh, w // gw
+    if th * tw >= 2**31:
+        raise ValueError("tile_histograms counts in int32: a tile must hold < 2**31 pixels")
+    out = torch.zeros((b, gh, gw, 256), dtype=torch.int32, device=y.device)
+    if y.numel() == 0:
+        return out
+    parts = min(th, max(1, -(-_TARGET_BLOCKS // (b * gh * gw))))
+    _build.launch(
+        "yam_tile_histogram_u8",
+        y.device,
+        y.data_ptr(),
+        out.data_ptr(),
+        b,
+        h,
+        w,
+        gh,
+        gw,
+        parts,
+        _vector_bytes(y, tw),
+    )
+    tile_histograms.launches += 1
+    return out
+
+
+tile_histograms.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bilinear blend (kernel B)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)``: ``a * b + c`` of float32 tensors rounded once to
+    float32.  The product is exact in float64 (24 + 24 bits); the float64
+    sum is rounded to odd (its error from TwoSum; where it is inexact and
+    its last bit even, the neighbour towards the exact sum), and a
+    round-to-odd result with 29 more bits than float32 rounds to the same
+    float32 as the exact sum."""
+
+    p = a.to(torch.float64) * b.to(torch.float64)
+    q = c.to(torch.float64)
+    s = p + q
+    bv = s - p
+    err = (p - (s - bv)) + (q - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def clahe_blend_plain(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Tensor:
+    """Plain version: ``(B, H, W)`` uint8, ``(B, gh, gw, 256)`` uint8 tables
+    -> ``(B, h_out, w_out)`` uint8, ``h_out`` and ``w_out`` the lengths of
+    the row and column arrays of ``interp``."""
+
+    y0, y1, fy, x0, x1, fx = interp
+    h_out, w_out = fy.shape[0], fx.shape[0]
+    b = y.shape[0]
+    vals = y[:, :h_out, :w_out].to(torch.int64)
+    tables = luts.to(torch.float32)
+    frame = torch.arange(b, device=y.device).view(b, 1, 1)
+    top, bottom = y0.to(torch.int64).view(1, -1, 1), y1.to(torch.int64).view(1, -1, 1)
+    left, right = x0.to(torch.int64).view(1, 1, -1), x1.to(torch.int64).view(1, 1, -1)
+    t00 = tables[frame, top, left, vals]
+    t01 = tables[frame, top, right, vals]
+    t10 = tables[frame, bottom, left, vals]
+    t11 = tables[frame, bottom, right, vals]
+    one = torch.ones((), dtype=torch.float32, device=y.device)
+    fy2, fx2 = fy.view(-1, 1), fx.view(1, -1)
+    w00 = (one - fy2) * (one - fx2)
+    w01 = (one - fy2) * fx2
+    w10 = fy2 * (one - fx2)
+    w11 = fy2 * fx2
+    # XLA's CPU order of w00*t00 + w01*t01 + w10*t10 + w11*t11
+    out = _fma32(w11, t11, _fma32(w10, t10, _fma32(w00, t00, w01 * t01)))
+    return to_uint8(out)
+
+
+def clahe_blend(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Tensor:
+    """Blend each pixel's four corner tables: ``(B, H, W)`` uint8 frames
+    padded to the grid of the ``(B, gh, gw, 256)`` uint8 tables, and the
+    :data:`Interp` arrays of :func:`interp_tensors` -> ``(B, h_out,
+    w_out)`` uint8, the first rows and columns of the blended frames.  The
+    kernel trusts the tile indices of ``interp`` (checking them would read
+    them back to the host); take them from :func:`interp_tensors`."""
+
+    if not _build.on_card("clahe_blend", y):
+        return clahe_blend_plain(y, luts, interp)
+    b, gh, gw = luts.shape[:3]
+    _check_planes("clahe_blend", y, (gh, gw))
+    if luts.shape != (b, gh, gw, 256) or luts.dtype != torch.uint8 or not luts.is_contiguous():
+        raise ValueError(
+            f"clahe_blend takes contiguous uint8 tables ({y.shape[0]}, gh, gw, 256), got "
+            f"{tuple(luts.shape)} {luts.dtype}"
+        )
+    if b != y.shape[0] or luts.device != y.device:
+        raise ValueError(f"clahe_blend: {b} tables on {luts.device} for {y.shape[0]} frames on {y.device}")
+    y0, y1, fy, x0, x1, fx = interp
+    h_out, w_out = fy.shape[0], fx.shape[0]
+    for name, a, dtype, n in (
+        ("y0", y0, torch.int32, h_out),
+        ("y1", y1, torch.int32, h_out),
+        ("fy", fy, torch.float32, h_out),
+        ("x0", x0, torch.int32, w_out),
+        ("x1", x1, torch.int32, w_out),
+        ("fx", fx, torch.float32, w_out),
+    ):
+        if a.dtype != dtype or a.shape != (n,) or a.device != y.device or not a.is_contiguous():
+            raise ValueError(f"clahe_blend: {name} must be contiguous ({n},) {dtype} on {y.device}")
+    if not (1 <= h_out <= y.shape[1] and 1 <= w_out <= y.shape[2]):
+        raise ValueError(f"clahe_blend: output {h_out}x{w_out} outside frames of {tuple(y.shape[1:])}")
+    if h_out > _MAX_GRID_YZ:
+        raise ValueError(f"clahe_blend takes at most {_MAX_GRID_YZ} output rows, got {h_out}")
+    out = torch.empty((b, h_out, w_out), dtype=torch.uint8, device=y.device)
+    vec = 4 if (y.data_ptr() % 4 == 0 and y.shape[2] % 4 == 0 and w_out % 4 == 0) else 1
+    _build.launch(
+        "yam_clahe_blend_u8",
+        y.device,
+        y.data_ptr(),
+        out.data_ptr(),
+        luts.data_ptr(),
+        y0.data_ptr(),
+        y1.data_ptr(),
+        fy.data_ptr(),
+        x0.data_ptr(),
+        x1.data_ptr(),
+        fx.data_ptr(),
+        b,
+        y.shape[1],
+        y.shape[2],
+        h_out,
+        w_out,
+        gh,
+        gw,
+        vec,
+    )
+    clahe_blend.launches += 1
+    return out
+
+
+clahe_blend.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the op
+
+
+def clahe(y: torch.Tensor, clip_limit: float = 40.0, grid: Tuple[int, int] = (8, 8)) -> torch.Tensor:
+    """``clahe_j`` on a batch: ``(B, h, w)`` uint8 -> ``(B, h, w)`` uint8."""
+
+    gh, gw = grid
+    _, h0, w0 = y.shape
+    work = pad_to_grid(y, grid)
+    h, w = work.shape[1:]
+    area = (h // gh) * (w // gw)
+    luts = clip_and_lut(tile_histograms(work, grid), clip_limit, area).to(torch.uint8)
+    return clahe_blend(work, luts, interp_tensors(h, w, (gh, gw), h0, w0, y.device))
+
+
+__all__ = [
+    "Interp",
+    "clahe",
+    "clahe_blend",
+    "clahe_blend_plain",
+    "clip_and_lut",
+    "interp_tensors",
+    "interp_weights",
+    "pad_to_grid",
+    "tile_histograms",
+    "tile_histograms_plain",
+]

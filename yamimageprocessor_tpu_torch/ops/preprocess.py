@@ -1,19 +1,21 @@
-"""Torch device functions of the preprocessing ops on the flagship path
-(the port of part of ``ops/preprocess.py``).
+"""Torch device functions of the preprocessing ops on the flagship and the
+CLAHE paths (the port of part of ``ops/preprocess.py``).
 
 Ported: ``preprocessing.noise_reduction`` (Gaussian, on 2-D and
-``(H, W, C)`` items), ``preprocessing.histogram_equalization`` (2-D items),
-``preprocessing.brightness_contrast`` and ``preprocessing.gamma``, each
-with its table function.  Median and Bilateral noise reduction and the
-colour (YCrCb) equalization raise ``NotImplementedError``.
+``(H, W, C)`` items), ``preprocessing.histogram_equalization`` (2-D items,
+and BGR items through YCrCb), ``preprocessing.brightness_contrast`` and
+``preprocessing.gamma``, each with its table function,
+``preprocessing.clahe`` (2-D items, and BGR items through YCrCb) and
+``preprocessing.select_channel``.  Median and Bilateral noise reduction
+raise ``NotImplementedError``.
 
 Each function takes a batch ``(B, *item_shape)`` of uint8 items (see
 :mod:`.registry`).  No value is read back to the host: the equalization
 table's first bin, remainder and constant-frame case are tensor ops.
 
 The parameter splits are copies of the JAX package's
-(``ops/preprocess.py:76-85, 105-110, 266-280, 576-596``), with its host
-dtypes: float32 taps, alpha and beta, a uint8 gamma table.
+(``ops/preprocess.py:76-85, 105-110, 266-280, 376-382, 576-596, 708-711``),
+with its host dtypes: float32 taps, alpha and beta, a uint8 gamma table.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from yamimageprocessor_tpu_torch.ops.clahe import clahe as clahe_planes
+from yamimageprocessor_tpu_torch.ops.color import bgr_to_ycrcb, ycrcb_to_bgr
 from yamimageprocessor_tpu_torch.ops.filters import to_uint8
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
 from yamimageprocessor_tpu_torch.ops.registry import register_op, require_uint8
@@ -78,7 +82,7 @@ register_op(
 
 
 # ---------------------------------------------------------------------------
-# Histogram equalization (cv2.equalizeHist), gray items
+# Histogram equalization (cv2.equalizeHist)
 
 
 def equalization_lut(hist: torch.Tensor) -> torch.Tensor:
@@ -107,14 +111,24 @@ def equalization_lut_from_images(imgs):
     return equalization_lut(histogram256_batch(imgs))
 
 
+def _on_luma(imgs, fn):
+    """``fn`` on the Y plane of ``(B, H, W, 3)`` BGR items, then back to
+    BGR (``ops/preprocess.py:215-220, 300-309``)."""
+
+    ycrcb = bgr_to_ycrcb(imgs)
+    ycrcb[..., 0] = fn(ycrcb[..., 0].contiguous())
+    return ycrcb_to_bgr(ycrcb)
+
+
+def _equalize(gray):
+    return apply_lut(gray, equalization_lut_from_images(gray))
+
+
 def histogram_equalization(imgs, dyn):
-    if imgs.ndim != 3:
-        raise NotImplementedError(
-            "preprocessing.histogram_equalization: colour (YCrCb) equalization "
-            "is not ported to torch yet"
-        )
     require_uint8("preprocessing.histogram_equalization", imgs)
-    return apply_lut(imgs, equalization_lut_from_images(imgs))
+    if imgs.ndim == 3:
+        return _equalize(imgs)
+    return _on_luma(imgs, _equalize)
 
 
 register_op(
@@ -123,6 +137,68 @@ register_op(
     lut_fn=lambda imgs, dyn: equalization_lut_from_images(imgs),
     lut_needs_image=True,
     lut_ndims=(2,),
+)
+
+
+# ---------------------------------------------------------------------------
+# CLAHE (cv2.createCLAHE semantics)
+
+
+def clahe(imgs, dyn, *, clip_limit: float = 40.0, grid_size: int = 8):
+    require_uint8("preprocessing.clahe", imgs)
+    grid = (int(grid_size), int(grid_size))
+    if imgs.ndim == 3:
+        return clahe_planes(imgs, float(clip_limit), grid)
+    return _on_luma(imgs, lambda y: clahe_planes(y, float(clip_limit), grid))
+
+
+register_op(
+    "preprocessing.clahe",
+    device_fn=clahe,
+    split=lambda p: (
+        {
+            "clip_limit": float(p.get("clip_limit", 40.0)),
+            "grid_size": int(p.get("grid_size", 8)),
+        },
+        {},
+    ),
+)
+
+
+# ---------------------------------------------------------------------------
+# Select channel (core/preprocessing.py:116-120)
+
+_SINGLE = {"B": 0, "G": 1, "R": 2}
+_PAIRS = {"RG": (2, 1), "GB": (1, 0), "BR": (0, 2)}
+
+
+def select_channel(imgs, dyn, *, value: str = "All"):
+    if imgs.ndim == 3:  # gray items become BGR first
+        imgs = imgs.unsqueeze(-1).expand(*imgs.shape, 3).contiguous()
+    if value in _SINGLE:
+        return imgs[..., _SINGLE[value]].contiguous()
+    if value in _PAIRS:
+        a, b = (imgs[..., c].to(torch.float32) for c in _PAIRS[value])
+        return ((a + b) / 2).to(torch.uint8)  # truncates, as np.uint8(...) does
+    return imgs
+
+
+def _select_channel_item(item_shape, dtype, *, value: str = "All"):
+    """``(H, W, 3)`` -> ``(H, W)`` for one channel or a pair; a 2-D item
+    becomes ``(H, W, 3)`` under "All"."""
+
+    if value in _SINGLE or value in _PAIRS:
+        return tuple(item_shape[:2]), np.dtype(dtype)
+    if len(item_shape) == 2:
+        return tuple(item_shape) + (3,), np.dtype(dtype)
+    return tuple(item_shape), np.dtype(dtype)
+
+
+register_op(
+    "preprocessing.select_channel",
+    device_fn=select_channel,
+    split=lambda params: ({"value": str(params.get("value", "All"))}, {}),
+    out_item=_select_channel_item,
 )
 
 
@@ -172,9 +248,11 @@ register_op(
 __all__ = [
     "brightness_contrast",
     "brightness_contrast_lut",
+    "clahe",
     "equalization_lut",
     "equalization_lut_from_images",
     "gamma",
     "histogram_equalization",
     "noise_reduction",
+    "select_channel",
 ]

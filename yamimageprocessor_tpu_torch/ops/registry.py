@@ -14,8 +14,9 @@ images' device.  ``lut_fn(imgs, dyn, **static)`` returns a uint8 table of
 shape ``(256,)`` (one for every frame) or ``(B, 256)`` (one per frame);
 ``lut_needs_image`` marks a table built from the image, which may only
 open a composed run, and ``lut_ndims`` the item ranks the table applies
-to.  ``out_item(item_shape, dtype)`` gives the item shape and numpy dtype
-a step produces, which the chain runner tracks from step to step.
+to.  ``out_item(item_shape, dtype, **static)`` gives the item shape and
+numpy dtype a step produces, which the chain runner tracks from step to
+step.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def _no_params(params: Mapping[str, Any]) -> SplitResult:
     return {}, {}
 
 
-def _same_item(item_shape: Tuple[int, ...], dtype: np.dtype) -> Tuple[Tuple[int, ...], np.dtype]:
+def _same_item(item_shape: Tuple[int, ...], dtype: np.dtype, **static: Any) -> Tuple[Tuple[int, ...], np.dtype]:
     return tuple(item_shape), np.dtype(dtype)
 
 

@@ -46,6 +46,8 @@ ALL_OPS: Tuple[OpSchema, ...] = (
         "histogram_equalization",
         "histogram_equalization",
     ),
+    OpSchema("preprocessing.select_channel", Stage.PREPROCESSING, "select_channel", "SelectChannel"),
+    OpSchema("preprocessing.clahe", Stage.PREPROCESSING, "clahe", "clahe"),
     OpSchema("segmentation.global_threshold", Stage.SEGMENTATION, "Global", "Global"),
     OpSchema("segmentation.otsu", Stage.SEGMENTATION, "Otsu", "Otsu"),
     OpSchema("segmentation.watershed", Stage.SEGMENTATION, "Watershed", "Watershed"),

@@ -27,7 +27,7 @@ from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_threshold
 from yamimageprocessor_tpu_torch.ops.watershed import flood, paint_boundaries
 
 
-def _gray_item(item_shape, dtype):
+def _gray_item(item_shape, dtype, **static):
     """Item shape and dtype of a threshold's output: a 2-D uint8 mask."""
 
     return tuple(item_shape[:2]), np.dtype(np.uint8)

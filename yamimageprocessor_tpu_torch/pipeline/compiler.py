@@ -9,8 +9,9 @@ to the host instead.
 
 The item shape and dtype are tracked from step to step, as the reference
 does with ``eval_shape`` (``compiler.py:115-160``): each op's ``out_item``
-gives what it produces (a threshold turns an ``(H, W, C)`` item into an
-``(H, W)`` mask).
+gives what it produces from its input item and its static parameters (a
+threshold turns an ``(H, W, C)`` item into an ``(H, W)`` mask, a channel
+selection picks the item it makes by its ``value``).
 
 Within a device segment, maximal runs of table-expressible steps collapse
 into one table exactly as in ``compiler.py:154-211``: ``composed =
@@ -68,16 +69,19 @@ def _torch_impl(step: PipelineStep) -> Optional[OpImpl]:
     return step.impl
 
 
-def item_specs(impls: Sequence[Optional[OpImpl]], item_shape, dtype) -> List[ItemSpec]:
+def item_specs(
+    impls: Sequence[Optional[OpImpl]], statics: Sequence[Dict[str, Any]], item_shape, dtype
+) -> List[ItemSpec]:
     """The input item of every step of a segment whose input item is
-    ``item_shape`` of ``dtype``."""
+    ``item_shape`` of ``dtype``; ``statics`` holds each step's static
+    parameters."""
 
     spec: ItemSpec = (tuple(item_shape), np.dtype(dtype))
     specs = []
-    for impl in impls:
+    for impl, static in zip(impls, statics):
         specs.append(spec)
         if impl is not None:
-            spec = impl.out_item(*spec)
+            spec = impl.out_item(*spec, **static)
     return specs
 
 
@@ -191,23 +195,31 @@ class CompiledChain:
             impls = [_torch_impl(self.steps[i]) for i in plan.indices]
             self._impls[seg_idx] = impls
             if known:
-                specs = item_specs(impls, self._item_shape(self.shape), self.dtype)
+                statics, _ = self._split(seg_idx, self.steps)
+                specs = item_specs(impls, statics, self._item_shape(self.shape), self.dtype)
                 self.lut_runs[seg_idx] = lut_runs_for(impls, specs)
 
     def _item_shape(self, shape) -> Tuple[int, ...]:
         return tuple(shape[1:]) if self.batch else tuple(shape)
+
+    def _split(self, seg_idx: int, steps):
+        """(static kwargs, host dyn) lists of device segment ``seg_idx``'s
+        steps, from the parameters of ``steps``."""
+
+        statics, dyns = [], []
+        for i, impl in zip(self.plans[seg_idx].indices, self._impls[seg_idx]):
+            static, dyn = ({}, {}) if impl is None else impl.split(steps[i].params)
+            statics.append(static)
+            dyns.append(dyn)
+        return statics, dyns
 
     def _segment(self, seg_idx: int, steps, item_shape, dtype):
         """(segment fn, host dyn list) for device segment ``seg_idx`` on
         input items of ``item_shape`` and ``dtype``."""
 
         impls = self._impls[seg_idx]
-        statics, dyns = [], []
-        for i, impl in zip(self.plans[seg_idx].indices, impls):
-            static, dyn = ({}, {}) if impl is None else impl.split(steps[i].params)
-            statics.append(static)
-            dyns.append(dyn)
-        runs = lut_runs_for(impls, item_specs(impls, item_shape, dtype))
+        statics, dyns = self._split(seg_idx, steps)
+        runs = lut_runs_for(impls, item_specs(impls, statics, item_shape, dtype))
         return _DeviceSegment(impls, statics, runs, bool(self.batch)), dyns
 
     def run(

@@ -13,8 +13,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
    one process per source;
 3. kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the card, bit for bit, at the main paths' shapes and at awkward
-   ones; then each kernel's, its plain version's and (where one PyTorch
-   call computes the same function) that call's device time;
+   ones (the distance kernel also at 1 to 2048 rows a chunk, on its two
+   worst cases and on a batch of three frames); then each kernel's, its
+   plain version's and (where one PyTorch call computes the same function)
+   that call's device time, and the distance kernel's at each chunk size
+   and on its worst cases;
 4. flagship: the flagship chain (Gaussian 5x5 -> histogram equalization
    -> brightness/contrast) on an 8 x 2048^2 uint8 batch from
    ``np.random.default_rng(0)`` through ``flagship_forward`` and the
@@ -316,7 +319,12 @@ def phase_kernels(dev) -> dict:
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
     from yamimageprocessor_tpu_torch.ops import clahe as CL
     from yamimageprocessor_tpu_torch.ops.color import bgr_to_ycrcb
-    from yamimageprocessor_tpu_torch.ops.distance import MAX_WIDTH, distance_transform, distance_transform_plain
+    from yamimageprocessor_tpu_torch.ops.distance import (
+        MAX_WIDTH,
+        ROWS_PER_CHUNK,
+        distance_transform,
+        distance_transform_plain,
+    )
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index, cc_min_index_plain
     from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import (
@@ -399,6 +407,8 @@ def phase_kernels(dev) -> dict:
         ("30% noise 2048^2", noise_mask((1, SEG_SIDE, SEG_SIDE), 0.7)),
         ("all foreground 2048^2", torch.full((1, SEG_SIDE, SEG_SIDE), 255, dtype=torch.uint8, device=dev)),
         ("(3,37,1001)", noise_mask((3, 37, 1001), 0.7)),
+        # 4-column groups that are not on a 4-byte boundary
+        ("unaligned (2,40,64)", noise_mask((2 * 40 * 64 + 1,), 0.7)[1:].view(2, 40, 64)),
     ] + [(f"width {w}", noise_mask((2, 19, w), 0.6)) for w in (1, 2, 3, 4, 5, MAX_WIDTH)]
     for name, masks in cases:
         err["distance"] |= exact(f"distance {name}", distance_transform(masks), distance_transform_plain(masks))
@@ -411,7 +421,30 @@ def phase_kernels(dev) -> dict:
     else:
         raise AssertionError(f"distance: a frame {MAX_WIDTH + 1} wide must be refused")
     print(f"kernels: distance bit-exact on the scene's opening, 30% noise, all foreground (stays INF), "
-          f"(3,37,1001), widths 1-5 and {MAX_WIDTH} (the widest; one more is refused)")
+          f"(3,37,1001), unaligned, widths 1-5 and {MAX_WIDTH} (the widest; one more is refused)")
+    # chunk sizes, the two worst cases and a batch, each against its plain version
+    want = distance_transform_plain(opening)
+    for rows in sorted({1, 16, 64, ROWS_PER_CHUNK, SEG_SIDE}):
+        got = distance_transform(opening, rows_per_chunk=rows)
+        err["distance"] |= exact(f"distance scene opening, {rows} rows a chunk", got, want)
+        print(f"  distance scene opening, {rows} rows a chunk: fix-up rounds (forward, backward) "
+              f"{distance_transform.last_rounds.tolist()}")
+    worst = {}
+    for name, row in (("zero in the first row", 0), ("zero in the last row", SEG_SIDE - 1)):
+        masks = torch.full((1, SEG_SIDE, SEG_SIDE), 255, dtype=torch.uint8, device=dev)
+        masks[0, row, SEG_SIDE // 3] = 0
+        worst[name] = masks
+        err["distance"] |= exact(f"distance {name} 2048^2", distance_transform(masks), distance_transform_plain(masks))
+        print(f"  distance {name} 2048^2: fix-up rounds (forward, backward) "
+              f"{distance_transform.last_rounds.tolist()}")
+    batch = torch.cat([opening, noise_mask((1, SEG_SIDE, SEG_SIDE), 0.7), opening.flip(1)]).contiguous()
+    want = distance_transform_plain(batch)
+    # at 16 rows a chunk the batch's chunks do not all fit: fewer, longer ones
+    for rows in (ROWS_PER_CHUNK, 16):
+        got = distance_transform(batch, rows_per_chunk=rows)
+        err["distance"] |= exact(f"distance batch (3,2048,2048), {rows} rows a chunk", got, want)
+    print(f"kernels: distance bit-exact on the scene's opening at {sorted({1, 16, 64, ROWS_PER_CHUNK, SEG_SIDE})} "
+          f"rows a chunk, on both worst cases at 2048^2 and on a (3,2048,2048) batch at {ROWS_PER_CHUNK} and 16")
 
     sure_fg = (markers > 1).to(torch.uint8)
     for name, fg in (
@@ -518,6 +551,13 @@ def phase_kernels(dev) -> dict:
     flood_device_ms = profiled_device_ms(lambda: flood(closed, markers))
     for name, (k, p) in times.items():
         print(f"time {name}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    for rows in (32, 64, 128, 256, SEG_SIDE):
+        ms = time_ms(lambda: distance_transform(opening, rows_per_chunk=rows))
+        per_row = f" = {1e3 * ms / (2 * SEG_SIDE):.3f} us a row (one chunk: the sequential walk)" if rows == SEG_SIDE else ""
+        print(f"time distance scene opening, {rows} rows a chunk: {ms:.4f} ms{per_row}")
+    for name, masks in worst.items():
+        ms = time_ms(lambda: distance_transform(masks), runs=5)
+        print(f"time distance {name} 2048^2, {ROWS_PER_CHUNK} rows a chunk: {ms:.4f} ms")
     print(f"time histogram256 on one 2048^2 frame: kernel {hist_one_ms:.4f} ms, "
           f"torch.bincount {library['histogram256']:.4f} ms")
     print(f"time flood: {flood_device_ms} ms of device time by the profiler (its event-pair "

@@ -427,6 +427,45 @@ def test_cuda_distance_matches_plain(shape):
 
 @cuda
 @needs_card
+@pytest.mark.parametrize("rows_per_chunk", [1, 7, 64])
+@pytest.mark.parametrize("case", ["noise", "zero in the first row", "zero in the last row"])
+def test_cuda_distance_chunks_and_worst_cases(case, rows_per_chunk):
+    h, w = 600, 300
+    if case == "noise":
+        gen = torch.Generator(device="cuda").manual_seed(rows_per_chunk)
+        masks = (torch.rand((2, h, w), generator=gen, device="cuda") > 0.3).to(torch.uint8) * 255
+    else:
+        masks = torch.full((1, h, w), 255, dtype=torch.uint8, device="cuda")
+        masks[0, 0 if case == "zero in the first row" else h - 1, w // 3] = 0
+    got = distance_transform(masks, rows_per_chunk=rows_per_chunk)
+    torch.cuda.synchronize()
+    _same(got.view(torch.int32), distance_transform_plain(masks).view(torch.int32).cpu())
+    if case != "noise" and rows_per_chunk > 1:
+        # the pass that carries the distance re-walks one chunk a round
+        k_chunks = -(-h // rows_per_chunk)
+        rounds = distance_transform.last_rounds.tolist()
+        assert rounds[0 if case == "zero in the first row" else 1] == k_chunks - 1
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize(
+    "shape, rows_per_chunk",
+    [
+        ((20, 64, 50), 4),  # more chunks than fit: fewer, longer ones
+        ((300, 40, 30), 8),  # more frames than fit: a block a frame, in groups
+    ],
+)
+def test_cuda_distance_large_batches(shape, rows_per_chunk):
+    gen = torch.Generator(device="cuda").manual_seed(shape[0])
+    masks = (torch.rand(shape, generator=gen, device="cuda") > 0.2).to(torch.uint8) * 255
+    got = distance_transform(masks, rows_per_chunk=rows_per_chunk)
+    torch.cuda.synchronize()
+    _same(got.view(torch.int32), distance_transform_plain(masks).view(torch.int32).cpu())
+
+
+@cuda
+@needs_card
 def test_cuda_distance_refuses_frames_wider_than_shared_memory():
     with pytest.raises(ValueError):
         distance_transform(torch.zeros((1, 2, MAX_WIDTH + 1), dtype=torch.uint8, device="cuda"))

@@ -14,9 +14,10 @@ at first use and rebuilt only when a source changes.  nvcc is taken from
 ``PATH``, else from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).  A
 failed build or load raises; nothing falls back.
 
-Every C function takes device pointers and the CUDA stream as
-``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
-:func:`launch` raises when that is not 0.
+Every C function returns a CUDA error code, 0 for success; a kernel's
+takes device pointers and the CUDA stream as ``c_void_p`` and returns
+``cudaGetLastError()`` after its launch.  :func:`launch` and :func:`call`
+raise when the code is not 0.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_sepconv_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_histogram256_u8": (_P, _P, _L, _I, _I, _P),
     "yam_lut_apply_u8": (_P, _P, _P, _L, _L, _I, _I, _P),
-    "yam_chamfer_u8": (_P, _P, _I, _I, _I, _P),
+    "yam_chamfer_resident_blocks": (_I, ctypes.POINTER(_I)),
+    "yam_chamfer_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "yam_cc_min_index": (_P, _P, _I, _I, _I, _P),
     "yam_flood_sweeps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_tile_histogram_u8": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -163,19 +165,27 @@ def on_card(name: str, tensor) -> bool:
     raise ValueError(f"{name} takes CPU or CUDA tensors, got {tensor.device}")
 
 
-def launch(name: str, device, *args) -> None:
-    """Call C function ``name`` on ``device``'s current CUDA stream; raise
-    if the launch was refused (``cudaGetLastError()`` not 0)."""
+def call(name: str, device, *args) -> None:
+    """Call C function ``name`` with ``device`` current; raise if it
+    returns a CUDA error."""
 
     import torch
 
     lib = library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(*args, stream)
+        code = getattr(lib, name)(*args)
     if code != 0:
         message = lib.yam_cuda_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({message})")
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library", "library_path", "launch", "on_card"]
+def launch(name: str, device, *args) -> None:
+    """Call kernel launcher ``name`` on ``device``'s current CUDA stream;
+    raise if the launch was refused (``cudaGetLastError()`` not 0)."""
+
+    import torch
+
+    call(name, device, *args, torch.cuda.current_stream(device).cuda_stream)
+
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "call", "library", "library_path", "launch", "on_card"]

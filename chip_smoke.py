@@ -14,10 +14,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
 3. kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the card, bit for bit, at the main paths' shapes and at awkward
    ones (the distance kernel also at 1 to 2048 rows a chunk, on its two
-   worst cases and on a batch of three frames); then each kernel's, its
-   plain version's and (where one PyTorch call computes the same function)
-   that call's device time, and the distance kernel's at each chunk size
-   and on its worst cases;
+   worst cases and on a batch of three frames; the flood also on a batch
+   of 8 different 2048^2 scenes, each frame against its plain flood alone,
+   on a single-marker frame whose front crosses the frame one pixel a
+   sweep, and on uint16 frames whose edge costs pass 255); then each
+   kernel's, its plain version's and (where one PyTorch call computes the
+   same function) that call's device time, the distance kernel's at each
+   chunk size and on its worst cases, and the flood's sweeps, levels
+   visited and share of tiles swept, its time on the batch and on the
+   single-marker frame at 2048^2;
 4. flagship: the flagship chain (Gaussian 5x5 -> histogram equalization
    -> brightness/contrast) on an 8 x 2048^2 uint8 batch from
    ``np.random.default_rng(0)`` through ``flagship_forward`` and the
@@ -65,6 +70,7 @@ FLAGSHIP_STEPS = 3  # Gaussian, histogram equalization, brightness/contrast
 SEG_SIDE = 2048
 SEG_CPU_SIDE = 512
 SEG_FRAMES = 12
+FLOOD_BATCH = 8
 CLAHE_SHAPE = (64, 1024, 1024, 3)
 CLAHE_1000_SHAPE = (4, 1000, 1000, 3)  # tiles of 250 px: non-dyadic fractions
 CLAHE_CPU_SHAPE = (3, 120, 100, 3)
@@ -208,6 +214,17 @@ def dense_scene(side: int, seed: int = 3) -> np.ndarray:
     return (img.astype(np.int16) + noise).clip(0, 255).astype(np.uint8)
 
 
+def single_marker(side: int, dev):
+    """A flat frame with one marker in a corner, and its markers: the
+    flood's front crosses the frame one pixel a sweep (the tile skipping's
+    worst case, about 2 * side sweeps)."""
+
+    img = torch.full((1, side, side), 40, dtype=torch.uint8, device=dev)
+    markers = torch.zeros((1, side, side), dtype=torch.int32, device=dev)
+    markers[0, 1, 1] = 2
+    return img, markers
+
+
 def clahe_steps():
     """The CLAHE chain as ``bench.py:445-463`` builds it: Gaussian 5x5 ->
     CLAHE (clip 2.0, grid 4) -> the mean of R and G."""
@@ -332,7 +349,7 @@ def phase_kernels(dev) -> dict:
         sep_filter_u8_plain,
         sep_filter_u8_planes,
     )
-    from yamimageprocessor_tpu_torch.ops.watershed import flood, flood_plain
+    from yamimageprocessor_tpu_torch.ops.watershed import TILE_COLS, TILE_ROWS, cost_planes, flood, flood_plain, tiles
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -466,9 +483,36 @@ def phase_kernels(dev) -> dict:
     ):
         mk = markers if imgs is closed else _watershed_inputs(imgs[..., 0] if imgs.ndim == 4 else imgs)[1]
         err["flood"] |= exact(f"flood {name}", flood(imgs, mk), flood_plain(imgs, mk))
-        print(f"  flood {name}: {flood.last_sweeps} sweeps")
-    print("kernels: flood bit-exact on the chain's watershed input, the raw scene at 512^2 and 2048^2 "
-          "and a BGR scene")
+        print(f"  flood {name}: {flood.last_sweeps.tolist()} sweeps")
+    scenes = torch.stack([torch.from_numpy(dense_scene(SEG_SIDE, seed=k)) for k in range(FLOOD_BATCH)]).to(dev)
+    scene_markers = _watershed_inputs(scenes)[1]
+    got = flood(scenes, scene_markers)
+    flood_batch_sweeps = flood.last_sweeps.tolist()
+    for i in range(FLOOD_BATCH):
+        err["flood"] |= exact(
+            f"flood batch frame {i}", got[i : i + 1], flood_plain(scenes[i : i + 1], scene_markers[i : i + 1])
+        )
+    print(f"  flood batch of {FLOOD_BATCH} scenes 2048^2: sweeps {flood_batch_sweeps}")
+    lone = {side: single_marker(side, dev) for side in (SEG_CPU_SIDE, SEG_SIDE)}
+    lone_want = flood_plain(*lone[SEG_CPU_SIDE])
+    lone_plain_sweeps = flood_plain.last_sweeps.tolist()
+    err["flood"] |= exact(f"flood single marker {SEG_CPU_SIDE}^2", flood(*lone[SEG_CPU_SIDE]), lone_want)
+    print(f"  flood single marker {SEG_CPU_SIDE}^2: {flood.last_sweeps.tolist()} sweeps (plain {lone_plain_sweeps})")
+    # uint16 frames built in int32 (torch has few uint16 ops on the card)
+    wide32 = small.to(torch.int32) * 4
+    wide32[..., SEG_CPU_SIDE // 2] = 999  # a column whose edge costs pass 255
+    wide_markers = _watershed_inputs(small)[1]
+    for name, wide in (
+        ("gray", wide32.to(torch.uint16)),
+        ("BGR", torch.stack([wide32[0], wide32[0].roll(2, 0), wide32[0] // 3], dim=-1)[None].to(torch.uint16)),
+    ):
+        if not cost_planes(wide)[2]:
+            raise AssertionError("flood: a uint16 frame must take the wide-cost instance")
+        err["flood"] |= exact(f"flood uint16 {name} costs above 255 512^2", flood(wide, wide_markers),
+                              flood_plain(wide, wide_markers))
+    print("kernels: flood bit-exact on the chain's watershed input, the raw scene at 512^2 and 2048^2, "
+          f"a BGR scene, a batch of {FLOOD_BATCH} scenes (each frame alone), a single-marker frame, "
+          "uint16 gray and BGR frames with costs above 255")
 
     t5 = taps(5)
     # the CLAHE path's Y planes: the bench's frames after the Gaussian
@@ -546,9 +590,17 @@ def phase_kernels(dev) -> dict:
         "histogram256": time_ms(lambda: torch.bincount(one.view(-1), minlength=256)),
     }
     hist_one_ms = time_ms(lambda: ck.histogram256_batch(one))
-    # flood() reads its state back between sweep batches, so its event-pair
-    # time holds those host round trips; the profiler sums its kernels alone
+    # the flood's event pair against the profiler's sum of its kernels (the
+    # cooperative launch and the few small torch ops around it)
     flood_device_ms = profiled_device_ms(lambda: flood(closed, markers))
+    flood(closed, markers)
+    sweeps, levels, swept = (int(v) for v in flood.last_stats[0])
+    ty, tx = tiles(SEG_SIDE, SEG_SIDE)
+    flood_stats = {"sweeps": sweeps, "levels": levels, "tiles_swept": swept, "tile_share": swept / (sweeps * ty * tx)}
+    flood_batch_ms = time_ms(lambda: flood(scenes, scene_markers), runs=10)
+    flood(*lone[SEG_SIDE])
+    lone_stats = [int(v) for v in flood.last_stats[0]]
+    flood_lone_ms = time_ms(lambda: flood(*lone[SEG_SIDE]), runs=5)
     for name, (k, p) in times.items():
         print(f"time {name}: kernel {k:.4f} ms, plain {p:.4f} ms")
     for rows in (32, 64, 128, 256, SEG_SIDE):
@@ -560,8 +612,15 @@ def phase_kernels(dev) -> dict:
         print(f"time distance {name} 2048^2, {ROWS_PER_CHUNK} rows a chunk: {ms:.4f} ms")
     print(f"time histogram256 on one 2048^2 frame: kernel {hist_one_ms:.4f} ms, "
           f"torch.bincount {library['histogram256']:.4f} ms")
-    print(f"time flood: {flood_device_ms} ms of device time by the profiler (its event-pair "
-          "time above includes the host's state checks)")
+    print(f"time flood: event pair {times['flood'][0]:.4f} ms, {flood_device_ms} ms of device time by the "
+          f"profiler; {sweeps} sweeps, {levels} levels visited, {swept} tiles of {TILE_ROWS}x{TILE_COLS} swept "
+          f"= {100 * flood_stats['tile_share']:.1f}% of sweeps x tiles; bytes of the tiles swept "
+          f"{bound_ms(10 * swept * TILE_ROWS * TILE_COLS)[0]:.4f} ms at 3.35 TB/s")
+    print(f"time flood batch of {FLOOD_BATCH} scenes 2048^2: {flood_batch_ms:.4f} ms "
+          f"({flood_batch_ms / FLOOD_BATCH:.4f} ms a frame; sweeps {flood_batch_sweeps})")
+    print(f"time flood single marker {SEG_SIDE}^2: {flood_lone_ms:.4f} ms for {lone_stats[0]} sweeps "
+          f"({1e3 * flood_lone_ms / lone_stats[0]:.2f} us a sweep), {lone_stats[1]} levels, "
+          f"{100 * lone_stats[2] / (lone_stats[0] * ty * tx):.1f}% of sweeps x tiles swept")
 
     n_flag = float(np.prod(FLAGSHIP_SHAPE))
     n_seg = float(SEG_SIDE * SEG_SIDE)
@@ -593,7 +652,8 @@ def phase_kernels(dev) -> dict:
         "bounds": bounds,
         "hist_one_ms": hist_one_ms,
         "flood_device_ms": flood_device_ms,
-        "flood_sweeps": flood.last_sweeps,
+        "flood_stats": flood_stats,
+        "flood_swept_bound_ms": bound_ms(10 * swept * TILE_ROWS * TILE_COLS)[0],
     }
 
 
@@ -687,7 +747,7 @@ def phase_segmentation(dev) -> dict:
         lambda: (segmentation_forward(x), manager.apply(scene)),
     )
     out, frame_out = run["out"]
-    sweeps = flood.last_sweeps
+    sweeps = flood.last_sweeps.tolist()
     check_digest("segmentation_output", out[0])
     exact("segmentation manager.apply", torch.from_numpy(frame_out), out[0].cpu())
     small = dense_scene(SEG_CPU_SIDE)
@@ -716,7 +776,7 @@ def phase_segmentation(dev) -> dict:
     print(
         f"segmentation: {loop_ms:.4f} ms per frame back to back over {SEG_FRAMES} frames "
         f"= {1e3 / loop_ms:.2f} frames/s; {frame_ms:.4f} ms per call on the seed-3 scene "
-        f"(event pair behind a queued sleep; the flood's host checks included)"
+        f"(event pair behind a queued sleep)"
     )
     return run["launches"]
 
@@ -866,9 +926,9 @@ def main() -> None:
         if name == "histogram256":
             entry["ms_one_frame"] = kern["hist_one_ms"]
         if name == "flood":
-            entry["sweeps"] = kern["flood_sweeps"]
-            entry["ms_includes_host_checks"] = True
+            entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]
+            entry["swept_bound_ms"] = kern["flood_swept_bound_ms"]
         entries.append(entry)
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))

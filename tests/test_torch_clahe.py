@@ -332,6 +332,8 @@ def test_fma32_rounds_once():
 
     from fractions import Fraction
 
+    from yamimageprocessor_tpu_torch.ops.filters import fma32
+
     rng = np.random.default_rng(8)
     a = rng.random(4000, dtype=np.float32)
     b = rng.integers(0, 256, 4000).astype(np.float32)
@@ -342,7 +344,7 @@ def test_fma32_rounds_once():
     a[0], b[0], c[0] = 1 + 2.0**-15, (1 - 2.0**-15) * 2.0**-24, 1 + 2.0**-23
     twice_rounded = np.float32(np.float64(a[0]) * np.float64(b[0]) + np.float64(c[0]))
     assert twice_rounded == np.float32(1 + 2.0**-22)
-    got = CL._fma32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    got = fma32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
     assert got[0] == np.float32(1 + 2.0**-23)
     for x, y, z, r in zip(a, b, c, got):
         exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))

@@ -34,7 +34,14 @@ from yamimageprocessor_tpu_torch.ops.labeling import (
     label_seeds,
 )
 from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_from_hist, otsu_threshold
-from yamimageprocessor_tpu_torch.ops.watershed import flood, flood_plain, paint_boundaries
+from yamimageprocessor_tpu_torch.ops.watershed import (
+    LEVELS,
+    direction_costs,
+    flood,
+    flood_plain,
+    initial_labels,
+    paint_boundaries,
+)
 from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
 
 torch.set_num_threads(1)
@@ -337,6 +344,147 @@ def test_flood_frames_of_a_batch_flood_alone():
         _same(batched[i], flood(imgs[i : i + 1], markers[i : i + 1])[0])
 
 
+def _single_marker(h, w, dtype=np.uint8):
+    """A flat frame with one marker in a corner: the flood crosses the
+    frame one pixel a sweep (the tile skipping's worst case)."""
+
+    img = np.full((h, w), 40, dtype)
+    markers = np.zeros((h, w), np.int32)
+    markers[1, 1] = 2
+    return img, markers
+
+
+def _wide_scene(h, w, seed=0):
+    """A uint16 scene whose edge costs reach past 255: disks of 600-900 and
+    a column of 999."""
+
+    img, markers = _flood_scene(h, w, seed=seed)
+    wide = img.astype(np.uint16) * 4
+    wide[:, w // 2] = 999
+    return wide, markers
+
+
+_BIG = 0xFFFF
+
+
+def _tile_reduce(a, tr, tc, fn, fill):
+    """``fn`` over each tr x tc tile of a 2-D array padded with ``fill``."""
+
+    h, w = a.shape
+    ty, tx = -(-h // tr), -(-w // tc)
+    p = np.full((ty * tr, tx * tc), fill, a.dtype)
+    p[:h, :w] = a
+    return fn(p.reshape(ty, tr, tx, tc), axis=(1, 3))
+
+
+def _dilate4(flags):
+    out = flags.copy()
+    out[1:] |= flags[:-1]
+    out[:-1] |= flags[1:]
+    out[:, 1:] |= flags[:, :-1]
+    out[:, :-1] |= flags[:, 1:]
+    return out
+
+
+def _flood_schedule_model(image, markers, tile_rows, tile_cols):
+    """numpy model of ``csrc/watershed.cu``'s schedule on one frame: tiles,
+    active flags with their 4-neighbour dilation, per-tile fired flags and
+    frontiers double-buffered by sweep parity, skipped tiles keeping their
+    frontier, and the two label buffers, of which a sweep writes only the
+    active tiles of one: all of a tile that fired at the previous sweep,
+    else only its pixels that fire.  Returns (labels, sweeps, levels
+    visited, tiles swept) and checks that the two buffers end equal."""
+
+    costs = [c[0].numpy() for c in direction_costs(torch.from_numpy(np.ascontiguousarray(image))[None])]
+    h, w = markers.shape
+    tr, tc = tile_rows, tile_cols
+    buf = [initial_labels(torch.from_numpy(markers)[None])[0].numpy(), np.full((h, w), 7777, np.int32)]
+    ty, tx = -(-h // tr), -(-w // tc)
+    fired = [np.zeros((ty, tx), bool), np.zeros((ty, tx), bool)]
+    front = [np.full((ty, tx), -5, np.int64), np.full((ty, tx), -5, np.int64)]
+    level, q, levels, swept, jumped = 0, 0, 0, 0, False
+    while level < LEVELS:
+        assert q <= h * w + LEVELS  # a sweep fires a pixel or raises the level
+        p = q & 1
+        src, dst = buf[p], buf[1 - p]
+        if q == 0:
+            active = np.ones((ty, tx), bool)
+        else:
+            active = _dilate4(fired[1 - p]) | (jumped & _dilate4(front[1 - p] <= level))
+        pad = np.pad(src, 1)
+        neighbours = (pad[:-2, 1:-1], pad[2:, 1:-1], pad[1:-1, :-2], pad[1:-1, 2:])
+        trig_cost = np.full((h, w), _BIG, np.int64)
+        pos_min = np.full((h, w), 1 << 30, np.int64)
+        pos_max = np.zeros((h, w), np.int64)
+        for nl, cost in zip(neighbours, costs):
+            trig_cost = np.minimum(trig_cost, np.where(nl > 0, cost, _BIG))
+            pos_min = np.minimum(pos_min, np.where(nl > 0, nl, 1 << 30))
+            pos_max = np.maximum(pos_max, nl)
+        trig = (src == 0) & (trig_cost <= level)
+        new = np.where(trig, np.where(pos_min != pos_max, -1, pos_min), src).astype(np.int32)
+        full = active & (fired[1 - p] if q else True)
+        on = (np.repeat(np.repeat(full, tr, 0), tc, 1)[:h, :w]) | (np.repeat(np.repeat(active, tr, 0), tc, 1)[:h, :w] & trig)
+        dst[on] = new[on]
+        tile_fired = _tile_reduce(trig, tr, tc, np.any, False)
+        tile_front = _tile_reduce(np.where(new == 0, trig_cost, _BIG), tr, tc, np.min, _BIG)
+        fired[p] = active & tile_fired
+        front[p] = np.where(active, tile_front, front[1 - p])
+        swept += int(active.sum())
+        jumped = not fired[p].any()
+        if jumped:
+            level = max(min(int(front[p].min()), LEVELS), level + 1)
+            levels += 1
+        q += 1
+    assert (buf[0] == buf[1]).all()
+    return buf[0], q, levels, swept
+
+
+def _flood_cases():
+    return {
+        "scene 40x56": _flood_scene(40, 56, seed=40),
+        "scene 33x48 BGR": (lambda img, mk: (np.stack([img, np.roll(img, 2, 1), img], axis=-1), mk))(
+            *_flood_scene(33, 48, seed=33)
+        ),
+        "single marker 24x40": _single_marker(24, 40),
+        "uint16 costs above 255": _wide_scene(36, 44, seed=5),
+    }
+
+
+@pytest.mark.parametrize("tile", [(1, 1), (8, 16), (32, 128), (16, 128), "frame"])
+@pytest.mark.parametrize("case", sorted(_flood_cases()))
+def test_flood_schedule_model_matches_plain_and_jax(case, tile):
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.watershed import watershed_j
+
+    image, markers = _flood_cases()[case]
+    tr, tc = markers.shape if tile == "frame" else tile
+    labels, sweeps, levels, swept = _flood_schedule_model(image, markers, tr, tc)
+    want = flood_plain(_t(image), _t(markers))[0]
+    _same(labels, want)
+    _same(labels, np.asarray(jax.jit(watershed_j)(jnp.asarray(image), jnp.asarray(markers))))
+    assert sweeps == int(flood_plain.last_sweeps[0])
+    ty, tx = -(-markers.shape[0] // tr), -(-markers.shape[1] // tc)
+    assert 1 <= levels <= sweeps and ty * tx <= swept <= sweeps * ty * tx
+    if case.startswith("single marker") and tile == (1, 1):
+        # the front crosses one pixel a sweep and wakes few tiles at a time
+        assert sweeps >= sum(markers.shape) - 6 and swept < sweeps * ty * tx // 4
+
+
+def test_flood_plain_counts_sweeps_per_frame():
+    frames = [_flood_scene(40, 56, seed=s) for s in (1, 2)] + [_single_marker(40, 56)]
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames]))
+    markers = torch.from_numpy(np.stack([f[1] for f in frames]))
+    flood_plain(imgs, markers)
+    together = flood_plain.last_sweeps.tolist()
+    alone = []
+    for i in range(3):
+        flood_plain(imgs[i : i + 1], markers[i : i + 1])
+        alone.append(int(flood_plain.last_sweeps[0]))
+    assert together == alone and len(set(alone)) > 1
+
+
 # ---------------------------------------------------------------------------
 # the chain
 
@@ -488,6 +636,80 @@ def test_cuda_flood_matches_plain(shape):
     for image in (img, bgr):
         got = flood(_t(image).cuda(), _t(markers).cuda())
         _same(got, flood_plain(_t(image), _t(markers)))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("scenes", [3, 131])
+def test_cuda_flood_batches_frames_of_different_sweeps(scenes):
+    """A few frames, and more than a block's threads (the batched chain
+    and the manager's N-D stacks send such batches)."""
+
+    h, w = (300, 200) if scenes < 10 else (60, 140)
+    frames = [_flood_scene(h, w, seed=s, blobs=4) for s in range(1, scenes + 1)] + [_single_marker(h, w)]
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames])).cuda()
+    markers = torch.from_numpy(np.stack([f[1] for f in frames])).cuda()
+    before = flood.launches
+    got = flood(imgs, markers)
+    torch.cuda.synchronize()
+    assert flood.launches == before + 1
+    want = flood_plain(imgs, markers)
+    _same(got, want.cpu())
+    assert flood.last_sweeps.tolist() == flood_plain.last_sweeps.tolist()
+    assert len(set(flood.last_sweeps.tolist())) > 1
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("shape", [(130, 257), (64, 64), (1, 9), (9, 1), (517, 131)])
+def test_cuda_flood_single_marker(shape):
+    img, markers = _single_marker(*shape) if min(shape) > 2 else (np.zeros(shape, np.uint8), np.zeros(shape, np.int32))
+    got = flood(_t(img).cuda(), _t(markers).cuda())
+    _same(got, flood_plain(_t(img), _t(markers)))
+    assert int(flood.last_sweeps[0]) == int(flood_plain.last_sweeps[0])
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("bgr", [False, True])
+def test_cuda_flood_wide_costs(bgr):
+    img, markers = _wide_scene(200, 300, seed=9)
+    if bgr:
+        img = np.stack([img, np.roll(img, 3, 0), img // 2], axis=-1)
+    got = flood(_t(img).cuda(), _t(markers).cuda())
+    _same(got, flood_plain(_t(img), _t(markers)))
+    floats = flood(_t(img.astype(np.float32)).cuda(), _t(markers).cuda())
+    _same(floats, got.cpu())
+
+
+@cuda
+@needs_card
+def test_cuda_flood_reads_nothing_back():
+    img, markers = _flood_scene(256, 256, seed=4, blobs=4)
+    imgs, mk = _t(img).cuda(), _t(markers).cuda()
+    flood(imgs, mk)  # builds the library and asks the card for its resident blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = flood(imgs, mk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(got, flood_plain(_t(img), _t(markers)))
+
+
+@cuda
+@needs_card
+def test_cuda_flood_refuses_a_grid_too_large():
+    from yamimageprocessor_tpu_torch.ops import watershed as W
+
+    img, markers = _flood_scene(64, 64, seed=1)
+    imgs, mk = _t(img).cuda(), _t(markers).cuda()
+    down, right, wide = W.cost_planes(imgs)
+    buf0 = W.initial_labels(mk)
+    state = W.flood_state(1, 64, 64, imgs.device)
+    too_many = W._resident_blocks(imgs.device, wide) + 1
+    with pytest.raises(RuntimeError):
+        W._launch(buf0, torch.empty_like(buf0), down, right, state, too_many, wide)
 
 
 @cuda

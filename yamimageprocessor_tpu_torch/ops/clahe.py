@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from yamimageprocessor_tpu_torch import _build
-from yamimageprocessor_tpu_torch.ops.filters import reflect101_index, to_uint8
+from yamimageprocessor_tpu_torch.ops.filters import convert, fma32, reflect101_index, to_uint8
 
 _MAX_GRID_YZ = 65535
 #: blocks the histogram kernel aims for (132 SMs, several blocks each)
@@ -200,25 +200,6 @@ tile_histograms.launches = 0
 # bilinear blend (kernel B)
 
 
-def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``fmaf(a, b, c)``: ``a * b + c`` of float32 tensors rounded once to
-    float32.  The product is exact in float64 (24 + 24 bits); the float64
-    sum is rounded to odd (its error from TwoSum; where it is inexact and
-    its last bit even, the neighbour towards the exact sum), and a
-    round-to-odd result with 29 more bits than float32 rounds to the same
-    float32 as the exact sum."""
-
-    p = a.to(torch.float64) * b.to(torch.float64)
-    q = c.to(torch.float64)
-    s = p + q
-    bv = s - p
-    err = (p - (s - bv)) + (q - bv)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
 def clahe_blend_plain(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Tensor:
     """Plain version: ``(B, H, W)`` uint8, ``(B, gh, gw, 256)`` uint8 tables
     -> ``(B, h_out, w_out)`` uint8, ``h_out`` and ``w_out`` the lengths of
@@ -243,7 +224,7 @@ def clahe_blend_plain(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> to
     w10 = fy2 * (one - fx2)
     w11 = fy2 * fx2
     # XLA's CPU order of w00*t00 + w01*t01 + w10*t10 + w11*t11
-    out = _fma32(w11, t11, _fma32(w10, t10, _fma32(w00, t00, w01 * t01)))
+    out = fma32(w11, t11, fma32(w10, t10, fma32(w00, t00, w01 * t01)))
     return to_uint8(out)
 
 
@@ -317,14 +298,28 @@ clahe_blend.launches = 0
 
 
 def clahe(y: torch.Tensor, clip_limit: float = 40.0, grid: Tuple[int, int] = (8, 8)) -> torch.Tensor:
-    """``clahe_j`` on a batch: ``(B, h, w)`` uint8 -> ``(B, h, w)`` uint8."""
+    """``clahe_j`` on a batch: ``(B, h, w)`` -> ``(B, h, w)`` uint8.
+
+    Frames of another dtype than uint8 go through the kernels as the
+    reference treats them: their values as int32 (floats truncate), of
+    which only 0..255 are counted, and a pixel outside that range blends
+    the tables' entry 0."""
 
     gh, gw = grid
-    _, h0, w0 = y.shape
+    b, h0, w0 = y.shape
+    outside = None
+    if y.dtype != torch.uint8:
+        v = convert(y, torch.int32)
+        inside = (v >= 0) & (v <= 255)
+        y = torch.where(inside, v, 0).to(torch.uint8)
+        outside = pad_to_grid(~inside, grid)
     work = pad_to_grid(y, grid)
     h, w = work.shape[1:]
     area = (h // gh) * (w // gw)
-    luts = clip_and_lut(tile_histograms(work, grid), clip_limit, area).to(torch.uint8)
+    hist = tile_histograms(work, grid)
+    if outside is not None:  # counted at level 0 above, by no level in the reference
+        hist[..., 0] -= outside.reshape(b, gh, h // gh, gw, w // gw).sum(dim=(2, 4), dtype=torch.int32)
+    luts = clip_and_lut(hist, clip_limit, area).to(torch.uint8)
     return clahe_blend(work, luts, interp_tensors(h, w, (gh, gw), h0, w0, y.device))
 
 

@@ -4,12 +4,16 @@ port of ``yamimageprocessor_tpu/ops/color.py``: ``bgr_to_gray_j``,
 
 Integer arithmetic in int32 with arithmetic right shifts, so the CPU and
 the card give the same bits as the JAX package: gray is ``(3735 b + 19235
-g + 9798 r + 2**14) >> 15``; YCrCb uses cv2's 14-bit constants
-(``color.py:14-28``), then clips to 0..255.
+g + 9798 r + 2**14) >> 15``, narrowed to uint8 by wrapping; YCrCb uses
+cv2's 14-bit constants (``color.py:14-28``), then clips to 0..255.  Items
+of any dtype convert to int32 first, as XLA converts them (floats
+truncate).
 """
 from __future__ import annotations
 
 import torch
+
+from yamimageprocessor_tpu_torch.ops.filters import convert
 
 _SHIFT = 14
 _HALF = 1 << (_SHIFT - 1)
@@ -26,7 +30,7 @@ _C0, _C1, _C2, _C3 = 22987, -11698, -5636, 29049
 
 
 def _channels(imgs: torch.Tensor):
-    return tuple(imgs[..., i].to(torch.int32) for i in range(3))
+    return tuple(convert(imgs[..., i], torch.int32) for i in range(3))
 
 
 def _pack(planes) -> torch.Tensor:
@@ -47,7 +51,7 @@ def bgr_to_gray(imgs: torch.Tensor) -> torch.Tensor:
 
 
 def bgr_to_ycrcb(imgs: torch.Tensor) -> torch.Tensor:
-    """``(..., 3)`` uint8 BGR -> ``(..., 3)`` uint8 YCrCb."""
+    """``(..., 3)`` BGR -> ``(..., 3)`` uint8 YCrCb."""
 
     b, g, r = _channels(imgs)
     y = (b * _BY + g * _GY + r * _RY + _HALF) >> _SHIFT

@@ -1,12 +1,17 @@
 """Plain separable filtering on tensors (the port of ``ops/filters.py``'s
-``sep_filter_j`` and ``to_uint8_j``).
+``sep_filter_j`` and ``to_uint8_j``), and XLA's casts and fused
+multiply-adds as the JAX package's CPU backend runs them.
 
-Bit-exact with the JAX package and its numpy twin: reflect-101 borders
-(cv2 BORDER_REFLECT_101, numpy ``mode="reflect"``), the x-pass and then the
+:func:`sep_filter`, the uint8 path's plain version, agrees with the JAX
+package after rounding to uint8: reflect-101 borders (cv2
+BORDER_REFLECT_101, numpy ``mode="reflect"``), the x-pass and then the
 y-pass in float32, taps in ascending order, the first term ``taps[0] * x``,
 each product and sum a separate elementwise op (no ``addcmul``, no
 convolution, nothing that fuses or reorders the adds), then round half to
-even and saturate to uint8.
+even and saturate to uint8.  XLA's CPU backend contracts each pass into
+fused multiply-adds (``fma(t0, x0, t1 * x1)``, then ``fma(t_k, x_k,
+acc)``): :func:`sep_filter_fma` computes exactly that, for the float
+output the op gives on frames wider than uint8.
 """
 from __future__ import annotations
 
@@ -43,6 +48,61 @@ def sep_filter(img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) ->
     return out
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)``: ``a * b + c`` of float32 tensors rounded once to
+    float32.  The product is exact in float64 (24 + 24 bits); the float64
+    sum is rounded to odd (its error from TwoSum; where it is inexact and
+    its last bit even, the neighbour towards the exact sum), and a
+    round-to-odd result with 29 more bits than float32 rounds to the same
+    float32 as the exact sum."""
+
+    p = a.to(torch.float64) * b.to(torch.float64)
+    q = c.to(torch.float64)
+    s = p + q
+    bv = s - p
+    err = (p - (s - bv)) + (q - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _fma_chain(taps: torch.Tensor, terms) -> torch.Tensor:
+    """``sum(taps[k] * terms[k])`` in XLA CPU's contracted order."""
+
+    if len(terms) == 1:
+        return taps[0] * terms[0]
+    acc = fma32(taps[0], terms[0], taps[1] * terms[1])
+    for k in range(2, len(terms)):
+        acc = fma32(taps[k], terms[k], acc)
+    return acc
+
+
+def sep_filter_fma(img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
+    """:func:`sep_filter` with each pass contracted into fused multiply-adds
+    as XLA's CPU backend runs ``sep_filter_j``: the float32 result the JAX
+    package gives bit for bit.  Returns float32."""
+
+    ky, kx = int(taps_y.shape[0]), int(taps_x.shape[0])
+    h, w = img.shape[-2], img.shape[-1]
+    rows = reflect101_index(h, ky // 2, img.device)
+    cols = reflect101_index(w, kx // 2, img.device)
+    work = img.index_select(-2, rows).index_select(-1, cols).to(torch.float32)
+    acc = _fma_chain(taps_x, [work[..., t : t + w] for t in range(kx)])
+    return _fma_chain(taps_y, [acc[..., t : t + h, :] for t in range(ky)])
+
+
+def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as XLA converts: a float to an integer truncates
+    toward zero, saturates at the type's range and maps NaN to 0; an
+    integer to a narrower integer wraps, as a torch cast does."""
+
+    if x.is_floating_point() and not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        x = x.to(torch.float64).nan_to_num(0.0, info.max, info.min).clamp(info.min, info.max)
+    return x.to(dtype)
+
+
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
     """``saturate_cast<uchar>(cvRound(x))``: round half to even, clamp to
     [0, 255], then cast (a cast before the clamp would wrap)."""
@@ -50,4 +110,4 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x).clamp_(0, 255).to(torch.uint8)
 
 
-__all__ = ["reflect101_index", "sep_filter", "to_uint8"]
+__all__ = ["convert", "fma32", "reflect101_index", "sep_filter", "sep_filter_fma", "to_uint8"]

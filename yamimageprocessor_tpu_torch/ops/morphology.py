@@ -9,7 +9,9 @@ element's window, with out-of-frame pixels padded by the dtype's maximum
 split into horizontal runs: one running extreme per distinct run width,
 then one extreme over the rows.  Min and max are exact in any order, so
 the bits equal the reference's on every pixel.  ``iterations=0`` runs no
-pass; a negative count runs one, as in the reference.
+pass; a negative count runs one, as in the reference.  uint16 items, whose
+min and max torch's CPU backend lacks, are taken through an int32 copy
+(exact) and narrowed back.
 
 Every function takes a batch ``(B, H, W)`` or ``(B, H, W, C)``.
 """
@@ -50,12 +52,15 @@ def _morph_once(imgs: torch.Tensor, se: np.ndarray, erode: bool) -> torch.Tensor
     r = se.shape[0] // 2
     if r == 0:
         return imgs
+    pad, dtype = _pad_value(imgs.dtype, erode), imgs.dtype
+    if dtype == torch.uint16:
+        imgs = imgs.to(torch.int32)
     fn = torch.minimum if erode else torch.maximum
     h, w = imgs.shape[1], imgs.shape[2]
     # pad H and W (axes 1 and 2) by r on both sides with the extreme
     work = torch.full(
         (imgs.shape[0], h + 2 * r, w + 2 * r) + tuple(imgs.shape[3:]),
-        _pad_value(imgs.dtype, erode),
+        pad,
         dtype=imgs.dtype,
         device=imgs.device,
     )
@@ -72,7 +77,7 @@ def _morph_once(imgs: torch.Tensor, se: np.ndarray, erode: bool) -> torch.Tensor
         col0 = dx_start + r
         piece = horiz[run][:, r + dy : r + dy + h, col0 : col0 + w]
         out = piece if out is None else fn(out, piece)
-    return out
+    return out.to(dtype)
 
 
 def _passes(iterations: int) -> int:

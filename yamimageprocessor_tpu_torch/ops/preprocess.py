@@ -9,9 +9,15 @@ and BGR items through YCrCb), ``preprocessing.brightness_contrast`` and
 ``preprocessing.select_channel``.  Median and Bilateral noise reduction
 raise ``NotImplementedError``.
 
-Each function takes a batch ``(B, *item_shape)`` of uint8 items (see
-:mod:`.registry`).  No value is read back to the host: the equalization
-table's first bin, remainder and constant-frame case are tensor ops.
+Each function takes a batch ``(B, *item_shape)`` of items (see
+:mod:`.registry`).  uint8 items take the kernels.  Items of another dtype
+(float32, uint16) take plain torch, as the reference runs them through
+XLA, not Pallas: they read tables as the JAX package indexes them
+(:func:`.lutops.table_index`), their float arithmetic is contracted into
+fused multiply-adds where XLA's CPU backend contracts it, and the ops
+return uint8 as there, except the Gaussian, which returns float32.  No
+value is read back to the host: the equalization table's first bin,
+remainder and constant-frame case are tensor ops.
 
 The parameter splits are copies of the JAX package's
 (``ops/preprocess.py:76-85, 105-110, 266-280, 376-382, 576-596, 708-711``),
@@ -26,27 +32,40 @@ import torch
 
 from yamimageprocessor_tpu_torch.ops.clahe import clahe as clahe_planes
 from yamimageprocessor_tpu_torch.ops.color import bgr_to_ycrcb, ycrcb_to_bgr
-from yamimageprocessor_tpu_torch.ops.filters import to_uint8
+from yamimageprocessor_tpu_torch.ops.filters import convert, fma32, sep_filter_fma, to_uint8
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
-from yamimageprocessor_tpu_torch.ops.registry import register_op, require_uint8
+from yamimageprocessor_tpu_torch.ops.registry import register_op
 from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8, sep_filter_u8_planes
 from yamimageprocessor_tpu_torch.ops.tables import gamma_lut, gaussian_taps
+
+
+def _uint8_item(item_shape, dtype, **static):
+    """A table op's output: the input's shape, uint8."""
+
+    return tuple(item_shape), np.dtype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
 # Brightness / contrast (cv2.convertScaleAbs)
 
 
+def _scale_abs(values: torch.Tensor, dyn) -> torch.Tensor:
+    """``to_uint8(|values * alpha + beta|)`` with the multiply and the add
+    fused, as XLA's CPU backend runs them."""
+
+    return to_uint8(torch.abs(fma32(values, dyn["alpha"], dyn["beta"])))
+
+
 def brightness_contrast_lut(imgs, dyn):
     """``(256,)`` table of the uint8 action: per level ``v`` the same f32
-    arithmetic as on a pixel of value ``v`` (a multiply, then an add)."""
+    arithmetic as on a pixel of value ``v``."""
 
-    levels = torch.arange(256, dtype=torch.float32, device=dyn["alpha"].device)
-    return to_uint8(torch.abs(levels * dyn["alpha"] + dyn["beta"]))
+    return _scale_abs(torch.arange(256, dtype=torch.float32, device=dyn["alpha"].device), dyn)
 
 
 def brightness_contrast(imgs, dyn):
-    require_uint8("preprocessing.brightness_contrast", imgs)
+    if imgs.dtype != torch.uint8:
+        return _scale_abs(imgs.to(torch.float32), dyn)
     return apply_lut(imgs, brightness_contrast_lut(imgs, dyn))
 
 
@@ -61,6 +80,7 @@ register_op(
         },
     ),
     lut_fn=brightness_contrast_lut,
+    out_item=_uint8_item,
 )
 
 
@@ -69,7 +89,6 @@ register_op(
 
 
 def gamma(imgs, dyn):
-    require_uint8("preprocessing.gamma", imgs)
     return apply_lut(imgs, dyn["lut"])
 
 
@@ -78,6 +97,7 @@ register_op(
     device_fn=gamma,
     split=lambda params: ({}, {"lut": gamma_lut(float(params.get("value", 1.0)))}),
     lut_fn=lambda imgs, dyn: dyn["lut"],
+    out_item=_uint8_item,
 )
 
 
@@ -125,7 +145,6 @@ def _equalize(gray):
 
 
 def histogram_equalization(imgs, dyn):
-    require_uint8("preprocessing.histogram_equalization", imgs)
     if imgs.ndim == 3:
         return _equalize(imgs)
     return _on_luma(imgs, _equalize)
@@ -137,6 +156,7 @@ register_op(
     lut_fn=lambda imgs, dyn: equalization_lut_from_images(imgs),
     lut_needs_image=True,
     lut_ndims=(2,),
+    out_item=_uint8_item,
 )
 
 
@@ -145,7 +165,6 @@ register_op(
 
 
 def clahe(imgs, dyn, *, clip_limit: float = 40.0, grid_size: int = 8):
-    require_uint8("preprocessing.clahe", imgs)
     grid = (int(grid_size), int(grid_size))
     if imgs.ndim == 3:
         return clahe_planes(imgs, float(clip_limit), grid)
@@ -162,6 +181,7 @@ register_op(
         },
         {},
     ),
+    out_item=_uint8_item,
 )
 
 
@@ -179,15 +199,17 @@ def select_channel(imgs, dyn, *, value: str = "All"):
         return imgs[..., _SINGLE[value]].contiguous()
     if value in _PAIRS:
         a, b = (imgs[..., c].to(torch.float32) for c in _PAIRS[value])
-        return ((a + b) / 2).to(torch.uint8)  # truncates, as np.uint8(...) does
+        return convert((a + b) / 2, torch.uint8)  # truncates and saturates, as XLA does
     return imgs
 
 
 def _select_channel_item(item_shape, dtype, *, value: str = "All"):
-    """``(H, W, 3)`` -> ``(H, W)`` for one channel or a pair; a 2-D item
-    becomes ``(H, W, 3)`` under "All"."""
+    """``(H, W, 3)`` -> ``(H, W)`` for one channel or a pair (a pair's mean
+    is uint8); a 2-D item becomes ``(H, W, 3)`` under "All"."""
 
-    if value in _SINGLE or value in _PAIRS:
+    if value in _PAIRS:
+        return tuple(item_shape[:2]), np.dtype(np.uint8)
+    if value in _SINGLE:
         return tuple(item_shape[:2]), np.dtype(dtype)
     if len(item_shape) == 2:
         return tuple(item_shape) + (3,), np.dtype(dtype)
@@ -213,11 +235,22 @@ def noise_reduction(imgs, dyn, *, method: str = "Gaussian", ksize: int = 5):
         )
     if method != "Gaussian":
         return imgs  # the reference passes unknown methods through
-    require_uint8("preprocessing.noise_reduction", imgs)
     taps = dyn["taps"]
+    if imgs.dtype != torch.uint8:  # float32 out, in XLA's contracted order
+        if imgs.ndim == 3:
+            return sep_filter_fma(imgs, taps, taps)
+        return sep_filter_fma(imgs.permute(0, 3, 1, 2), taps, taps).permute(0, 2, 3, 1).contiguous()
     if imgs.ndim == 3:
         return sep_filter_u8(imgs.contiguous(), taps, taps)
     return sep_filter_u8_planes(imgs, taps, taps)
+
+
+def _noise_item(item_shape, dtype, *, method: str = "Gaussian", ksize: int = 5):
+    """The Gaussian of an item that is not uint8 is float32."""
+
+    if method == "Gaussian" and np.dtype(dtype) != np.uint8:
+        return tuple(item_shape), np.dtype(np.float32)
+    return tuple(item_shape), np.dtype(dtype)
 
 
 def _odd(ksize: int) -> int:
@@ -242,6 +275,7 @@ register_op(
     device_fn=noise_reduction,
     split=_noise_split,
     halo=lambda params: max(_odd(int(params.get("ksize", 5))) // 2, 1),
+    out_item=_noise_item,
 )
 
 

@@ -89,14 +89,6 @@ def get_impl(identifier: str) -> OpImpl:
     return impl
 
 
-def require_uint8(op_id: str, imgs: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` unless ``imgs`` is uint8, the one
-    dtype the ported ops take."""
-
-    if imgs.dtype != torch.uint8:
-        raise NotImplementedError(f"{op_id}: only uint8 images are ported to torch, got {imgs.dtype}")
-
-
 def dyn_to_torch(dyn: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
     """A split's host values (numpy arrays and scalars) as tensors on
     ``device``, with their dtypes kept."""
@@ -104,4 +96,4 @@ def dyn_to_torch(dyn: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in dyn.items()}
 
 
-__all__ = ["OpImpl", "SplitResult", "register_op", "get_impl", "dyn_to_torch", "require_uint8"]
+__all__ = ["OpImpl", "SplitResult", "register_op", "get_impl", "dyn_to_torch"]

@@ -8,7 +8,8 @@ of the JAX package's (``ops/segmentation.py:46-51, 97-107, 250-264,
 682-698``), with its host dtypes (an int32 threshold, a float32 distance
 factor).
 
-Each function takes a batch ``(B, *item_shape)``; the per-frame
+Each function takes a batch ``(B, *item_shape)`` of any dtype the
+reference takes (uint8, float32, uint16); the per-frame
 statistics (the Otsu threshold, the distance maximum, the marker labels,
 the flood's level) stay per frame, as under the reference's ``vmap``.
 The thresholds turn an ``(H, W, C)`` BGR item into an ``(H, W)`` mask.
@@ -22,7 +23,7 @@ from yamimageprocessor_tpu_torch.ops import morphology as M
 from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
 from yamimageprocessor_tpu_torch.ops.distance import distance_transform
 from yamimageprocessor_tpu_torch.ops.labeling import label_seeds
-from yamimageprocessor_tpu_torch.ops.registry import register_op, require_uint8
+from yamimageprocessor_tpu_torch.ops.registry import register_op
 from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_threshold
 from yamimageprocessor_tpu_torch.ops.watershed import flood, paint_boundaries
 
@@ -50,7 +51,6 @@ register_op(
 
 
 def otsu(imgs, dyn):
-    require_uint8("segmentation.otsu", imgs)
     gray = bgr_to_gray(imgs)
     return binary(gray, otsu_threshold(gray))
 
@@ -81,9 +81,8 @@ def watershed_markers(gray, factor, *, kernel_size: int = 3, opening_iterations:
 def watershed_seg(imgs, dyn, **static):
     """Markers from the step input's gray version, then the flood on the
     input itself (its edge costs are BGR when it is BGR), then the
-    boundaries painted."""
+    boundaries painted in the input's dtype."""
 
-    require_uint8("segmentation.watershed", imgs)
     markers = watershed_markers(bgr_to_gray(imgs), dyn["factor"], **static)
     return paint_boundaries(imgs, flood(imgs.contiguous(), markers))
 

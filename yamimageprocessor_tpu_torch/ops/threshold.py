@@ -83,20 +83,26 @@ def otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
 
 
 def otsu_threshold(gray: torch.Tensor) -> torch.Tensor:
-    """Otsu threshold of every gray frame of ``(B, H, W)`` uint8 ->
-    ``(B,)`` int32, from the 256-level histogram kernel."""
+    """Otsu threshold of every gray frame of ``(B, H, W)`` -> ``(B,)``
+    int32, from the 256-level histogram kernel (frames that are not uint8
+    count their levels as :func:`.lutops.histogram256_batch` does)."""
 
     return otsu_from_hist(histogram256_batch(gray))
 
 
 def binary(gray: torch.Tensor, thresh: torch.Tensor, maxval: int = 255, inverse: bool = False) -> torch.Tensor:
     """``maxval`` where ``gray > thresh`` (0 elsewhere), or the reverse
-    with ``inverse``; ``thresh`` is a scalar or one value per frame
-    ``(B,)``.  Returns uint8."""
+    with ``inverse``; ``thresh`` is an int32 scalar or one value per frame
+    ``(B,)``.  The compare runs in the type the reference promotes the
+    pair to: gray's own for float frames, int32 for integer ones.
+    Returns uint8."""
 
     if thresh.ndim == 1:
         thresh = thresh.reshape(-1, *([1] * (gray.ndim - 1)))
-    above = gray.to(torch.int32) > thresh
+    if gray.is_floating_point():
+        above = gray > thresh.to(gray.dtype)
+    else:
+        above = gray.to(torch.int32) > thresh
     hi = torch.tensor(maxval, dtype=torch.uint8, device=gray.device)
     lo = torch.zeros((), dtype=torch.uint8, device=gray.device)
     return torch.where(above, lo, hi) if inverse else torch.where(above, hi, lo)

@@ -13,14 +13,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    one process per source;
 3. kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the card, bit for bit, at the main paths' shapes and at awkward
-   ones (the distance kernel also at 1 to 2048 rows a chunk, on its two
+   ones (sepconv at ksizes 1 to 33 on the flagship batch, on widths that
+   are not a multiple of 16 and on frames whose base is 1 byte past
+   alignment, on interleaved 3-, 4- and 17-channel frames, the CLAHE batch
+   included, with asymmetric taps that differ in y and x, and on a 1024^2 frame at ksizes 13 and 19 against SHA-256
+   digests of the JAX package's output; the distance kernel also at 1 to 2048 rows a chunk, on its two
    worst cases and on a batch of three frames; the flood also on a batch
    of 8 different 2048^2 scenes, each frame against its plain flood alone,
    on a single-marker frame whose front crosses the frame one pixel a
    sweep, and on uint16 frames whose edge costs pass 255); then each
    kernel's, its plain version's and (where one PyTorch call computes the
    same function) that call's device time, the distance kernel's at each
-   chunk size and on its worst cases, and the flood's sweeps, levels
+   chunk size and on its worst cases, sepconv's on the CLAHE path's
+   interleaved batch, and the flood's sweeps, levels
    visited and share of tiles swept, its time on the batch and on the
    single-marker frame at 2048^2;
 4. flagship: the flagship chain (Gaussian 5x5 -> histogram equalization
@@ -41,7 +46,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    against SHA-256 digests of the JAX package's outputs at that shape and
    at 4 x 1000^2 (where the blend's fractions are not dyadic), and at 3 x
    120 x 100 against the port's CPU run; MPix/s back to back, the device
-   time, and the device time by kernel from ``torch.profiler``.  The frames
+   time, and the device time by kernel from ``torch.profiler`` (as for the
+   flagship chain).  The frames
    come from ``np.random.default_rng(0)``, where the bench draws them with
    ``jax.random``: the one deviation from the bench's config.
 
@@ -74,6 +80,9 @@ FLOOD_BATCH = 8
 CLAHE_SHAPE = (64, 1024, 1024, 3)
 CLAHE_1000_SHAPE = (4, 1000, 1000, 3)  # tiles of 250 px: non-dyadic fractions
 CLAHE_CPU_SHAPE = (3, 120, 100, 3)
+GAUSS_SHAPE = (1024, 1024)  # the Gaussian's digest frame
+GAUSS_KSIZES = (13, 19)  # non-dyadic taps: the digests pin XLA's fused order
+SEPCONV_KSIZES = (1, 3, 5, 7, 9, 13, 19, 33)
 CLAHE_CLIP = 2.0
 CLAHE_GRID = 4
 RUNS = 20
@@ -91,6 +100,9 @@ DIGESTS = {
     "clahe_output": "2b1225c42baa82ebfe225d5a43146532233945a3e0159f162aee6f5b1a2a579a",
     "clahe_1000_input": "bf04b8a97881f83317ecf39d8bd716417b41dca179df4050916d0da1ccddfa4d",
     "clahe_1000_output": "ea807ad28ef69b0a41828bcdb27338f952aa4ed630f5861432df98613394d7b6",
+    "gauss_1024_input": "695684bcedb2df4c1e1bb5ba3e2d74ee96438b6b49d601ffd70c30200184e0e1",
+    "gauss13_1024_output": "e55cc8b2585b6f74424fc076a5855ceca3cce73ffc97b99cd2c1e35b67774626",
+    "gauss19_1024_output": "fd384ba4bdeea943d3c3bf13da5ac95cc3e68d44a03475b714439dc7a696ef0b",
 }
 
 
@@ -344,11 +356,15 @@ def phase_kernels(dev) -> dict:
     )
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index, cc_min_index_plain
     from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import (
         sep_filter_u8,
         sep_filter_u8_plain,
         sep_filter_u8_planes,
+        sep_filter_u8_planes_plain,
     )
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
     from yamimageprocessor_tpu_torch.ops.watershed import TILE_COLS, TILE_ROWS, cost_planes, flood, flood_plain, tiles
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -375,20 +391,57 @@ def phase_kernels(dev) -> dict:
         for name in ("sepconv", "histogram256", "lut_apply", "distance", "cc", "flood", "tile_histogram", "clahe_blend")
     }
 
-    for ksize in (3, 5, 13):
+    # widths 7, 1001: not a multiple of 16; 1040: aligned rows, a 16-byte band
+    # at the right; offset 1: the base 1 byte past alignment
+    sep_frames = {
+        f"{FLAGSHIP_SHAPE}": big,
+        "(3,37,1001)": odd,
+        "(2,5,7)": rand((2, 5, 7)),  # narrower and shorter than the halo: periodic reflection
+        "(2,130,1040)": rand((2, 130, 1040)),
+        "(2,70,2056) base+1": unaligned((2, 70, 2056)),
+        "(1,64,1001) base+1": unaligned((1, 64, 1001)),
+    }
+    for ksize in SEPCONV_KSIZES:
         t = taps(ksize)
-        err["sepconv"] |= exact(f"sepconv k{ksize} {FLAGSHIP_SHAPE}", sep_filter_u8(big, t, t), sep_filter_u8_plain(big, t, t))
-    for ksize in (3, 5, 13, 33):
-        t = taps(ksize)
-        err["sepconv"] |= exact(f"sepconv k{ksize} odd", sep_filter_u8(odd, t, t), sep_filter_u8_plain(odd, t, t))
-    small = rand((2, 5, 7))  # narrower than the halo: periodic reflection
-    t = taps(13)
-    err["sepconv"] |= exact("sepconv k13 (2,5,7)", sep_filter_u8(small, t, t), sep_filter_u8_plain(small, t, t))
-    planes = rand((2, 64, 96, 3))
-    t = taps(5)
-    want = sep_filter_u8_plain(planes.permute(0, 3, 1, 2), t, t).permute(0, 2, 3, 1)
-    err["sepconv"] |= exact("sepconv planes (2,64,96,3)", sep_filter_u8_planes(planes, t, t), want)
-    print("kernels: sepconv bit-exact at k 3/5/13 on (8,2048,2048), k 3/5/13/33 on (3,37,1001), (2,5,7), planes")
+        for name, imgs in sep_frames.items():
+            err["sepconv"] |= exact(f"sepconv k{ksize} {name}", sep_filter_u8(imgs, t, t), sep_filter_u8_plain(imgs, t, t))
+    for c in (3, 4, 17):
+        chan_frames = {f"(2,64,96,{c})": rand((2, 64, 96, c)), f"(1,41,101,{c}) base+1": unaligned((1, 41, 101, c))}
+        for ksize in (3, 5, 7, 13):
+            t = taps(ksize)
+            for name, imgs in chan_frames.items():
+                err["sepconv"] |= exact(
+                    f"sepconv planes k{ksize} {name}",
+                    sep_filter_u8_planes(imgs, t, t),
+                    sep_filter_u8_planes_plain(imgs, t, t),
+                )
+    # rising taps: a pass that read its taps in reverse would differ; through
+    # the templated instances (3, 5 and 7 in both passes) and the generic one
+    for ky, kx in ((3, 3), (5, 5), (7, 7), (5, 3), (13, 9)):
+        ty, tx = (torch.from_numpy(np.linspace(0.1, 0.9, k) / np.linspace(0.1, 0.9, k).sum()).float().to(dev)
+                  for k in (ky, kx))
+        for name, imgs in (("(3,37,1001)", odd), ("(1,41,101,3) base+1", unaligned((1, 41, 101, 3))),
+                           ("(2,64,96,4)", rand((2, 64, 96, 4)))):
+            got, want = (
+                (sep_filter_u8(imgs, ty, tx), sep_filter_u8_plain(imgs, ty, tx)) if imgs.ndim == 3
+                else (sep_filter_u8_planes(imgs, ty, tx), sep_filter_u8_planes_plain(imgs, ty, tx))
+            )
+            err["sepconv"] |= exact(f"sepconv asymmetric k{ky}x{kx} {name}", got, want)
+    t5 = taps(5)
+    # the CLAHE path's input, interleaved, as its Gaussian filters it
+    bgr_bench = torch.from_numpy(clahe_frames(CLAHE_SHAPE)).to(dev)
+    bgr_smooth = sep_filter_u8_planes(bgr_bench, t5, t5)
+    err["sepconv"] |= exact(
+        f"sepconv planes k5 {CLAHE_SHAPE}", bgr_smooth, sep_filter_u8_planes_plain(bgr_bench, t5, t5)
+    )
+    gray = np.random.default_rng(0).integers(0, 256, GAUSS_SHAPE, dtype=np.uint8)
+    check_digest("gauss_1024_input", gray)
+    for ksize in GAUSS_KSIZES:
+        step = PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"ksize": ksize})
+        check_digest(f"gauss{ksize}_1024_output", PipelineManager([step], device=dev).apply(gray))
+    print(f"kernels: sepconv bit-exact at k {SEPCONV_KSIZES} on {', '.join(sep_frames)}; interleaved 3 and 4 "
+          f"and 17 channels at k 3/5/7/13, {CLAHE_SHAPE} at k 5; asymmetric taps at k 3x3 to 13x9; the 1024^2 "
+          f"frame at k {GAUSS_KSIZES} == the JAX package's digests")
 
     constant = torch.full((2, 1000 * 1000), 77, dtype=torch.uint8, device=dev)
     for name, frames in (
@@ -514,11 +567,9 @@ def phase_kernels(dev) -> dict:
           f"a BGR scene, a batch of {FLOOD_BATCH} scenes (each frame alone), a single-marker frame, "
           "uint16 gray and BGR frames with costs above 255")
 
-    t5 = taps(5)
     # the CLAHE path's Y planes: the bench's frames after the Gaussian
-    bgr = torch.from_numpy(clahe_frames(CLAHE_SHAPE)).to(dev)
-    y_bench = bgr_to_ycrcb(sep_filter_u8_planes(bgr, t5, t5))[..., 0].contiguous()
-    del bgr
+    y_bench = bgr_to_ycrcb(bgr_smooth)[..., 0].contiguous()
+    del bgr_smooth
     grid4 = (CLAHE_GRID, CLAHE_GRID)
     zeros = torch.zeros((2, 1024, 1024), dtype=torch.uint8, device=dev)
     for name, y, grid in (
@@ -586,6 +637,13 @@ def phase_kernels(dev) -> dict:
     times["clahe_blend"] = paired_ms(
         lambda: CL.clahe_blend(work, luts, interp), lambda: CL.clahe_blend_plain(work, luts, interp), plain_runs=5
     )
+    # sepconv on the CLAHE path's interleaved batch, in place
+    sep_clahe = paired_ms(
+        lambda: sep_filter_u8_planes(bgr_bench, t5, t5),
+        lambda: sep_filter_u8_planes_plain(bgr_bench, t5, t5),
+        plain_runs=3,
+    )
+    del bgr_bench
     library = {
         "histogram256": time_ms(lambda: torch.bincount(one.view(-1), minlength=256)),
     }
@@ -603,6 +661,10 @@ def phase_kernels(dev) -> dict:
     flood_lone_ms = time_ms(lambda: flood(*lone[SEG_SIDE]), runs=5)
     for name, (k, p) in times.items():
         print(f"time {name}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    planes_px = float(np.prod(CLAHE_SHAPE))
+    sep_clahe_bound = bound_ms(2 * planes_px, 20 * planes_px)[0]
+    print(f"time sepconv on the CLAHE batch {CLAHE_SHAPE} in place: kernel {sep_clahe[0]:.4f} ms, plain "
+          f"{sep_clahe[1]:.4f} ms, bound {sep_clahe_bound:.4f} ms")
     for rows in (32, 64, 128, 256, SEG_SIDE):
         ms = time_ms(lambda: distance_transform(opening, rows_per_chunk=rows))
         per_row = f" = {1e3 * ms / (2 * SEG_SIDE):.3f} us a row (one chunk: the sequential walk)" if rows == SEG_SIDE else ""
@@ -654,6 +716,11 @@ def phase_kernels(dev) -> dict:
         "flood_device_ms": flood_device_ms,
         "flood_stats": flood_stats,
         "flood_swept_bound_ms": bound_ms(10 * swept * TILE_ROWS * TILE_COLS)[0],
+        "sepconv_clahe": {
+            "ms_clahe": sep_clahe[0],
+            "plain_ms_clahe": sep_clahe[1],
+            "bound_ms_clahe": sep_clahe_bound,
+        },
     }
 
 
@@ -724,6 +791,7 @@ def phase_flagship(dev) -> dict:
         f"flagship: {loop_ms:.4f} ms per batch back to back ({RUNS} batches), "
         f"{rate:.1f} MPix*steps/s; device time {device_ms:.4f} ms per batch"
     )
+    print_profile("flagship", chain_profile(lambda: fn(x, dyn), _FLAGSHIP_GROUPS))
     return run["launches"]
 
 
@@ -782,17 +850,22 @@ def phase_segmentation(dev) -> dict:
 
 
 #: substrings of the kernels' names in a profiler trace, by group
+_FLAGSHIP_GROUPS = {
+    "sepconv_": "sepconv",
+    "histogram256_kernel": "histogram256",
+    "lut_apply_kernel": "lut_apply",
+}
 _CLAHE_GROUPS = {
-    "sepconv_u8_kernel": "sepconv",
+    "sepconv_": "sepconv",
     "tile_histogram_kernel": "tile_histogram",
     "clahe_blend_kernel": "clahe_blend",
 }
 
 
-def clahe_profile(fn, runs: int = 3) -> dict:
+def chain_profile(fn, groups: dict, runs: int = 3) -> dict:
     """Kernels per call of ``fn`` and their device time in ms per call, by
-    group (the three kernels of the CLAHE path, then everything else by
-    name), from ``torch.profiler``."""
+    group (the path's own kernels, then everything else by name), from
+    ``torch.profiler``."""
 
     fn()
     torch.cuda.synchronize()
@@ -801,22 +874,29 @@ def clahe_profile(fn, runs: int = 3) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    groups = {g: 0.0 for g in _CLAHE_GROUPS.values()}
+    split = {g: 0.0 for g in groups.values()}
     other = defaultdict(float)
     kernels = 0
     for event in prof.events():
         if event.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kernels += 1
-        group = next((g for key, g in _CLAHE_GROUPS.items() if key in event.name), None)
+        group = next((g for key, g in groups.items() if key in event.name), None)
         if group is None:
             other[event.name[:90]] += event.device_time_total
         else:
-            groups[group] += event.device_time_total
-    split = {g: t / 1e3 / runs for g, t in groups.items()}
+            split[group] += event.device_time_total
+    split = {g: t / 1e3 / runs for g, t in split.items()}
     split["other"] = sum(other.values()) / 1e3 / runs
     top = sorted(((t / 1e3 / runs, name) for name, t in other.items()), reverse=True)[:8]
     return {"kernels": kernels / runs, "device_ms": split, "other_top": top}
+
+
+def print_profile(name: str, split: dict) -> None:
+    print(f"{name} profile: {split['kernels']:.0f} kernels a batch; device ms a batch "
+          + ", ".join(f"{g} {t:.4f}" for g, t in split["device_ms"].items()))
+    for t, kernel in split["other_top"]:
+        print(f"  other {t:9.4f} ms  {kernel}")
 
 
 def phase_clahe(dev) -> dict:
@@ -862,14 +942,7 @@ def phase_clahe(dev) -> dict:
         f"clahe: {loop_ms:.4f} ms per batch back to back ({RUNS} batches) = {mpix / (loop_ms / 1e3):.1f} MPix/s; "
         f"device time {device_ms:.4f} ms per batch = {mpix / (device_ms / 1e3):.1f} MPix/s"
     )
-    split = clahe_profile(lambda: fn(x, dyn))
-    planes_px = float(np.prod(CLAHE_SHAPE))
-    print(f"clahe profile: {split['kernels']:.0f} kernels a batch; device ms a batch "
-          + ", ".join(f"{g} {t:.4f}" for g, t in split["device_ms"].items())
-          + f"; sepconv's bound on the {CLAHE_SHAPE[0] * CLAHE_SHAPE[3]} planes "
-          f"{bound_ms(2 * planes_px, 20 * planes_px)[0]:.4f} ms")
-    for t, name in split["other_top"]:
-        print(f"  other {t:9.4f} ms  {name}")
+    print_profile("clahe", chain_profile(lambda: fn(x, dyn), _CLAHE_GROUPS))
     return run["launches"]
 
 
@@ -923,6 +996,8 @@ def main() -> None:
             "library_ms": kern["library"].get(name),
             "library_note": library_note,
         }
+        if name == "sepconv":
+            entry.update(kern["sepconv_clahe"])
         if name == "histogram256":
             entry["ms_one_frame"] = kern["hist_one_ms"]
         if name == "flood":

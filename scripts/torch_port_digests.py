@@ -10,10 +10,12 @@ chain's ``bench._dense_scene(2048, seed=3)``; the flagship chain's 8 x
 2048^2 frames from ``np.random.default_rng(0)``; the CLAHE chain's BGR
 frames from ``np.random.default_rng(0)`` at 64 x 1024^2 x 3, the bench's
 shape, and at 4 x 1000^2 x 3, where the blend's fractions are not
-dyadic) and of the JAX package's outputs for them
-(``segmentation_steps()`` and the CLAHE chain through its chain compiler,
-the CLAHE chain batched as ``bench.py:_extra_batched_clahe`` builds it;
-``flagship_forward`` under ``jax.jit``).  ``chip_smoke.py`` keeps these as
+dyadic; the Gaussian's 1024^2 gray frame from ``np.random.default_rng(0)``)
+and of the JAX package's outputs for them (``segmentation_steps()`` and
+the CLAHE chain through its chain compiler, the CLAHE chain batched as
+``bench.py:_extra_batched_clahe`` builds it; ``flagship_forward`` under
+``jax.jit``; one ``NoiseReduction`` step at ksize 13 and at 19, whose taps
+are not dyadic, so the result pins XLA's fused multiply-adds).  ``chip_smoke.py`` keeps these as
 constants.  Takes about 50 s and a few GB of memory on an 8-core CPU.
 """
 from __future__ import annotations
@@ -31,6 +33,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 SEG_SIDE = 2048
 FLAGSHIP_SHAPE = (8, 2048, 2048)
 CLAHE_SHAPES = {"clahe": (64, 1024, 1024, 3), "clahe_1000": (4, 1000, 1000, 3)}
+GAUSS_SHAPE = (1024, 1024)
+GAUSS_KSIZES = (13, 19)
 
 
 def digest(array: np.ndarray) -> str:
@@ -94,6 +98,15 @@ def main() -> None:
                 f"{name}_output_shape": list(out.shape),
             }
         )
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    gray = np.random.default_rng(0).integers(0, 256, GAUSS_SHAPE, dtype=np.uint8)
+    result["gauss_1024_input"] = digest(gray)
+    for ksize in GAUSS_KSIZES:
+        steps = [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"ksize": ksize})]
+        out = np.asarray(get_compiled_chain(steps, GAUSS_SHAPE, np.uint8).run_final(gray))
+        result[f"gauss{ksize}_1024_output"] = digest(out)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

@@ -23,6 +23,7 @@ from yamimageprocessor_tpu_torch.ops.filters import reflect101_index, sep_filter
 from yamimageprocessor_tpu_torch.ops.sepconv_cuda import (
     sep_filter_u8,
     sep_filter_u8_planes,
+    sep_filter_u8_planes_plain,
     sep_filter_u8_plain,
 )
 
@@ -46,6 +47,14 @@ def _taps(ksize: int) -> np.ndarray:
     return gaussian_taps(ksize, 0.0).astype(np.float32)
 
 
+def _asymmetric_taps(ksize: int) -> np.ndarray:
+    """Rising taps summing to 1: reading them in reverse (a convolution, not
+    a correlation) changes the result."""
+
+    t = np.linspace(0.1, 0.9, ksize)
+    return (t / t.sum()).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # sepconv (kernel 1)
 
@@ -57,22 +66,53 @@ def test_reflect101_index_matches_numpy_reflect_pad(n, r):
     _same(reflect101_index(n, r, "cpu"), want)
 
 
-@pytest.mark.parametrize("ksize", [3, 5, 13, 19])
-def test_plain_sepconv_matches_pallas_and_xla(ksize):
+# the 1024^2 frame from seed 0 is where the unfused order differs from XLA's
+# fused one after rounding (5 pixels at ksize 13, 6 at 19); ksizes 3-7 have
+# dyadic taps and cannot tell the two apart.  Asymmetric taps, different in
+# y and x, pin the orientation of each pass.
+@pytest.mark.parametrize(
+    "taps_y, taps_x, shape, seed",
+    [pytest.param(_taps(k), _taps(k), (2, 37, 101), k, id=str(k)) for k in (3, 5, 13, 19)]
+    + [pytest.param(_taps(k), _taps(k), (1, 1024, 1024), 0, id=f"{k}-1024x1024") for k in (13, 19)]
+    + [
+        pytest.param(_asymmetric_taps(ky), _asymmetric_taps(kx), (2, 37, 101), 1, id=f"asymmetric-{ky}x{kx}")
+        for ky, kx in ((5, 3), (7, 7))
+    ],
+)
+def test_plain_sepconv_matches_pallas_and_xla(taps_y, taps_x, shape, seed):
+    import jax
     import jax.numpy as jnp
 
     from yamimageprocessor_tpu.ops import filters as F
     from yamimageprocessor_tpu.ops.sepconv_pallas import sep_filter_u8_pallas
 
-    imgs = np.random.default_rng(ksize).integers(0, 256, (2, 37, 101), dtype=np.uint8)
-    taps = _taps(ksize)
-    tj = jnp.asarray(taps)
-    pallas = np.asarray(sep_filter_u8_pallas(jnp.asarray(imgs), tj, tj, interpret=True))
-    xla = np.stack([np.asarray(F.to_uint8_j(F.sep_filter_j(jnp.asarray(f), tj, tj))) for f in imgs])
-    tt = torch.from_numpy(taps)
-    got = sep_filter_u8(torch.from_numpy(imgs), tt, tt)
+    imgs = np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+    ty, tx = jnp.asarray(taps_y), jnp.asarray(taps_x)
+    pallas = np.asarray(sep_filter_u8_pallas(jnp.asarray(imgs), ty, tx, interpret=True))
+    # jitted, as the JAX package runs it: XLA fuses the multiply-adds only then
+    xla_fn = jax.jit(lambda f: F.to_uint8_j(F.sep_filter_j(f, ty, tx)))
+    xla = np.stack([np.asarray(xla_fn(jnp.asarray(f))) for f in imgs])
+    got = sep_filter_u8(torch.from_numpy(imgs), torch.from_numpy(taps_y), torch.from_numpy(taps_x))
     _same(got, pallas)
     _same(got, xla)
+
+
+@pytest.mark.parametrize("ksize", [13, 19])
+@pytest.mark.parametrize("shape", [(1024, 1024), (512, 512, 3)], ids=["gray-1024x1024", "bgr-512x512"])
+def test_uint8_gaussian_matches_jax_compiled_chain(shape, ksize):
+    """The noise-reduction op's uint8 path through the port's chain runner
+    against the JAX package's compiled chain (XLA's fused order)."""
+
+    from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain as jax_chain
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    frame = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    steps = [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"ksize": ksize})]
+    want = np.asarray(jax_chain([JaxStep.from_dict(s.to_dict()) for s in steps], shape, np.uint8).run_final(frame))
+    _same(PipelineManager(steps, device="cpu").apply(frame), want)
 
 
 def test_plain_sep_filter_f32_matches_numpy_twin():
@@ -161,6 +201,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     taps = torch.from_numpy(_taps(5))
     before = (sep_filter_u8.launches, ck.histogram256_batch.launches, ck.lut_apply_batch.launches)
     _same(sep_filter_u8(imgs, taps, taps), sep_filter_u8_plain(imgs, taps, taps))
+    bgr = imgs[..., None].expand(2, 9, 17, 3).contiguous()
+    _same(sep_filter_u8_planes(bgr, taps, taps), sep_filter_u8_planes_plain(bgr, taps, taps))
     frames = imgs.reshape(2, -1)
     _same(ck.histogram256_batch(frames), ck.histogram256_batch_plain(frames))
     _same(ck.lut_apply_batch(frames, luts), ck.lut_apply_batch_plain(frames, luts))
@@ -183,13 +225,37 @@ def test_wrappers_refuse_other_devices():
 # CUDA kernels against their plain versions (on the card only)
 
 
+def _card_frames(shape, seed: int, offset: int) -> torch.Tensor:
+    """Random uint8 frames on the card whose base lies ``offset`` bytes
+    past the allocation's (16-byte aligned) start."""
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+    buf = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, device="cuda", generator=gen)
+    return buf[offset:].view(shape)
+
+
+SEPCONV_KSIZES = [1, 3, 5, 7, 9, 13, 19, 33]
+
+
 @cuda
 @needs_card
-@pytest.mark.parametrize("ksize", [3, 5, 13, 19, 33])
-@pytest.mark.parametrize("shape", [(2, 37, 101), (1, 300, 517), (2, 5, 7)])
-def test_cuda_sepconv_matches_plain(ksize, shape):
-    gen = torch.Generator(device="cuda").manual_seed(ksize)
-    imgs = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+@pytest.mark.parametrize("ksize", SEPCONV_KSIZES)
+@pytest.mark.parametrize(
+    "shape, offset",
+    [
+        ((2, 37, 101), 0),
+        ((1, 300, 517), 0),
+        ((2, 5, 7), 0),  # narrower and shorter than the halo: periodic reflection
+        ((3, 37, 1001), 0),
+        ((8, 2048, 2048), 0),  # the flagship chain's batch
+        ((2, 130, 1040), 0),  # rows 16-byte aligned, a band of 16 bytes at the right
+        ((2, 70, 2056), 1),  # base 1 byte past alignment
+        ((1, 64, 1001), 1),
+    ],
+)
+def test_cuda_sepconv_matches_plain(ksize, shape, offset):
+    imgs = _card_frames(shape, ksize, offset)
     taps = torch.from_numpy(_taps(ksize)).cuda()
     got = sep_filter_u8(imgs, taps, taps)
     torch.cuda.synchronize()
@@ -198,12 +264,83 @@ def test_cuda_sepconv_matches_plain(ksize, shape):
 
 @cuda
 @needs_card
-def test_cuda_sepconv_planes_matches_plain():
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    imgs = torch.randint(0, 256, (2, 32, 48, 3), dtype=torch.uint8, device="cuda", generator=gen)
-    taps = torch.from_numpy(_taps(5)).cuda()
-    want = sep_filter_u8_plain(imgs.permute(0, 3, 1, 2), taps, taps).permute(0, 2, 3, 1)
-    _same(sep_filter_u8_planes(imgs, taps, taps), want.cpu())
+@pytest.mark.parametrize("ksize", [1, 3, 5, 7, 13, 33])
+@pytest.mark.parametrize("channels", [3, 4, 2, 17])
+@pytest.mark.parametrize(
+    "shape, offset", [((2, 32, 48), 0), ((2, 67, 344), 0), ((1, 41, 101), 0), ((2, 37, 344), 1), ((1, 3, 2), 0)]
+)
+def test_cuda_sepconv_planes_matches_plain(shape, offset, channels, ksize):
+    imgs = _card_frames(shape + (channels,), channels * ksize, offset)
+    taps = torch.from_numpy(_taps(ksize)).cuda()
+    before = sep_filter_u8.launches
+    got = sep_filter_u8_planes(imgs, taps, taps)
+    torch.cuda.synchronize()
+    assert sep_filter_u8.launches == before + 1
+    _same(got, sep_filter_u8_planes_plain(imgs, taps, taps).cpu())
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("ksize", [3, 33])
+def test_cuda_sepconv_planes_takes_channels_past_shared_memory(ksize, past):
+    """As many channels as one launch's halo fits, in place, and one more:
+    then the frames go through the kernel as planes, still one launch."""
+
+    from yamimageprocessor_tpu_torch.ops.sepconv_cuda import _max_channels
+
+    taps = torch.from_numpy(_taps(ksize)).cuda()
+    channels = _max_channels(taps.device, ksize, ksize) + past
+    imgs = _card_frames((2, 19, 23, channels), ksize, 0)
+    before = sep_filter_u8.launches
+    got = sep_filter_u8_planes(imgs, taps, taps)
+    torch.cuda.synchronize()
+    assert sep_filter_u8.launches == before + 1
+    _same(got, sep_filter_u8_planes_plain(imgs, taps, taps).cpu())
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("ky, kx", [(5, 3), (3, 5), (1, 33), (3, 3), (5, 5), (7, 7), (13, 9)])
+def test_cuda_sepconv_takes_different_taps_for_y_and_x(ky, kx, channels):
+    """Asymmetric taps through every instance: a pass that read its taps in
+    reverse would differ."""
+
+    taps_y = torch.from_numpy(_asymmetric_taps(ky)).cuda()
+    taps_x = torch.from_numpy(_asymmetric_taps(kx)).cuda()
+    if channels == 1:
+        imgs = _card_frames((2, 300, 517), 3, 0)
+        got, want = sep_filter_u8(imgs, taps_y, taps_x), sep_filter_u8_plain(imgs, taps_y, taps_x)
+    else:
+        imgs = _card_frames((1, 67, 344, channels), 3, 1)
+        got, want = sep_filter_u8_planes(imgs, taps_y, taps_x), sep_filter_u8_planes_plain(imgs, taps_y, taps_x)
+    _same(got, want.cpu())
+
+
+#: taps whose results leave [0, 255]: the kernel's clamping path
+CLAMPED_TAPS = {
+    "sharpen3": [-0.5, 2.0, -0.5],
+    "sharpen5": [-0.1, -0.25, 1.7, -0.25, -0.1],
+    "bright7": [0.05, 0.1, 0.2, 0.4, 0.2, 0.1, 0.05],  # sums to 1.1
+}
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("taps", sorted(CLAMPED_TAPS))
+@pytest.mark.parametrize("shape", [(2, 67, 333), (1, 40, 1040, 3)])
+def test_cuda_sepconv_clamps_out_of_range_results(shape, taps):
+    imgs = _card_frames(shape, len(shape), 0)
+    imgs[:, :16] = 255  # a bright band and a dark band: both ends saturate
+    imgs[:, 16:32] = 0
+    t = torch.tensor(CLAMPED_TAPS[taps], dtype=torch.float32, device="cuda")
+    if imgs.ndim == 4:
+        got, want = sep_filter_u8_planes(imgs, t, t), sep_filter_u8_planes_plain(imgs, t, t)
+    else:
+        got, want = sep_filter_u8(imgs, t, t), sep_filter_u8_plain(imgs, t, t)
+    assert int(want.min()) == 0 and int(want.max()) == 255
+    _same(got, want.cpu())
 
 
 @cuda
@@ -229,9 +366,21 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
     before = sep_filter_u8.launches
     sep_filter_u8(imgs, taps, taps)
     assert sep_filter_u8.launches == before + 1
-    with pytest.raises(ValueError):
-        sep_filter_u8(imgs.float(), taps, taps)
-    with pytest.raises(ValueError):
-        sep_filter_u8(imgs, taps.cpu(), taps)
+    sep_filter_u8_planes(torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device="cuda"), taps, taps)
+    assert sep_filter_u8.launches == before + 2
+    even = torch.ones((4,), dtype=torch.float32, device="cuda")
+    wide = torch.ones((35,), dtype=torch.float32, device="cuda")
+    for bad in (
+        lambda: sep_filter_u8(imgs.float(), taps, taps),
+        lambda: sep_filter_u8(imgs, taps.cpu(), taps),
+        lambda: sep_filter_u8(imgs, even, taps),
+        lambda: sep_filter_u8(imgs, taps, wide),
+        lambda: sep_filter_u8(imgs.transpose(1, 2), taps, taps),  # not contiguous
+        lambda: sep_filter_u8(imgs[0], taps, taps),
+        lambda: sep_filter_u8_planes(imgs, taps, taps),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    assert sep_filter_u8.launches == before + 2
     with pytest.raises(ValueError):
         ck.lut_apply_batch(imgs.reshape(1, -1), torch.zeros((2, 256), dtype=torch.uint8, device="cuda"))

@@ -443,7 +443,10 @@ int launch(const void* mask, void* out, void* fwd, void* carry, void* ints, int 
   void* args[] = {&m, &f, &o, &c, &in, &n, &h, &w, &S, &K, &G};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chamfer_kernel<PER>), dim3(G * K), dim3(THREADS),
                                     args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves its error behind for the next launch's check: take it
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,16 +2,16 @@
 ``sep_filter_j`` and ``to_uint8_j``), and XLA's casts and fused
 multiply-adds as the JAX package's CPU backend runs them.
 
-:func:`sep_filter`, the uint8 path's plain version, agrees with the JAX
-package after rounding to uint8: reflect-101 borders (cv2
-BORDER_REFLECT_101, numpy ``mode="reflect"``), the x-pass and then the
-y-pass in float32, taps in ascending order, the first term ``taps[0] * x``,
-each product and sum a separate elementwise op (no ``addcmul``, no
-convolution, nothing that fuses or reorders the adds), then round half to
-even and saturate to uint8.  XLA's CPU backend contracts each pass into
-fused multiply-adds (``fma(t0, x0, t1 * x1)``, then ``fma(t_k, x_k,
-acc)``): :func:`sep_filter_fma` computes exactly that, for the float
-output the op gives on frames wider than uint8.
+Both filters use reflect-101 borders (cv2 BORDER_REFLECT_101, numpy
+``mode="reflect"``) and run the x-pass and then the y-pass in float32,
+taps in ascending order.  XLA's CPU backend contracts each pass of
+``sep_filter_j`` into fused multiply-adds (``fma(t0, x0, t1 * x1)``, then
+``fma(t_k, x_k, acc)``): :func:`sep_filter_fma` computes exactly that, and
+is the JAX package's result bit for bit, as a float (frames wider than
+uint8) and after :func:`to_uint8` (the uint8 Gaussian, the plain version
+of ``csrc/sepconv.cu``).  :func:`sep_filter` rounds each product and sum
+apart (no ``addcmul``, no convolution, nothing that fuses or reorders the
+adds): the twin of the reference's numpy ``sep_filter_np``.
 """
 from __future__ import annotations
 

@@ -242,7 +242,7 @@ def noise_reduction(imgs, dyn, *, method: str = "Gaussian", ksize: int = 5):
         return sep_filter_fma(imgs.permute(0, 3, 1, 2), taps, taps).permute(0, 2, 3, 1).contiguous()
     if imgs.ndim == 3:
         return sep_filter_u8(imgs.contiguous(), taps, taps)
-    return sep_filter_u8_planes(imgs, taps, taps)
+    return sep_filter_u8_planes(imgs.contiguous(), taps, taps)
 
 
 def _noise_item(item_shape, dtype, *, method: str = "Gaussian", ksize: int = 5):

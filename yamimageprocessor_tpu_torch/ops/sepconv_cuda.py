@@ -3,29 +3,48 @@ and its plain version.
 
 Port of ``yamimageprocessor_tpu/ops/sepconv_pallas.py``
 (``sep_filter_u8_pallas`` and ``sep_filter_u8_planes``).  Both compute
-``to_uint8(sep_filter(img, taps_y, taps_x))`` bit for bit.
+``to_uint8(sep_filter_fma(img, taps_y, taps_x))`` bit for bit: each pass in
+the fused multiply-add order XLA's CPU backend gives the reference's
+``sep_filter_j``, then round half to even and saturate.
 
-:func:`sep_filter_u8` launches the kernel for a CUDA tensor and runs the
-plain version for a CPU tensor; it never falls back from one to the other.
-``sep_filter_u8.launches`` counts kernel launches.
+:func:`sep_filter_u8` takes gray frames ``(N, H, W)``,
+:func:`sep_filter_u8_planes` interleaved channel frames ``(N, H, W, C)``,
+filtered in place (a tap's neighbour lies ``C`` bytes away): one kernel
+launch either way.  Where a pixel holds more channels than the kernel's
+shared memory holds a halo for (about 120 at ksize 33), the frames go
+through the kernel as ``N * C`` planes, with a copy each way.  Each wrapper launches
+the kernel for a CUDA tensor and runs the plain version for a CPU tensor;
+it never falls back from one to the other.  ``sep_filter_u8.launches``
+counts the kernel's launches by both.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from yamimageprocessor_tpu_torch import _build
-from yamimageprocessor_tpu_torch.ops.filters import sep_filter, to_uint8
+from yamimageprocessor_tpu_torch.ops.filters import sep_filter_fma, to_uint8
 
-#: the kernel stages a halo of at most 16 rows and columns (2 * radius <= 32,
-#: the reference kernel's bound)
+#: the kernel stages a halo of at most 16 pixels each side (2 * radius <=
+#: 32, the reference kernel's bound)
 MAX_TAPS = 33
-_MAX_GRID_Z = 65535
+#: bytes a frame row may hold (the kernel indexes a row in int32)
+MAX_ROW_BYTES = 2**30
 
 
 def sep_filter_u8_plain(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``(N, H, W)`` uint8 -> ``(N, H, W)`` uint8."""
+    """Plain version: ``(..., H, W)`` uint8 -> the same shape, uint8."""
 
-    return to_uint8(sep_filter(imgs, taps_y, taps_x))
+    return to_uint8(sep_filter_fma(imgs, taps_y, taps_x))
+
+
+def sep_filter_u8_planes_plain(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
+    """Plain version on channel frames: each channel plane alone."""
+
+    out = sep_filter_u8_plain(imgs.permute(0, 3, 1, 2), taps_y, taps_x)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def _check_taps(taps: torch.Tensor, device: torch.device) -> None:
@@ -44,21 +63,35 @@ def _check_taps(taps: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"taps length must be odd and <= {MAX_TAPS}, got {k}")
 
 
-def sep_filter_u8(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
-    """``(N, H, W)`` uint8 frames -> ``(N, H, W)`` uint8: x-pass, y-pass,
-    round half to even, saturate."""
-
-    if not _build.on_card("sep_filter_u8", imgs):
-        return sep_filter_u8_plain(imgs, taps_y, taps_x)
-    if imgs.dtype != torch.uint8 or imgs.ndim != 3:
-        raise ValueError(f"sep_filter_u8 takes (N, H, W) uint8, got {tuple(imgs.shape)} {imgs.dtype}")
+def _check(name: str, imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor, ndim: int) -> None:
+    if imgs.ndim != ndim:
+        frames = "(N, H, W)" if ndim == 3 else "(N, H, W, C)"
+        raise ValueError(f"{name} takes {frames} frames, got {tuple(imgs.shape)}")
+    if imgs.dtype != torch.uint8:
+        raise ValueError(f"{name} takes uint8 frames, got {imgs.dtype}")
     if not imgs.is_contiguous():
-        raise ValueError("sep_filter_u8 takes a contiguous tensor")
+        raise ValueError(f"{name} takes a contiguous tensor")
     _check_taps(taps_y, imgs.device)
     _check_taps(taps_x, imgs.device)
-    n, h, w = imgs.shape
-    if n > _MAX_GRID_Z:
-        raise ValueError(f"sep_filter_u8 takes at most {_MAX_GRID_Z} frames, got {n}")
+    row_bytes = imgs.shape[2] * (imgs.shape[3] if ndim == 4 else 1)
+    if row_bytes > MAX_ROW_BYTES:
+        raise ValueError(f"{name} takes rows of at most {MAX_ROW_BYTES} bytes, got {row_bytes}")
+
+
+@functools.lru_cache(maxsize=None)
+def _max_channels(device: torch.device, ky: int, kx: int) -> int:
+    """The most interleaved channels one launch takes at these tap counts."""
+
+    channels = ctypes.c_int(0)
+    _build.call("yam_sepconv_u8_max_channels", device, ky, kx, ctypes.byref(channels))
+    return channels.value
+
+
+def _launch(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
+    """One launch on checked ``(N, H, W, C)`` frames (``imgs`` may be 3-D: C = 1)."""
+
+    n, h, w = imgs.shape[:3]
+    c = imgs.shape[3] if imgs.ndim == 4 else 1
     out = torch.empty_like(imgs)
     if imgs.numel() == 0:
         return out
@@ -72,6 +105,7 @@ def sep_filter_u8(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor
         n,
         h,
         w,
+        c,
         int(taps_y.shape[0]),
         int(taps_x.shape[0]),
     )
@@ -79,18 +113,40 @@ def sep_filter_u8(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor
     return out
 
 
+def sep_filter_u8(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
+    """``(N, H, W)`` uint8 frames -> ``(N, H, W)`` uint8: x-pass, y-pass,
+    round half to even, saturate."""
+
+    if not _build.on_card("sep_filter_u8", imgs):
+        return sep_filter_u8_plain(imgs, taps_y, taps_x)
+    _check("sep_filter_u8", imgs, taps_y, taps_x, 3)
+    return _launch(imgs, taps_y, taps_x)
+
+
 sep_filter_u8.launches = 0
 
 
 def sep_filter_u8_planes(imgs: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
     """Channel frames ``(N, H, W, C)`` uint8 -> same shape: every channel
-    plane is one frame of :func:`sep_filter_u8` (the taps act on each
-    channel alone, so the bits equal the per-channel filter)."""
+    filtered alone (the bits equal the per-plane filter), in one launch on
+    the interleaved frames (on ``N * C`` planes where C passes
+    :func:`_max_channels`)."""
 
+    if not _build.on_card("sep_filter_u8_planes", imgs):
+        return sep_filter_u8_planes_plain(imgs, taps_y, taps_x)
+    _check("sep_filter_u8_planes", imgs, taps_y, taps_x, 4)
     n, h, w, c = imgs.shape
-    planes = imgs.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
-    out = sep_filter_u8(planes, taps_y, taps_x)
-    return out.reshape(n, c, h, w).permute(0, 2, 3, 1).contiguous()
+    if c <= _max_channels(imgs.device, int(taps_y.shape[0]), int(taps_x.shape[0])):
+        return _launch(imgs, taps_y, taps_x)
+    planes = _launch(imgs.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous(), taps_y, taps_x)
+    return planes.view(n, c, h, w).permute(0, 2, 3, 1).contiguous()
 
 
-__all__ = ["MAX_TAPS", "sep_filter_u8", "sep_filter_u8_planes", "sep_filter_u8_plain"]
+__all__ = [
+    "MAX_ROW_BYTES",
+    "MAX_TAPS",
+    "sep_filter_u8",
+    "sep_filter_u8_plain",
+    "sep_filter_u8_planes",
+    "sep_filter_u8_planes_plain",
+]

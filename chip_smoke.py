@@ -4,6 +4,7 @@ main paths once each: the flagship preprocess chain, the segmentation
 chain and the batched CLAHE chain.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times-of DIR   # CC and the blend of the port in checkout DIR
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -21,10 +22,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
    worst cases and on a batch of three frames; the flood also on a batch
    of 8 different 2048^2 scenes, each frame against its plain flood alone,
    on a single-marker frame whose front crosses the frame one pixel a
-   sweep, and on uint16 frames whose edge costs pass 255); then each
+   sweep, and on uint16 frames whose edge costs pass 255; CC on the
+   segmentation chain's sure foreground and opening, 55% noise, a spiral,
+   an all-foreground frame, a checkerboard, ragged frames and a batch of 8
+   scenes' sure foregrounds; the blend also where a band straddles tile
+   rows, at grid 64 and on odd widths); then each
    kernel's, its plain version's and (where one PyTorch call computes the
    same function) that call's device time, the distance kernel's at each
-   chunk size and on its worst cases, sepconv's on the CLAHE path's
+   chunk size and on its worst cases, CC's on each of its timed masks,
+   sepconv's on the CLAHE path's
    interleaved batch, and the flood's sweeps, levels
    visited and share of tiles swept, its time on the batch and on the
    single-marker frame at 2048^2;
@@ -55,7 +61,11 @@ Every kernel's launch count is set to 0 just before each main path and
 read just after; a kernel of the path that did not launch fails the run.
 The digests come from ``scripts/torch_port_digests.py`` (the JAX package
 on a CPU).  The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Nothing falls
+kernel; the last line is ``{"ok": true, "device": {...}}``.  With
+``--times-of DIR`` the script only times CC and the blend of the port in
+checkout DIR (an older one, unpacked with ``git archive``) on the same
+inputs, and prints SHA-256 digests of their outputs: run it on two
+checkouts in one call to compare their kernels.  Nothing falls
 back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
@@ -77,6 +87,8 @@ SEG_SIDE = 2048
 SEG_CPU_SIDE = 512
 SEG_FRAMES = 12
 FLOOD_BATCH = 8
+CC_BATCH = 8
+CC_MAIN = "scene sure foreground 2048^2"  # label_seeds' input on the segmentation path
 CLAHE_SHAPE = (64, 1024, 1024, 3)
 CLAHE_1000_SHAPE = (4, 1000, 1000, 3)  # tiles of 250 px: non-dyadic fractions
 CLAHE_CPU_SHAPE = (3, 120, 100, 3)
@@ -344,6 +356,91 @@ def _closed_mask(scene: torch.Tensor) -> torch.Tensor:
     return fn(scene, dyn)[-1].contiguous()
 
 
+def cc_inputs(dev) -> dict:
+    """The masks CC is checked and timed on, each ``(N, H, W)`` uint8: the
+    segmentation chain's sure foreground (the main path's input), the
+    scene's opening (larger components), 55% noise, the spiral (one long
+    component), an all-foreground frame (the worst case for hot roots) and
+    the sure foregrounds of a batch of scenes."""
+
+    scene = torch.from_numpy(dense_scene(SEG_SIDE)).to(dev)[None]
+    opening, markers = _watershed_inputs(_closed_mask(scene))
+    scenes = [torch.from_numpy(dense_scene(SEG_SIDE, seed=k)).to(dev)[None] for k in range(CC_BATCH)]
+    batch_markers = _watershed_inputs(torch.cat([_closed_mask(s) for s in scenes]))[1]
+    noise = np.random.default_rng(5).random((1, SEG_SIDE, SEG_SIDE)) < 0.55
+    return {
+        CC_MAIN: (markers > 1).to(torch.uint8),
+        "scene opening 2048^2": (opening > 0).to(torch.uint8),
+        "55% noise 2048^2": torch.from_numpy(noise.astype(np.uint8)).to(dev),
+        "spiral 1024^2": torch.from_numpy(_spiral(1024)).to(dev)[None],
+        "all foreground 2048^2": torch.ones((1, SEG_SIDE, SEG_SIDE), dtype=torch.uint8, device=dev),
+        f"sure foregrounds of {CC_BATCH} scenes 2048^2": (batch_markers > 1).to(torch.uint8),
+    }
+
+
+def bench_y_planes(dev) -> torch.Tensor:
+    """The CLAHE path's Y planes: the bench's frames after the Gaussian."""
+
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_ycrcb
+    from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
+    from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8_planes
+
+    _, dyn = get_impl("preprocessing.noise_reduction").split({"method": "Gaussian", "ksize": 5})
+    t5 = dyn_to_torch(dyn, dev)["taps"]
+    bgr = torch.from_numpy(clahe_frames(CLAHE_SHAPE)).to(dev)
+    return bgr_to_ycrcb(sep_filter_u8_planes(bgr, t5, t5))[..., 0].contiguous()
+
+
+def blend_inputs(y, grid, clip):
+    """(frames padded to the grid, their uint8 tables, the interpolation
+    arrays): the blend's inputs for ``(B, h, w)`` uint8 planes."""
+
+    from yamimageprocessor_tpu_torch.ops import clahe as CL
+
+    work = CL.pad_to_grid(y, grid)
+    h, w = work.shape[1:]
+    hist = CL.tile_histograms_plain(work, grid)
+    luts = CL.clip_and_lut(hist, clip, (h // grid[0]) * (w // grid[1])).to(torch.uint8)
+    return work, luts, CL.interp_tensors(h, w, grid, y.shape[1], y.shape[2], y.device)
+
+
+def time_cc_and_blend(cc_cases: dict, blend: tuple) -> dict:
+    """Device ms of CC on each of ``cc_cases`` and of the blend on the
+    bench's Y planes (``blend``: its inputs)."""
+
+    from yamimageprocessor_tpu_torch.ops.clahe import clahe_blend
+    from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
+
+    times = {f"cc {name}": time_ms(lambda fg=fg: cc_min_index(fg)) for name, fg in cc_cases.items()}
+    times[f"clahe_blend bench Y {tuple(blend[0].shape)} grid {CLAHE_GRID}"] = time_ms(lambda: clahe_blend(*blend))
+    return times
+
+
+def times_of(root: str) -> None:
+    """Time CC and the blend of the port in the checkout ``root`` (an older
+    one, unpacked with ``git archive``) on :func:`cc_inputs` and the bench's
+    Y planes, and print the times with a SHA-256 of every output: two
+    checkouts whose digests agree computed the same function."""
+
+    sys.path.insert(0, root)
+    smi = phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    import yamimageprocessor_tpu_torch as port
+    from yamimageprocessor_tpu_torch.ops.clahe import clahe_blend
+    from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
+
+    cc_cases = cc_inputs(dev)
+    blend = blend_inputs(bench_y_planes(dev), (CLAHE_GRID, CLAHE_GRID), CLAHE_CLIP)
+    digests = {name: sha256(cc_min_index(fg)) for name, fg in cc_cases.items()}
+    digests["clahe_blend"] = sha256(clahe_blend(*blend))
+    times = time_cc_and_blend(cc_cases, blend)
+    for name, ms in times.items():
+        print(f"time {name}: {ms:.4f} ms")
+    print(f"card: {smi}")
+    print(json.dumps({"package": port.__file__, "times": times, "digests": digests}))
+
+
 def phase_kernels(dev) -> dict:
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
     from yamimageprocessor_tpu_torch.ops import clahe as CL
@@ -516,15 +613,18 @@ def phase_kernels(dev) -> dict:
     print(f"kernels: distance bit-exact on the scene's opening at {sorted({1, 16, 64, ROWS_PER_CHUNK, SEG_SIDE})} "
           f"rows a chunk, on both worst cases at 2048^2 and on a (3,2048,2048) batch at {ROWS_PER_CHUNK} and 16")
 
-    sure_fg = (markers > 1).to(torch.uint8)
+    cc_cases = cc_inputs(dev)
+    sure_fg = cc_cases[CC_MAIN]
+    checkerboard = (torch.arange(SEG_SIDE, device=dev).view(-1, 1) + torch.arange(SEG_SIDE, device=dev)) % 2 == 0
+    ragged = (noise_mask((3, 1000, 999), 0.45) > 0).to(torch.uint8)
     for name, fg in (
-        ("55% noise 2048^2", (noise_mask((1, SEG_SIDE, SEG_SIDE), 0.45) > 0).to(torch.uint8)),
-        ("spiral 1024^2", torch.from_numpy(_spiral(1024)).to(dev)[None]),
-        ("scene sure foreground 2048^2", sure_fg),
-        ("scene opening 2048^2", (opening > 0).to(torch.uint8)),
+        *cc_cases.items(),
+        ("checkerboard 2048^2", checkerboard.to(torch.uint8)[None]),
+        ("55% noise (3,1000,999)", ragged),
     ):
         err["cc"] |= exact(f"cc {name}", cc_min_index(fg), cc_min_index_plain(fg))
-    print("kernels: cc (min-index field) bit-exact on 55% noise, a spiral, the scene's sure foreground and opening")
+    print(f"kernels: cc (min-index field) bit-exact on {', '.join(cc_cases)}, a 2048^2 checkerboard and "
+          "55% noise (3,1000,999)")
 
     small = torch.from_numpy(dense_scene(512)).to(dev)[None]
     bgr = torch.stack([scene[0], scene[0].roll(3, 1), (255 - scene[0]) // 2], dim=-1)[None].contiguous()
@@ -588,13 +688,6 @@ def phase_kernels(dev) -> dict:
     print("kernels: tile_histogram bit-exact on the bench's Y planes (64,1024,1024) at grid 4, grid 64, "
           "odd tiles (3,1000,999) at grid 7, constant 0 and 255 (one bin holds 512^2), unaligned")
 
-    def blend_inputs(y, grid, clip):
-        work = CL.pad_to_grid(y, grid)
-        h, w = work.shape[1:]
-        hist = CL.tile_histograms_plain(work, grid)
-        luts = CL.clip_and_lut(hist, clip, (h // grid[0]) * (w // grid[1])).to(torch.uint8)
-        return work, luts, CL.interp_tensors(h, w, grid, y.shape[1], y.shape[2], y.device)
-
     for name, y, grid, clip in (
         ("bench Y (64,1024,1024) grid 4 clip 2", y_bench, grid4, CLAHE_CLIP),
         ("(1,1000,1000) grid 4 clip 40", rand((1, 1000, 1000)), (4, 4), 40.0),
@@ -603,8 +696,13 @@ def phase_kernels(dev) -> dict:
         ("(1,1024,1024) grid 64 clip 40", rand((1, 1024, 1024)), (64, 64), 40.0),
         ("(3,1000,999) grid 7 clip 2", rand((3, 1000, 999)), (7, 7), 2.0),
         ("unaligned (2,96,120) grid 8 clip 40", unaligned((2, 96, 120)), (8, 8), 40.0),
+        ("bands across tile rows (2,200,160) grid 5 clip 2", rand((2, 200, 160)), (5, 5), 2.0),
+        ("tables from global memory (1,64,2040) grid 64 clip 2", rand((1, 64, 2040)), (64, 64), 2.0),
+        ("(2,100,130) grid 1 clip 2", rand((2, 100, 130)), (1, 1), 2.0),
     ):
         work, luts, interp = blend_inputs(y, grid, clip)
+        if name.startswith("tables from global memory") and CL.blend_shared_bytes(work, luts):
+            raise AssertionError("clahe_blend: a grid whose tables do not fit a block must read them from global")
         err["clahe_blend"] |= exact(
             f"clahe_blend {name}", CL.clahe_blend(work, luts, interp), CL.clahe_blend_plain(work, luts, interp)
         )
@@ -615,7 +713,8 @@ def phase_kernels(dev) -> dict:
                 "clahe_blend random tables", CL.clahe_blend(work, noise, interp), CL.clahe_blend_plain(work, noise, interp)
             )
     print("kernels: clahe_blend bit-exact on the bench's Y planes, 1000^2 at grids 4 and 2, 300x200 at grid 5 "
-          "(clip 0), grid 64, (3,1000,999) at grid 7 (odd tiles, cropped), random tables, unaligned")
+          "(clip 0), grid 64, (3,1000,999) at grid 7 (odd tiles, cropped), random tables, unaligned, bands "
+          "across tile rows, tables from global memory, grid 1")
 
     flat = big.view(FLAGSHIP_SHAPE[0], -1)
     luts = rand((FLAGSHIP_SHAPE[0], 256))
@@ -637,6 +736,7 @@ def phase_kernels(dev) -> dict:
     times["clahe_blend"] = paired_ms(
         lambda: CL.clahe_blend(work, luts, interp), lambda: CL.clahe_blend_plain(work, luts, interp), plain_runs=5
     )
+    case_times = time_cc_and_blend(cc_cases, (work, luts, interp))
     # sepconv on the CLAHE path's interleaved batch, in place
     sep_clahe = paired_ms(
         lambda: sep_filter_u8_planes(bgr_bench, t5, t5),
@@ -661,6 +761,8 @@ def phase_kernels(dev) -> dict:
     flood_lone_ms = time_ms(lambda: flood(*lone[SEG_SIDE]), runs=5)
     for name, (k, p) in times.items():
         print(f"time {name}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    for name, ms in case_times.items():
+        print(f"time {name}: {ms:.4f} ms")
     planes_px = float(np.prod(CLAHE_SHAPE))
     sep_clahe_bound = bound_ms(2 * planes_px, 20 * planes_px)[0]
     print(f"time sepconv on the CLAHE batch {CLAHE_SHAPE} in place: kernel {sep_clahe[0]:.4f} ms, plain "
@@ -713,6 +815,8 @@ def phase_kernels(dev) -> dict:
         "library": library,
         "bounds": bounds,
         "hist_one_ms": hist_one_ms,
+        "case_times": case_times,
+        "blend_shared_bytes": CL.blend_shared_bytes(work, luts),
         "flood_device_ms": flood_device_ms,
         "flood_stats": flood_stats,
         "flood_swept_bound_ms": bound_ms(10 * swept * TILE_ROWS * TILE_COLS)[0],
@@ -947,6 +1051,9 @@ def phase_clahe(dev) -> dict:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--times-of"]:
+        times_of(sys.argv[2])
+        return
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -972,13 +1079,15 @@ def main() -> None:
         ("distance", "yamimageprocessor_tpu_torch/csrc/distance.cu", "yamimageprocessor_tpu/ops/distance_pallas.py:219",
          "none: PyTorch has no distance transform"),
         ("cc", "yamimageprocessor_tpu_torch/csrc/labeling.cu", "yamimageprocessor_tpu/ops/labeling_pallas.py:214",
-         "none: PyTorch has no connected-components labeling"),
+         "none: PyTorch has no connected-components labeling; a call is 3 CUDA launches (cc_local, cc_border, "
+         "cc_compress); case_ms: the other masks"),
         ("flood", "yamimageprocessor_tpu_torch/csrc/watershed.cu", "yamimageprocessor_tpu/ops/watershed_pallas.py:233",
          "none: PyTorch has no watershed"),
         ("tile_histogram", "yamimageprocessor_tpu_torch/csrc/clahe.cu", "yamimageprocessor_tpu/pallas_kernels.py:457",
          "none: no single PyTorch call counts the levels of every tile (bincount needs tile offsets added first)"),
         ("clahe_blend", "yamimageprocessor_tpu_torch/csrc/clahe.cu", "yamimageprocessor_tpu/ops/clahe_pallas.py:137",
-         "none: no single PyTorch call blends four table lookups a pixel"),
+         "none: no single PyTorch call blends four table lookups a pixel; shared_bytes: the tables a block "
+         "stages on the bench's planes"),
     ]
     entries = []
     for name, source, replaces, library_note in rows:
@@ -1000,6 +1109,10 @@ def main() -> None:
             entry.update(kern["sepconv_clahe"])
         if name == "histogram256":
             entry["ms_one_frame"] = kern["hist_one_ms"]
+        if name == "cc":
+            entry["case_ms"] = {k[3:]: v for k, v in kern["case_times"].items() if k.startswith("cc ")}
+        if name == "clahe_blend":
+            entry["shared_bytes"] = kern["blend_shared_bytes"]
         if name == "flood":
             entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]

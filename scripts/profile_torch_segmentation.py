@@ -9,7 +9,9 @@ card's name and power limit; the wall time per frame (host clock around
 work that ends in a synchronize); the device time per frame summed over
 all kernels, and its share of the wall time; then the kernels by device
 time, grouped by name.  The chain runs twice first, untimed, to build and
-warm up.
+warm up.  A last line splits the device time between the port's kernels
+(CC's three launches summed, and each apart) and everything else; the
+parts add up to the device time.
 """
 from __future__ import annotations
 
@@ -25,6 +27,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 SIDE = 2048
 FRAMES = 3
+#: substrings of the port's kernel names, by kernel
+GROUPS = {
+    "flood_kernel": "flood",
+    "chamfer_kernel": "distance",
+    "cc_local": "cc",
+    "cc_border": "cc",
+    "cc_compress": "cc",
+    "histogram256_kernel": "histogram256",
+}
 
 
 def main() -> None:
@@ -69,6 +80,16 @@ def main() -> None:
         print("the profiler saw no device activity")
     for name, (total, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {total / FRAMES / 1e3:9.4f} ms {count / FRAMES:7.1f} x  {name[:110]}")
+    split = defaultdict(float)
+    cc_parts = defaultdict(float)
+    for name, (total, _) in per_kernel.items():
+        key = next((k for k in GROUPS if k in name), None)
+        split[GROUPS[key] if key else "other"] += total / FRAMES / 1e3
+        if key and GROUPS[key] == "cc":
+            cc_parts[key] += total / FRAMES / 1e3
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(cc_parts.items()))
+    print("by kernel, ms per frame: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+          + f" (cc: {parts}); sum {sum(split.values()):.4f}")
 
 
 if __name__ == "__main__":

@@ -274,6 +274,25 @@ def test_plain_blend_matches_blend_pallas():
     assert CL.clahe_blend.launches == before
 
 
+@pytest.mark.parametrize(
+    "h, w, grid, h_out, w_out",
+    [(1024, 1024, (4, 4), 1024, 1024), (1024, 1024, (64, 64), 1024, 1024), (1001, 1001, (7, 7), 1000, 999),
+     (200, 160, (5, 5), 200, 160), (64, 2048, (64, 64), 64, 2040), (100, 130, (1, 1), 100, 130),
+     (96, 3000, (3, 1000), 95, 2999), (4096, 64, (4096, 2), 4096, 63)],
+)
+def test_blend_table_bytes_hold_every_band_and_span(h, w, grid, h_out, w_out):
+    """A blend block stages the tables from tile row y0 of its band's first
+    row to y1 of its last, and tile column x0 of its span's first column to
+    x1 of its last: ``blend_table_bytes`` must hold every such window."""
+
+    (y0, y1, _), (x0, x1, _) = CL.interp_weights(h, w, grid)
+    bands = [(r, min(r + CL.BLEND_ROWS, h_out) - 1) for r in range(0, h_out, CL.BLEND_ROWS)]
+    spans = [(c, min(c + CL.BLEND_COLS, w_out) - 1) for c in range(0, w_out, CL.BLEND_COLS)]
+    ny = max(y1[last] - y0[first] + 1 for first, last in bands)
+    nx = max(x1[last] - x0[first] + 1 for first, last in spans)
+    assert ny * nx * 256 <= CL.blend_table_bytes(h, w, grid)
+
+
 def _separate_rounding_blend(frames, luts, grid):
     """``w00*t00 + w01*t01 + w10*t10 + w11*t11`` with every float32 product
     and sum rounded on its own, left to right (numpy never contracts)."""
@@ -511,7 +530,11 @@ def test_cuda_tile_histograms_count_whole_tiles(value):
 @pytest.mark.parametrize(
     "shape, grid, clip",
     [((2, 256, 256), 4, 2.0), ((1, 1000, 1000), 4, 40.0), ((2, 300, 200), 5, 0.0), ((1, 1024, 1024), 64, 2.0),
-     ((3, 97, 101), 2, 40.0), ((1, 1000, 999), 7, 2.0)],
+     ((3, 97, 101), 2, 40.0), ((1, 1000, 999), 7, 2.0),
+     ((2, 200, 160), 5, 2.0),  # bands of 32 rows straddle the tile rows of 40
+     ((1, 64, 2048), 64, 40.0),  # tables too many for shared memory: the global instance
+     ((1, 64, 2040), 64, 2.0),  # the same, bytes a load and the crop
+     ((2, 100, 130), 1, 2.0)],  # grid 1: one table a frame
 )
 def test_cuda_blend_and_clahe_match_plain(shape, grid, clip):
     y = _card_frames(shape, grid)
@@ -529,6 +552,19 @@ def test_cuda_blend_and_clahe_match_plain(shape, grid, clip):
     random_tables = _card_frames(tuple(luts.shape), 7)
     _same(CL.clahe_blend(work, random_tables, interp), CL.clahe_blend_plain(work, random_tables, interp).cpu())
     _same(CL.clahe(y, clip, grid2), CL.clahe(y.cpu(), clip, grid2))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize(
+    "shape, grid, instance",
+    [((64, 1024, 1024), 4, "shared"), ((1, 1024, 1024), 64, "shared above 48 KB"), ((1, 64, 2048), 64, "global")],
+)
+def test_cuda_blend_takes_shared_tables_where_they_fit(shape, grid, instance):
+    y = torch.zeros(shape, dtype=torch.uint8, device="cuda")
+    luts = torch.zeros((shape[0], grid, grid, 256), dtype=torch.uint8, device="cuda")
+    got = CL.blend_shared_bytes(y, luts)
+    assert {"shared": 0 < got <= 48 * 1024, "shared above 48 KB": got > 48 * 1024, "global": got == 0}[instance]
 
 
 @cuda

@@ -13,6 +13,8 @@ card against the port's CPU run; they skip where there is no card::
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -28,10 +30,13 @@ from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
 from yamimageprocessor_tpu_torch.ops.distance import MAX_WIDTH, distance_transform, distance_transform_plain
 from yamimageprocessor_tpu_torch.ops.labeling import (
     SENTINEL,
+    TILE_COLS,
+    TILE_ROWS,
     cc_min_index,
     cc_min_index_plain,
     label,
     label_seeds,
+    renumber,
 )
 from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_from_hist, otsu_threshold
 from yamimageprocessor_tpu_torch.ops.watershed import (
@@ -265,8 +270,30 @@ def test_distance_matches_the_pallas_kernel_in_interpret_mode():
 # connected components
 
 
+def _staircase(h, w):
+    """One-pixel diagonal staircases, down-right and down-left, that cross
+    tile corners only diagonally."""
+
+    fg = np.zeros((h, w), bool)
+    i = np.arange(min(h, w) // 2)
+    fg[i, i] = True
+    fg[i, w - 1 - i] = True
+    return fg
+
+
+def _checkerboard(h, w):
+    """Every other pixel: one component through diagonals alone."""
+
+    return np.indices((h, w)).sum(axis=0) % 2 == 0
+
+
 def _fg_cases():
     rng = np.random.default_rng(11)
+    stripes = np.zeros((24, 40), bool)
+    stripes[:, ::2] = True
+    touching = rng.random((2, 20, 30)) > 0.6
+    touching[0, -1, :] = True  # frame 0's last row and frame 1's first row:
+    touching[1, 0, :] = True  # contiguous in memory, never one component
     return {
         "disks": _disks(40, 56, seed=56),
         "noise": rng.random((48, 160)) > 0.55,
@@ -274,7 +301,17 @@ def _fg_cases():
         "empty": np.zeros((24, 36), bool),
         "full": np.ones((24, 36), bool),
         "corners": np.pad(np.ones((1, 1), bool), ((0, 29), (0, 39))) | np.pad(np.ones((1, 1), bool), ((29, 0), (39, 0))),
+        "staircase": _staircase(40, 56),
+        "checkerboard": _checkerboard(33, 47),
+        "vertical stripes": stripes,
+        "ragged 33x48": rng.random((33, 48)) > 0.5,
+        "ragged 37x1": rng.random((37, 1)) > 0.3,
+        "two frames that touch in memory": touching,
     }
+
+
+def _frames(fg: np.ndarray) -> np.ndarray:
+    return fg if fg.ndim == 3 else fg[None]
 
 
 @pytest.mark.parametrize("case", sorted(_fg_cases()))
@@ -284,15 +321,183 @@ def test_label_matches_jax_and_scipy(case):
 
     from yamimageprocessor_tpu.ops.labeling import label_j, label_np
 
-    fg = _fg_cases()[case]
-    got = label(_t(fg))[0]
-    _same(got, np.asarray(jax.jit(label_j)(jnp.asarray(fg))))
-    _same(got, label_np(fg))
-    seeds = label_seeds(_t(fg))[0].numpy()
-    assert seeds.dtype == np.int32 and (seeds[~fg] == 1).all()
-    # distinct per component, as the flood needs: an injective relabeling
-    ref = label_np(fg)[fg]
-    assert len(set(zip(ref.tolist(), seeds[fg].tolist()))) == len(set(ref.tolist()))
+    frames = _frames(_fg_cases()[case])
+    got = label(torch.from_numpy(frames))
+    seeds = label_seeds(torch.from_numpy(frames)).numpy()
+    for i, fg in enumerate(frames):
+        _same(got[i], np.asarray(jax.jit(label_j)(jnp.asarray(fg))))
+        _same(got[i], label_np(fg))
+        assert seeds.dtype == np.int32 and (seeds[i][~fg] == 1).all()
+        # distinct per component, as the flood needs: an injective relabeling
+        ref = label_np(fg)[fg]
+        assert len(set(zip(ref.tolist(), seeds[i][fg].tolist()))) == len(set(ref.tolist()))
+
+
+def _cc_tile_model(fg, th, tw):
+    """The three phases of ``csrc/labeling.cu`` in numpy, one frame and one
+    tile after another: ``(N, H, W)`` or ``(H, W)`` bool -> the int32
+    min-index field, and the number of border unions and dirty tiles.
+
+    1. each ``th x tw`` tile alone: every pixel points at its run's start,
+       unites with the row above where a contact starts, then takes its
+       root: the tile's own components, each at its least index;
+    2. the pixels of each tile's first row and first column unite across
+       the border, again only where a contact starts; a root relinked marks
+       its tile dirty;
+    3. the pixels of the dirty tiles take their root.
+
+    Any order of the kernel's concurrent unions ends in the same forest's
+    roots, so one order here stands for all of them."""
+
+    frames = _frames(np.asarray(fg, bool))
+    n, h, w = frames.shape
+    out = np.full(frames.shape, SENTINEL, np.int32)
+    stats = {"border_unions": 0, "dirty_tiles": 0}
+    for f in range(n):
+        m = frames[f].tolist()
+        lab = [SENTINEL] * (h * w)
+
+        def find(x):
+            while lab[x] != x:
+                x = lab[x]
+            return x
+
+        def unite(a, b):
+            a, b = find(a), find(b)
+            if a == b:
+                return None
+            a, b = min(a, b), max(a, b)
+            lab[b] = a
+            return b
+
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                ys, xs = range(y0, min(y0 + th, h)), range(x0, min(x0 + tw, w))
+                for y in ys:
+                    start = None
+                    for x in xs:
+                        start = (start if start is not None else y * w + x) if m[y][x] else None
+                        if start is not None:
+                            lab[y * w + x] = start
+                for y in ys[1:]:
+                    for x in xs:
+                        if not m[y][x]:
+                            continue
+                        p = y * w + x
+                        left = x > x0 and m[y][x - 1]
+                        right = x + 1 < xs.stop and m[y][x + 1]
+                        up_left, up = x > x0 and m[y - 1][x - 1], m[y - 1][x]
+                        up_right = x + 1 < xs.stop and m[y - 1][x + 1]
+                        if not left and up_left:
+                            unite(p, p - w - 1)
+                        if up and not up_left:
+                            unite(p, p - w)
+                        if not right and up_right and not up:
+                            unite(p, p - w + 1)
+                for y in ys:
+                    for x in xs:
+                        if m[y][x]:
+                            lab[y * w + x] = find(y * w + x)
+
+        dirty = set()
+
+        def unite_border(a, b):
+            stats["border_unions"] += 1
+            linked = unite(a, b)
+            if linked is not None:
+                dirty.add((linked // w // th, linked % w // tw))
+
+        for y in range(th, h, th):  # first rows: the row above
+            for x in range(w):
+                if not m[y][x]:
+                    continue
+                p = y * w + x
+                left = x % tw != 0 and m[y][x - 1]
+                right = (x + 1) % tw != 0 and x + 1 < w and m[y][x + 1]
+                up_left, up = x > 0 and m[y - 1][x - 1], m[y - 1][x]
+                up_right = x + 1 < w and m[y - 1][x + 1]
+                if not left and up_left:
+                    unite_border(p, p - w - 1)
+                if up and not (up_left and x % tw != 0):
+                    unite_border(p, p - w)
+                if not right and up_right and not (up and (x + 1) % tw != 0):
+                    unite_border(p, p - w + 1)
+        for x in range(tw, w, tw):  # first columns: the column to the left
+            for y in range(h):
+                if not m[y][x]:
+                    continue
+                p = y * w + x
+                up = y % th != 0 and m[y - 1][x]
+                down = (y + 1) % th != 0 and y + 1 < h and m[y + 1][x]
+                left_up, left = y > 0 and m[y - 1][x - 1], m[y][x - 1]
+                left_down = y + 1 < h and m[y + 1][x - 1]
+                if not up and left_up:
+                    unite_border(p, p - w - 1)
+                if left and not (left_up and y % th != 0):
+                    unite_border(p, p - 1)
+                if not down and left_down and not (left and (y + 1) % th != 0):
+                    unite_border(p, p + w - 1)
+
+        stats["dirty_tiles"] += len(dirty)
+        for ty, tx in dirty:
+            for y in range(ty * th, min(ty * th + th, h)):
+                for x in range(tx * tw, min(tx * tw + tw, w)):
+                    if m[y][x]:
+                        lab[y * w + x] = find(y * w + x)
+        out[f] = np.asarray(lab, np.int32).reshape(h, w)
+    return out, stats
+
+
+_MODEL_TILES = [(1, 1), (2, 3), (4, 8), (8, 32), (TILE_ROWS, TILE_COLS), "larger than the frame"]
+
+
+def _model_tile(tile, fg):
+    return (fg.shape[-2] + 5, fg.shape[-1] + 7) if tile == "larger than the frame" else tile
+
+
+@pytest.mark.parametrize("tile", _MODEL_TILES, ids=str)
+@pytest.mark.parametrize("case", sorted(_fg_cases()))
+def test_cc_tile_model_matches_plain_and_jax(case, tile):
+    """The kernel's tile schedule, border rule included, loses no link:
+    bit-exact against the plain version, and renumbered against the JAX
+    package's ``label_j`` and ``label_np``, at every tile size."""
+
+    from yamimageprocessor_tpu.ops.labeling import label_np
+
+    frames = _frames(_fg_cases()[case])
+    got, stats = _cc_tile_model(frames, *_model_tile(tile, frames))
+    _same(got, cc_min_index_plain(torch.from_numpy(frames.astype(np.uint8))))
+    compact = renumber(torch.from_numpy(got))
+    for i, fg in enumerate(frames):
+        _same(compact[i], _label_j(case, i))
+        _same(compact[i], label_np(fg))
+    if tile == "larger than the frame":
+        assert stats == {"border_unions": 0, "dirty_tiles": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _label_j(case, i):
+    import jax
+    import jax.numpy as jnp
+
+    from yamimageprocessor_tpu.ops.labeling import label_j
+
+    return np.asarray(jax.jit(label_j)(jnp.asarray(_frames(_fg_cases()[case])[i])))
+
+
+@pytest.mark.parametrize("tile", [(1, 1), (2, 3), (4, 8), (8, 32), (TILE_ROWS, TILE_COLS)], ids=str)
+def test_cc_tile_model_unites_a_full_frame_a_few_times_a_border(tile):
+    """No hot roots: on an all-foreground frame each tile's border makes at
+    most 3 unions, where a union a contact pixel would make ~3 a pixel."""
+
+    h, w = 70, 300
+    th, tw = tile
+    got, stats = _cc_tile_model(np.ones((h, w), bool), th, tw)
+    assert (got == 0).all()
+    ty, tx = -(-h // th), -(-w // tw)
+    borders = (ty - 1) * tx + (tx - 1) * ty
+    assert 0 < stats["border_unions"] <= 3 * borders
+    assert stats["dirty_tiles"] == ty * tx - 1  # every tile but the first is relinked
 
 
 def test_cc_min_index_matches_the_pallas_kernel_in_interpret_mode():
@@ -619,12 +824,35 @@ def test_cuda_distance_refuses_frames_wider_than_shared_memory():
         distance_transform(torch.zeros((1, 2, MAX_WIDTH + 1), dtype=torch.uint8, device="cuda"))
 
 
+def _card_fg_cases():
+    """Ragged frames and batches against the kernel's tiles (TILE_ROWS x TILE_COLS)."""
+
+    rng = np.random.default_rng(12)
+    batch = np.stack([_disks(300, 517, seed=s, blobs=12) for s in range(8)])
+    batch[:, 0, :] = batch[:, -1, :] = True  # neighbouring frames' rows touch in memory
+    return {
+        "noise 1000x999": rng.random((1000, 999)) > 0.45,
+        "noise 1x4096": rng.random((1, 4096)) > 0.3,
+        "noise 4096x1": rng.random((4096, 1)) > 0.3,
+        "batch of 8 disks 300x517": batch,
+        "full 1000x999": np.ones((1000, 999), bool),
+        "staircase 700x900": _staircase(700, 900),
+        "checkerboard 257x300": _checkerboard(257, 300),
+        "spiral 1024": _spiral(1024),
+    }
+
+
 @cuda
 @needs_card
-@pytest.mark.parametrize("case", sorted(_fg_cases()))
+@pytest.mark.parametrize("case", sorted(_fg_cases()) + sorted(_card_fg_cases()))
 def test_cuda_cc_matches_plain(case):
-    fg = torch.from_numpy(_fg_cases()[case].astype(np.uint8))[None].cuda()
-    _same(cc_min_index(fg), cc_min_index_plain(fg).cpu())
+    frames = {**_fg_cases(), **_card_fg_cases()}[case]
+    fg = torch.from_numpy(_frames(frames).astype(np.uint8)).cuda()
+    before = cc_min_index.launches
+    got = cc_min_index(fg)
+    torch.cuda.synchronize()
+    assert cc_min_index.launches == before + 1
+    _same(got, cc_min_index_plain(fg).cpu())
 
 
 @cuda

@@ -55,11 +55,11 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_lut_apply_u8": (_P, _P, _P, _L, _L, _I, _I, _P),
     "yam_chamfer_resident_blocks": (_I, ctypes.POINTER(_I)),
     "yam_chamfer_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "yam_cc_min_index": (_P, _P, _I, _I, _I, _P),
+    "yam_cc_min_index": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_flood_resident_blocks": (_I, ctypes.POINTER(_I)),
     "yam_flood": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "yam_tile_histogram_u8": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "yam_clahe_blend_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yam_clahe_blend_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

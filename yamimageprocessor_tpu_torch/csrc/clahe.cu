@@ -21,12 +21,25 @@
 // clahe_blend_pallas (pallas_call at line 137).  The TPU has no per-lane
 // table read, so the reference packs the tables into words, picks each
 // entry through a 63-select tree, and expands the row and column fractions
-// into two full-frame weight maps.  Here a thread reads the four corner
-// tables directly (uint8 tables through the read-only cache; at grid 64 a
-// frame's tables are 1 MB, too large for shared memory, and the corners a
-// block touches are few) and the per-row and per-column indices and
-// fractions from small arrays.  Four pixels a thread, with 4-byte loads and
-// stores where rows and pointers allow.
+// into two full-frame weight maps.  Here a block is a band of BLEND_ROWS
+// output rows by a span of BLEND_COLS columns of one frame.  The block
+// stages the corner tables its band and span touch (tile rows y0 of its
+// first row to y1 of its last, tile columns x0 of its first column to x1
+// of its last, 256 bytes each: 2 KB on the bench's grid 4) and its rows'
+// offsets and fractions in shared memory, so every table read is a
+// shared-memory byte; each lane reads its 4 columns' x0, x1 and fx once
+// and keeps them in registers over the band's rows.  A table read is a
+// gather at the pixel's value, and a warp's lanes meet in few
+// shared-memory words only while they read the same table, so a warp
+// blends 128 consecutive columns, 4 a lane (16 a lane spread a warp over
+// three tables and took longer than the kernel it replaced).  Rows move
+// as 16-byte words where rows and pointers allow (4 rows of the warp's
+// 128 columns at a time, through shared memory), else by bytes.  Bytes
+// become floats and floats bytes by exact bit tricks, not by conversions.
+// Where a grid's tables do not fit the block's shared memory (a grid
+// thousands of tiles wide), a second instance of the same kernel reads
+// them from global memory through the read-only cache; the wrapper picks
+// it (ops/clahe.py:blend_table_bytes).
 //
 // The blend's order is the reference's as XLA's CPU backend runs clahe_j
 // (ops/clahe.py:252-265): the weights are separate f32 products of
@@ -39,7 +52,8 @@
 // tell the orders apart; the tests use non-dyadic shapes.
 //
 // Bound on the card: device memory.  The histogram reads 1 byte a pixel
-// and writes 1 KB a tile; the blend reads 1 byte a pixel and writes 1.
+// and writes 1 KB a tile; the blend reads 1 byte a pixel and writes 1
+// (the tables and the row and column arrays are small beside them).
 
 #include <cuda_runtime.h>
 
@@ -111,33 +125,75 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-struct Row {
-  const uint8_t* top;     // tables of tile row y0: gw tables of 256 bytes
-  const uint8_t* bottom;  // tables of tile row y1
-  float fy;
-  float gy;  // 1 - fy
-};
+constexpr int BLEND_ROWS = 32;                        // output rows a block
+constexpr int BLEND_PIXELS = 4;                       // pixels a lane blends in a row: one 4-byte word
+constexpr int WARP_COLS = 32 * BLEND_PIXELS;          // a warp's columns: 128
+constexpr int BLEND_COLS = WARPS * WARP_COLS;         // a block's columns: 1024
+constexpr int GROUP_ROWS = 32 * 16 / WARP_COLS;       // rows a warp moves with a 16-byte word a lane: 4
+static_assert(BLEND_PIXELS == 4, "a lane's pixels are one word");
 
-__device__ __forceinline__ uint32_t blend_one(uint32_t v, const Row& row, int x0, int x1,
-                                              float fx) {
-  const float gx = __fsub_rn(1.0f, fx);
-  const float w00 = __fmul_rn(row.gy, gx);
-  const float w01 = __fmul_rn(row.gy, fx);
-  const float w10 = __fmul_rn(row.fy, gx);
-  const float w11 = __fmul_rn(row.fy, fx);
-  const float t00 = static_cast<float>(__ldg(row.top + x0 * 256 + v));
-  const float t01 = static_cast<float>(__ldg(row.top + x1 * 256 + v));
-  const float t10 = static_cast<float>(__ldg(row.bottom + x0 * 256 + v));
-  const float t11 = static_cast<float>(__ldg(row.bottom + x1 * 256 + v));
-  const float sum =
-      __fmaf_rn(w11, t11, __fmaf_rn(w10, t10, __fmaf_rn(w00, t00, __fmul_rn(w01, t01))));
-  return static_cast<uint32_t>(fminf(fmaxf(rintf(sum), 0.0f), 255.0f));
+// A byte as a float and a float in 0..255 as a byte by exact bit tricks,
+// full-rate integer and float operations instead of conversions (which run
+// at a quarter of the rate): 2^23 + b has b in its low mantissa bits, and
+// adding 1.5 * 2^23 to x in [0, 255] rounds x half to even into them.
+__device__ __forceinline__ float byte_to_float(uint32_t b) {
+  return __fsub_rn(__int_as_float(0x4B000000 | b), 8388608.0f);
 }
 
-// Grid (column blocks, output rows, frames); V pixels a thread (4 or 1).
-// Reads row r, columns [0, w_out) of a (height, width) frame and writes an
-// (h_out, w_out) frame: the crop back from the padded grid is free.
-template <int V>
+// the float bits of the blend of one pixel; its byte is the lowest
+__device__ __forceinline__ uint32_t blend_one(float t00, float t01, float t10, float t11, float fy, float gy,
+                                              float fx, float gx) {
+  const float w00 = __fmul_rn(gy, gx);
+  const float w01 = __fmul_rn(gy, fx);
+  const float w10 = __fmul_rn(fy, gx);
+  const float w11 = __fmul_rn(fy, fx);
+  const float sum =
+      __fmaf_rn(w11, t11, __fmaf_rn(w10, t10, __fmaf_rn(w00, t00, __fmul_rn(w01, t01))));
+  // rint then clip equals clip then rint: the bounds are integers
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(sum, 0.0f), 255.0f), 12582912.0f));
+}
+
+struct BandRow {
+  int top, bottom;  // byte offsets of the row's two tile rows of tables
+  float fy;
+};
+
+// A lane's columns: offsets of their left and right tables in a tile row
+// of tables, their fractions, and 1 - the fractions.
+struct Columns {
+  int left[BLEND_PIXELS], right[BLEND_PIXELS];
+  float fx[BLEND_PIXELS], gx[BLEND_PIXELS];
+};
+
+// the blend of a lane's 4 pixels of one row, packed into a word
+__device__ __forceinline__ uint32_t blend_word(uint32_t word, const uint8_t* tab, const BandRow& row,
+                                               const Columns& cols) {
+  const uint8_t* top = tab + row.top;
+  const uint8_t* bottom = tab + row.bottom;
+  const float gy = __fsub_rn(1.0f, row.fy);
+  uint32_t b[BLEND_PIXELS];
+#pragma unroll
+  for (int j = 0; j < BLEND_PIXELS; ++j) {
+    const uint32_t v = __byte_perm(word, 0, 0x4440 + j);  // byte j, zero-extended
+    b[j] = blend_one(byte_to_float(top[cols.left[j] + v]), byte_to_float(top[cols.right[j] + v]),
+                     byte_to_float(bottom[cols.left[j] + v]), byte_to_float(bottom[cols.right[j] + v]), row.fy,
+                     gy, cols.fx[j], cols.gx[j]);
+  }
+  // the four lowest bytes into one word
+  return __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
+}
+
+// Grid (column spans, row bands, frames).  Reads rows and columns
+// [0, h_out) x [0, w_out) of (height, width) frames and writes (h_out,
+// w_out) frames: the crop back from the padded grid is free.  SHARED: the
+// band's tables staged in dynamic shared memory (the wrapper sizes it for
+// the largest window); else read from global memory.  A warp blends 128
+// consecutive columns, a lane 4 of them, so that a warp's table reads
+// mostly fall in the same tables and meet in few shared-memory words.
+// VEC16 (rows, pointers and w_out allow 16-byte words): the warp moves 4
+// rows of its 128 columns at a time, a 16-byte word a lane, through
+// shared memory; else each lane reads and writes its 4 pixels by bytes.
+template <bool SHARED, bool VEC16>
 __global__ void __launch_bounds__(THREADS)
     clahe_blend_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                        const uint8_t* __restrict__ luts, const int* __restrict__ y0,
@@ -145,33 +201,108 @@ __global__ void __launch_bounds__(THREADS)
                        const int* __restrict__ x0, const int* __restrict__ x1,
                        const float* __restrict__ fx, int height, int width, int h_out,
                        int w_out, int gh, int gw) {
-  const int col = (blockIdx.x * THREADS + threadIdx.x) * V;
-  if (col >= w_out) return;
-  const int r = blockIdx.y;
+  extern __shared__ uint4 s_tables[];
+  __shared__ BandRow s_rows[BLEND_ROWS];
+  __shared__ uint4 s_io[WARPS][2][32];  // a warp's 4 rows of 128 bytes, in and out
   const long long frame = blockIdx.z;
+  const int r_first = blockIdx.y * BLEND_ROWS;
+  const int rows = min(BLEND_ROWS, h_out - r_first);
+  const int c_first = blockIdx.x * BLEND_COLS;
   const uint8_t* tables = luts + frame * gh * gw * 256;
-  Row row;
-  row.top = tables + static_cast<long long>(__ldg(y0 + r)) * gw * 256;
-  row.bottom = tables + static_cast<long long>(__ldg(y1 + r)) * gw * 256;
-  row.fy = __ldg(fy + r);
-  row.gy = __fsub_rn(1.0f, row.fy);
-  const uint8_t* src = in + (frame * height + r) * width + col;
-  uint8_t* dst = out + (frame * h_out + r) * w_out + col;
-
-  if constexpr (V == 4) {
-    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(src));
-    uint32_t o = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int c = col + k;
-      o |= blend_one((v >> (8 * k)) & 255u, row, __ldg(x0 + c), __ldg(x1 + c), __ldg(fx + c))
-           << (8 * k);
+  int ty_lo = 0, tx_lo = 0, nx = gw;
+  if constexpr (SHARED) {
+    // the window of tables: one run of nx contiguous tables a tile row
+    ty_lo = __ldg(y0 + r_first);
+    tx_lo = __ldg(x0 + c_first);
+    nx = __ldg(x1 + min(c_first + BLEND_COLS, w_out) - 1) - tx_lo + 1;
+    const int ny = __ldg(y1 + r_first + rows - 1) - ty_lo + 1;
+    const int row_words = nx * 16;
+    const uint4* src = reinterpret_cast<const uint4*>(tables);
+    for (int i = threadIdx.x; i < ny * row_words; i += THREADS) {
+      const int ty = i / row_words;
+      s_tables[i] = __ldg(src + ((ty_lo + ty) * gw + tx_lo) * 16 + (i - ty * row_words));
     }
-    *reinterpret_cast<uint32_t*>(dst) = o;
-  } else {
-    *dst = static_cast<uint8_t>(
-        blend_one(__ldg(src), row, __ldg(x0 + col), __ldg(x1 + col), __ldg(fx + col)));
   }
+  if (threadIdx.x < rows) {
+    const int r = r_first + threadIdx.x;
+    s_rows[threadIdx.x] = BandRow{(__ldg(y0 + r) - ty_lo) * nx * 256, (__ldg(y1 + r) - ty_lo) * nx * 256,
+                                  __ldg(fy + r)};
+  }
+  __syncthreads();
+  const uint8_t* tab = SHARED ? reinterpret_cast<const uint8_t*>(s_tables) : tables;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wc0 = c_first + warp * WARP_COLS;
+  if (wc0 >= w_out) return;
+  const int c0 = wc0 + lane * BLEND_PIXELS;
+  // this lane's columns, read once for the band's rows
+  Columns cols;
+#pragma unroll
+  for (int j = 0; j < BLEND_PIXELS; ++j) {
+    const int c = min(c0 + j, w_out - 1);
+    cols.left[j] = (__ldg(x0 + c) - tx_lo) * 256;
+    cols.right[j] = (__ldg(x1 + c) - tx_lo) * 256;
+    cols.fx[j] = __ldg(fx + c);
+    cols.gx[j] = __fsub_rn(1.0f, cols.fx[j]);
+  }
+  const uint8_t* src = in + (frame * height + r_first) * width;
+  uint8_t* dst = out + (frame * h_out + r_first) * w_out;
+
+  if constexpr (VEC16) {
+    // lane l moves 16 bytes of row l / 8, columns 16 * (l % 8) on
+    uint32_t* words_in = reinterpret_cast<uint32_t*>(s_io[warp][0]);
+    uint32_t* words_out = reinterpret_cast<uint32_t*>(s_io[warp][1]);
+    const int lr = lane / 8;
+    const int lc = wc0 + (lane % 8) * 16;
+    const bool mover = lc < w_out;  // w_out is a multiple of 16
+    for (int i0 = 0; i0 < rows; i0 += GROUP_ROWS) {
+      const bool row_in = i0 + lr < rows;
+      if (mover && row_in)
+        s_io[warp][0][lane] =
+            __ldg(reinterpret_cast<const uint4*>(src + static_cast<long long>(i0 + lr) * width + lc));
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < GROUP_ROWS; ++k) {
+        if (i0 + k < rows && c0 < w_out)
+          words_out[k * 32 + lane] = blend_word(words_in[k * 32 + lane], tab, s_rows[i0 + k], cols);
+      }
+      __syncwarp();
+      if (mover && row_in)
+        *reinterpret_cast<uint4*>(dst + static_cast<long long>(i0 + lr) * w_out + lc) = s_io[warp][1][lane];
+      __syncwarp();
+    }
+  } else {
+    if (c0 >= w_out) return;
+    for (int i = 0; i < rows; ++i) {
+      const uint8_t* p = src + static_cast<long long>(i) * width + c0;
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < BLEND_PIXELS; ++j)
+        if (c0 + j < w_out) word |= static_cast<uint32_t>(__ldg(p + j)) << (8 * j);
+      const uint32_t o = blend_word(word, tab, s_rows[i], cols);
+      uint8_t* q = dst + static_cast<long long>(i) * w_out + c0;
+#pragma unroll
+      for (int j = 0; j < BLEND_PIXELS; ++j)
+        if (c0 + j < w_out) q[j] = static_cast<uint8_t>(o >> (8 * j));
+    }
+  }
+}
+
+template <bool SHARED, bool VEC16>
+cudaError_t launch_blend(dim3 grid, int shared_bytes, cudaStream_t s, const uint8_t* in, uint8_t* out,
+                         const uint8_t* luts, const int* y0, const int* y1, const float* fy,
+                         const int* x0, const int* x1, const float* fx, int height, int width,
+                         int h_out, int w_out, int gh, int gw) {
+  auto kernel = clahe_blend_kernel<SHARED, VEC16>;
+  if (shared_bytes > 32 * 1024) {  // with the static 8.4 KB, above the default 48 KB
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, THREADS, shared_bytes, s>>>(in, out, luts, y0, y1, fy, x0, x1, fx, height, width, h_out,
+                                             w_out, gh, gw);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -198,13 +329,19 @@ extern "C" int yam_tile_histogram_u8(const void* in, void* out, int n, int heigh
 
 // in: (n, height, width) uint8, contiguous; out: (n, h_out, w_out) uint8;
 // luts: (n, gh, gw, 256) uint8; y0, y1 (int32) and fy (f32) hold h_out
-// entries, x0, x1 and fx w_out.  vec: 4 or 1 pixels a thread.
+// entries, x0, x1 and fx w_out.  band_rows and span_cols must be this
+// source's BLEND_ROWS and BLEND_COLS.  shared_bytes: the dynamic shared
+// memory of a block, enough for the largest window of tables a band and
+// span touch, or 0 to read the tables from global memory.  vec: 16 when
+// the frames, their width and w_out allow 16-byte words, else 1.
 extern "C" int yam_clahe_blend_u8(const void* in, void* out, const void* luts, const void* y0,
                                   const void* y1, const void* fy, const void* x0, const void* x1,
                                   const void* fx, int n, int height, int width, int h_out,
-                                  int w_out, int gh, int gw, int vec, void* stream) {
-  const int per_block = THREADS * vec;
-  const dim3 grid((w_out + per_block - 1) / per_block, h_out, n);
+                                  int w_out, int gh, int gw, int band_rows, int span_cols,
+                                  int shared_bytes, int vec, void* stream) {
+  if (band_rows != BLEND_ROWS || span_cols != BLEND_COLS || shared_bytes < 0 || (vec != 16 && vec != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((w_out + BLEND_COLS - 1) / BLEND_COLS, (h_out + BLEND_ROWS - 1) / BLEND_ROWS, n);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* src = static_cast<const uint8_t*>(in);
   auto* dst = static_cast<uint8_t*>(out);
@@ -215,13 +352,11 @@ extern "C" int yam_clahe_blend_u8(const void* in, void* out, const void* luts, c
   const auto* cx0 = static_cast<const int*>(x0);
   const auto* cx1 = static_cast<const int*>(x1);
   const auto* cfx = static_cast<const float*>(fx);
-  if (vec == 4)
-    clahe_blend_kernel<4><<<grid, THREADS, 0, s>>>(src, dst, tables, ry0, ry1, rfy, cx0, cx1,
-                                                   cfx, height, width, h_out, w_out, gh, gw);
-  else if (vec == 1)
-    clahe_blend_kernel<1><<<grid, THREADS, 0, s>>>(src, dst, tables, ry0, ry1, rfy, cx0, cx1,
-                                                   cfx, height, width, h_out, w_out, gh, gw);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const auto go = [&](auto launch) {
+    return static_cast<int>(launch(grid, shared_bytes, s, src, dst, tables, ry0, ry1, rfy, cx0, cx1, cfx,
+                                   height, width, h_out, w_out, gh, gw));
+  };
+  if (shared_bytes > 0)
+    return vec == 16 ? go(launch_blend<true, true>) : go(launch_blend<true, false>);
+  return vec == 16 ? go(launch_blend<false, true>) : go(launch_blend<false, false>);
 }

@@ -228,6 +228,44 @@ def clahe_blend_plain(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> to
     return to_uint8(out)
 
 
+#: a blend block's band of output rows and span of columns (``csrc/clahe.cu``:
+#: BLEND_ROWS, BLEND_COLS), checked there
+BLEND_ROWS, BLEND_COLS = 32, 1024
+#: room kept for the kernel's own shared memory (8.4 KB: the rows' offsets,
+#: each warp's 4 rows in and out)
+_BLEND_STATIC_SHARED = 16 * 1024
+
+
+def blend_table_bytes(h: int, w: int, grid: Tuple[int, int]) -> int:
+    """Shared memory that one blend block stages for ``(h, w)`` frames
+    padded to ``grid``: the corner tables that a band of
+    :data:`BLEND_ROWS` rows and a span of :data:`BLEND_COLS` columns can
+    touch.  ``r`` rows reach at most ``(r - 1) // th + 2`` tile rows (tile
+    ``y0`` of the first to ``y1`` of the last); one more for rounding."""
+
+    gh, gw = grid
+    th, tw = h // gh, w // gw
+    rows = min(gh, (BLEND_ROWS - 1) // th + 3)
+    cols = min(gw, (BLEND_COLS - 1) // tw + 3)
+    return rows * cols * 256
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_optin(device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def blend_shared_bytes(y: torch.Tensor, luts: torch.Tensor) -> int:
+    """The blend's dynamic shared memory for these frames and tables on the
+    card, or 0 where the tables do not fit a block: the instance that reads
+    them from global memory."""
+
+    gh, gw = luts.shape[1:3]
+    need = blend_table_bytes(y.shape[1], y.shape[2], (gh, gw))
+    room = _shared_optin(y.device) - _BLEND_STATIC_SHARED
+    return need if need <= room and luts.data_ptr() % 16 == 0 else 0
+
+
 def clahe_blend(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Tensor:
     """Blend each pixel's four corner tables: ``(B, H, W)`` uint8 frames
     padded to the grid of the ``(B, gh, gw, 256)`` uint8 tables, and the
@@ -264,7 +302,7 @@ def clahe_blend(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Te
     if h_out > _MAX_GRID_YZ:
         raise ValueError(f"clahe_blend takes at most {_MAX_GRID_YZ} output rows, got {h_out}")
     out = torch.empty((b, h_out, w_out), dtype=torch.uint8, device=y.device)
-    vec = 4 if (y.data_ptr() % 4 == 0 and y.shape[2] % 4 == 0 and w_out % 4 == 0) else 1
+    vec = 16 if (y.data_ptr() % 16 == 0 and y.shape[2] % 16 == 0 and w_out % 16 == 0) else 1
     _build.launch(
         "yam_clahe_blend_u8",
         y.device,
@@ -284,6 +322,9 @@ def clahe_blend(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Te
         w_out,
         gh,
         gw,
+        BLEND_ROWS,
+        BLEND_COLS,
+        blend_shared_bytes(y, luts),
         vec,
     )
     clahe_blend.launches += 1
@@ -324,7 +365,11 @@ def clahe(y: torch.Tensor, clip_limit: float = 40.0, grid: Tuple[int, int] = (8,
 
 
 __all__ = [
+    "BLEND_COLS",
+    "BLEND_ROWS",
     "Interp",
+    "blend_shared_bytes",
+    "blend_table_bytes",
     "clahe",
     "clahe_blend",
     "clahe_blend_plain",

@@ -28,6 +28,8 @@ import torch.nn.functional as F
 from yamimageprocessor_tpu_torch import _build
 
 SENTINEL = 1 << 30
+#: the kernel's tile (``csrc/labeling.cu``: TILE_ROWS, TILE_COLS), checked there
+TILE_ROWS, TILE_COLS = 32, 64
 
 
 def _frame_index(shape, device) -> torch.Tensor:
@@ -73,7 +75,11 @@ def cc_min_index(fg: torch.Tensor) -> torch.Tensor:
     lab = torch.empty(fg.shape, dtype=torch.int32, device=fg.device)
     if fg.numel() == 0:
         return lab
-    _build.launch("yam_cc_min_index", fg.device, fg.data_ptr(), lab.data_ptr(), n, h, w)
+    # a flag a tile: which tiles the border merges relinked
+    dirty = torch.empty(n * -(-h // TILE_ROWS) * -(-w // TILE_COLS), dtype=torch.uint8, device=fg.device)
+    _build.launch(
+        "yam_cc_min_index", fg.device, fg.data_ptr(), lab.data_ptr(), dirty.data_ptr(), n, h, w, TILE_ROWS, TILE_COLS
+    )
     cc_min_index.launches += 1
     return lab
 
@@ -116,6 +122,8 @@ def label_seeds(fg: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "SENTINEL",
+    "TILE_COLS",
+    "TILE_ROWS",
     "cc_min_index",
     "cc_min_index_plain",
     "label",

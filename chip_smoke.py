@@ -4,7 +4,7 @@ main paths once each: the flagship preprocess chain, the segmentation
 chain and the batched CLAHE chain.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --times-of DIR   # CC and the blend of the port in checkout DIR
+    python3 chip_smoke.py --times-of DIR   # CC, the blend and histogram256 of the port in checkout DIR
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -26,12 +26,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    segmentation chain's sure foreground and opening, 55% noise, a spiral,
    an all-foreground frame, a checkerboard, ragged frames and a batch of 8
    scenes' sure foregrounds; the blend also where a band straddles tile
-   rows, at grid 64 and on odd widths); then each
+   rows, at grid 64 and on odd widths; histogram256 on the main paths'
+   inputs, lengths 1, 15, 17 and 2^20+3, a base 1 byte past alignment and
+   a mixed batch; and histogram256, lut_apply, the tile histograms and the
+   blend past 65535 frames or rows); then each
    kernel's, its plain version's and (where one PyTorch call computes the
    same function) that call's device time, the distance kernel's at each
    chunk size and on its worst cases, CC's on each of its timed masks,
    sepconv's on the CLAHE path's
-   interleaved batch, and the flood's sweeps, levels
+   interleaved batch, histogram256's (and bincount's on each single
+   frame) on each main-path input (the flagship batch after the Gaussian,
+   uniform bytes, the segmentation scene, its closed mask, a constant
+   frame), the device time of an empty launch, and the flood's sweeps, levels
    visited and share of tiles swept, its time on the batch and on the
    single-marker frame at 2048^2;
 4. flagship: the flagship chain (Gaussian 5x5 -> histogram equalization
@@ -44,8 +50,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    watershed) on ``_dense_scene(2048, seed=3)`` through
    ``segmentation_forward`` and the pipeline manager, against the digest
    of the JAX package's output, and at 512^2 against the port's CPU run;
-   the flood's sweep count, frames/s over 12 frames back to back and the
-   time per frame;
+   the flood's sweep count, frames/s over 12 frames back to back, the
+   time per frame and its kernels and device time by kernel from
+   ``torch.profiler``;
 6. clahe: the batched CLAHE chain (Gaussian 5x5 -> CLAHE, clip 2.0, grid 4
    -> the mean of R and G; ``bench.py:_extra_batched_clahe``) on a 64 x
    1024^2 BGR batch through the chain runner and the pipeline manager,
@@ -62,10 +69,12 @@ read just after; a kernel of the path that did not launch fails the run.
 The digests come from ``scripts/torch_port_digests.py`` (the JAX package
 on a CPU).  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  With
-``--times-of DIR`` the script only times CC and the blend of the port in
-checkout DIR (an older one, unpacked with ``git archive``) on the same
-inputs, and prints SHA-256 digests of their outputs: run it on two
-checkouts in one call to compare their kernels.  Nothing falls
+``--times-of DIR`` the script only times CC, the blend and histogram256 of
+the port in checkout DIR (an older one, unpacked with ``git archive``) on
+the same inputs, prints SHA-256 digests of their outputs, an empty
+launch's time, and the kernels a call and the back-to-back time of the
+flagship and segmentation chains: run it on two checkouts in one call to
+compare them.  Nothing falls
 back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
@@ -89,6 +98,10 @@ SEG_FRAMES = 12
 FLOOD_BATCH = 8
 CC_BATCH = 8
 CC_MAIN = "scene sure foreground 2048^2"  # label_seeds' input on the segmentation path
+HIST_MAIN = "flagship Gaussian (8,2048^2)"  # equalization's input on the flagship path
+HIST_ONE = "uniform 2048^2"  # the single frame library_ms is timed on
+F7_FRAMES = 70_000  # past the 65535 frames one grid dimension takes
+F7_TILES = 65_600
 CLAHE_SHAPE = (64, 1024, 1024, 3)
 CLAHE_1000_SHAPE = (4, 1000, 1000, 3)  # tiles of 250 px: non-dyadic fractions
 CLAHE_CPU_SHAPE = (3, 120, 100, 3)
@@ -416,29 +429,123 @@ def time_cc_and_blend(cc_cases: dict, blend: tuple) -> dict:
     return times
 
 
+def histogram_cases(dev) -> dict:
+    """The frames histogram256 is timed on, each ``(N, L)`` uint8: the
+    flagship chain's (its batch after the Gaussian), uniform bytes (the
+    flagship input), the segmentation chain's two (the scene, for Otsu,
+    and the closed mask, for the markers' Otsu), and a constant frame."""
+
+    from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
+    from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
+
+    _, dyn = get_impl("preprocessing.noise_reduction").split({"method": "Gaussian", "ksize": 5})
+    t5 = dyn_to_torch(dyn, dev)["taps"]
+    images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, FLAGSHIP_SHAPE, dtype=np.uint8)).to(dev)
+    scene = torch.from_numpy(dense_scene(SEG_SIDE)).to(dev)[None]
+    n = FLAGSHIP_SHAPE[0]
+    return {
+        HIST_MAIN: sep_filter_u8(images, t5, t5).view(n, -1),
+        "uniform (8,2048^2)": images.view(n, -1),
+        "scene 2048^2": scene.view(1, -1),
+        "closed mask 2048^2": _closed_mask(scene).reshape(1, -1).contiguous(),
+        "constant 2048^2": torch.full((1, SEG_SIDE * SEG_SIDE), 77, dtype=torch.uint8, device=dev),
+        HIST_ONE: images[:1].view(1, -1),
+    }
+
+
+def empty_launch_ms(dev):
+    """Device ms of an empty kernel launched through ``_build.launch``: the
+    fixed cost of a launch (None for a checkout without one)."""
+
+    from yamimageprocessor_tpu_torch import _build
+
+    if "yam_empty" not in _build.SIGNATURES:
+        return None
+    return time_ms(lambda: _build.launch("yam_empty", dev))
+
+
+#: substrings of the kernels' names in a profiler trace, by group
+_FLAGSHIP_GROUPS = {
+    "sepconv_": "sepconv",
+    "histogram256_kernel": "histogram256",
+    "lut_apply_kernel": "lut_apply",
+}
+_SEG_GROUPS = {
+    "histogram256_kernel": "histogram256",
+    "chamfer_kernel": "distance",
+    "cc_local": "cc",
+    "cc_border": "cc",
+    "cc_compress": "cc",
+    "flood_kernel": "flood",
+}
+_CLAHE_GROUPS = {
+    "sepconv_": "sepconv",
+    "tile_histogram_kernel": "tile_histogram",
+    "clahe_blend_kernel": "clahe_blend",
+}
+
+
+def chain_profiles(dev) -> dict:
+    """Kernels a call and device ms by group of the flagship chain (a batch)
+    and the segmentation chain (a frame), from ``torch.profiler``, and the
+    ms a call of each back to back (the segmentation chain on one scene)."""
+
+    from yamimageprocessor_tpu_torch.models.stages import flagship_chain, segmentation_chain
+
+    images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, FLAGSHIP_SHAPE, dtype=np.uint8)).to(dev)
+    fn, dyn = flagship_chain(FLAGSHIP_SHAPE, dev)
+    scene = torch.from_numpy(dense_scene(SEG_SIDE)).to(dev)[None]
+    seg_fn, seg_dyn = segmentation_chain(scene.shape, dev)
+    profiles = {
+        "flagship": chain_profile(lambda: fn(images, dyn), _FLAGSHIP_GROUPS),
+        "segmentation": chain_profile(lambda: seg_fn(scene, seg_dyn), _SEG_GROUPS),
+    }
+    profiles["flagship"]["back_to_back_ms"] = back_to_back_ms(lambda: fn(images, dyn))
+    profiles["segmentation"]["back_to_back_ms"] = back_to_back_ms(lambda: seg_fn(scene, seg_dyn), calls=SEG_FRAMES)
+    return profiles
+
+
 def times_of(root: str) -> None:
-    """Time CC and the blend of the port in the checkout ``root`` (an older
-    one, unpacked with ``git archive``) on :func:`cc_inputs` and the bench's
-    Y planes, and print the times with a SHA-256 of every output: two
-    checkouts whose digests agree computed the same function."""
+    """Time CC, the blend and histogram256 of the port in the checkout
+    ``root`` (an older one, unpacked with ``git archive``) on
+    :func:`cc_inputs`, the bench's Y planes and :func:`histogram_cases`,
+    and print the times with a SHA-256 of every output (two checkouts whose
+    digests agree computed the same function), an empty launch's time, and
+    the kernels a call and back-to-back time of the flagship and
+    segmentation chains."""
 
     sys.path.insert(0, root)
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     import yamimageprocessor_tpu_torch as port
+    from yamimageprocessor_tpu_torch import cuda_kernels as ck
     from yamimageprocessor_tpu_torch.ops.clahe import clahe_blend
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
 
     cc_cases = cc_inputs(dev)
     blend = blend_inputs(bench_y_planes(dev), (CLAHE_GRID, CLAHE_GRID), CLAHE_CLIP)
+    hist_cases = histogram_cases(dev)
     digests = {name: sha256(cc_min_index(fg)) for name, fg in cc_cases.items()}
     digests["clahe_blend"] = sha256(clahe_blend(*blend))
+    digests.update({f"histogram256 {name}": sha256(ck.histogram256_batch(f)) for name, f in hist_cases.items()})
     times = time_cc_and_blend(cc_cases, blend)
+    times.update({f"histogram256 {name}": time_ms(lambda f=f: ck.histogram256_batch(f)) for name, f in hist_cases.items()})
+    times["empty launch"] = empty_launch_ms(dev)
     for name, ms in times.items():
-        print(f"time {name}: {ms:.4f} ms")
+        print(f"time {name}: {ms if ms is None else f'{ms:.4f}'} ms")
+    profiles = chain_profiles(dev)
+    for name, split in profiles.items():
+        print_profile(name, split)
+        print(f"{name}: {split['back_to_back_ms']:.4f} ms a call back to back")
     print(f"card: {smi}")
-    print(json.dumps({"package": port.__file__, "times": times, "digests": digests}))
+    print(json.dumps({
+        "package": port.__file__,
+        "times": times,
+        "digests": digests,
+        "kernels_a_call": {name: split["kernels"] for name, split in profiles.items()},
+        "back_to_back_ms": {name: split["back_to_back_ms"] for name, split in profiles.items()},
+    }))
 
 
 def phase_kernels(dev) -> dict:
@@ -540,22 +647,30 @@ def phase_kernels(dev) -> dict:
           f"and 17 channels at k 3/5/7/13, {CLAHE_SHAPE} at k 5; asymmetric taps at k 3x3 to 13x9; the 1024^2 "
           f"frame at k {GAUSS_KSIZES} == the JAX package's digests")
 
-    constant = torch.full((2, 1000 * 1000), 77, dtype=torch.uint8, device=dev)
+    hist_cases = histogram_cases(dev)
+    mixed = torch.cat([hist_cases[k] for k in ("scene 2048^2", "closed mask 2048^2", "constant 2048^2")])
     for name, frames in (
         ("(8,2048,2048)", big.view(FLAGSHIP_SHAPE[0], -1)),
-        ("constant", constant),
+        ("constant (2,1000^2)", torch.full((2, 1000 * 1000), 77, dtype=torch.uint8, device=dev)),
         ("(3,37,1001)", odd.view(3, -1)),
         ("unaligned", unaligned((3, 37037))),
+        *hist_cases.items(),
+        ("scene, closed mask and constant in one batch", mixed),
+        *((f"length {k}", rand((3, k))) for k in (1, 15, 17, 2**20 + 3)),
+        ("length 2^20+3 base+1", unaligned((2, 2**20 + 3))),
+        (f"{F7_FRAMES} frames of 60", rand((F7_FRAMES, 60))),
     ):
         err["histogram256"] |= exact(
             f"histogram {name}", ck.histogram256_batch(frames), ck.histogram256_batch_plain(frames)
         )
-    print("kernels: histogram256 bit-exact on (8,2048,2048), constant, (3,37,1001), unaligned")
+    print(f"kernels: histogram256 bit-exact on (8,2048,2048), a constant pair, (3,37,1001), unaligned, "
+          f"{', '.join(hist_cases)}, a mixed batch, lengths 1/15/17/2^20+3, base+1, {F7_FRAMES} frames of 60")
 
     for name, frames in (
         ("(8,2048,2048)", big.view(FLAGSHIP_SHAPE[0], -1)),
         ("(3,37,1001)", odd.view(3, -1)),
         ("unaligned", unaligned((3, 37037))),
+        (f"{F7_FRAMES} frames of 60", rand((F7_FRAMES, 60))),
     ):
         n = frames.shape[0]
         for kind, luts in (("per-frame", rand((n, 256))), ("shared", rand((256,)))):
@@ -564,7 +679,8 @@ def phase_kernels(dev) -> dict:
                 ck.lut_apply_batch(frames, luts),
                 ck.lut_apply_batch_plain(frames, luts),
             )
-    print("kernels: lut_apply bit-exact, per-frame and shared tables, on (8,2048,2048), (3,37,1001), unaligned")
+    print(f"kernels: lut_apply bit-exact, per-frame and shared tables, on (8,2048,2048), (3,37,1001), unaligned, "
+          f"{F7_FRAMES} frames of 60")
 
     scene = torch.from_numpy(dense_scene(SEG_SIDE)).to(dev)[None]
     closed = _closed_mask(scene)  # the main path's watershed input
@@ -683,10 +799,15 @@ def phase_kernels(dev) -> dict:
         err["tile_histogram"] |= exact(
             f"tile_histogram {name}", CL.tile_histograms(y, grid), CL.tile_histograms_plain(y, grid)
         )
+    many = rand((F7_TILES, 8, 8))
+    err["tile_histogram"] |= exact(
+        f"tile_histogram ({F7_TILES},8,8) grid 2", CL.tile_histograms(many, (2, 2)), CL.tile_histograms_plain(many, (2, 2))
+    )
     if int(CL.tile_histograms(zeros, (2, 2))[..., 0].min()) != 512 * 512:
         raise AssertionError("tile_histogram: a constant tile must put all its 512^2 pixels in one bin")
     print("kernels: tile_histogram bit-exact on the bench's Y planes (64,1024,1024) at grid 4, grid 64, "
-          "odd tiles (3,1000,999) at grid 7, constant 0 and 255 (one bin holds 512^2), unaligned")
+          "odd tiles (3,1000,999) at grid 7, constant 0 and 255 (one bin holds 512^2), unaligned, "
+          f"({F7_TILES},8,8) at grid 2")
 
     for name, y, grid, clip in (
         ("bench Y (64,1024,1024) grid 4 clip 2", y_bench, grid4, CLAHE_CLIP),
@@ -699,6 +820,8 @@ def phase_kernels(dev) -> dict:
         ("bands across tile rows (2,200,160) grid 5 clip 2", rand((2, 200, 160)), (5, 5), 2.0),
         ("tables from global memory (1,64,2040) grid 64 clip 2", rand((1, 64, 2040)), (64, 64), 2.0),
         ("(2,100,130) grid 1 clip 2", rand((2, 100, 130)), (1, 1), 2.0),
+        (f"({F7_TILES},8,8) grid 2 clip 2", many, (2, 2), 2.0),
+        (f"(1,{F7_TILES},16) grid 2 clip 2", rand((1, F7_TILES, 16)), (2, 2), 2.0),
     ):
         work, luts, interp = blend_inputs(y, grid, clip)
         if name.startswith("tables from global memory") and CL.blend_shared_bytes(work, luts):
@@ -714,14 +837,17 @@ def phase_kernels(dev) -> dict:
             )
     print("kernels: clahe_blend bit-exact on the bench's Y planes, 1000^2 at grids 4 and 2, 300x200 at grid 5 "
           "(clip 0), grid 64, (3,1000,999) at grid 7 (odd tiles, cropped), random tables, unaligned, bands "
-          "across tile rows, tables from global memory, grid 1")
+          "across tile rows, tables from global memory, grid 1, "
+          f"({F7_TILES},8,8) and (1,{F7_TILES},16) at grid 2")
 
     flat = big.view(FLAGSHIP_SHAPE[0], -1)
     luts = rand((FLAGSHIP_SHAPE[0], 256))
-    one = flat[:1]
     times = {
         "sepconv": paired_ms(lambda: sep_filter_u8(big, t5, t5), lambda: sep_filter_u8_plain(big, t5, t5)),
-        "histogram256": paired_ms(lambda: ck.histogram256_batch(flat), lambda: ck.histogram256_batch_plain(flat)),
+        "histogram256": paired_ms(
+            lambda: ck.histogram256_batch(hist_cases[HIST_MAIN]),
+            lambda: ck.histogram256_batch_plain(hist_cases[HIST_MAIN]),
+        ),
         "lut_apply": paired_ms(lambda: ck.lut_apply_batch(flat, luts), lambda: ck.lut_apply_batch_plain(flat, luts)),
         "distance": paired_ms(
             lambda: distance_transform(opening), lambda: distance_transform_plain(opening), plain_runs=3
@@ -744,10 +870,15 @@ def phase_kernels(dev) -> dict:
         plain_runs=3,
     )
     del bgr_bench
-    library = {
-        "histogram256": time_ms(lambda: torch.bincount(one.view(-1), minlength=256)),
-    }
-    hist_one_ms = time_ms(lambda: ck.histogram256_batch(one))
+    # histogram256 on every main-path input: kernel and plain (paired), and
+    # bincount on each single frame; and the fixed cost of a launch
+    hist_times = {}
+    for name, frames in hist_cases.items():
+        k, p = paired_ms(lambda f=frames: ck.histogram256_batch(f), lambda f=frames: ck.histogram256_batch_plain(f))
+        lib = time_ms(lambda f=frames: torch.bincount(f.view(-1), minlength=256)) if frames.shape[0] == 1 else None
+        hist_times[name] = {"ms": k, "plain_ms": p, "library_ms": lib}
+    library = {"histogram256": hist_times[HIST_ONE]["library_ms"]}
+    floor_ms = empty_launch_ms(dev)
     # the flood's event pair against the profiler's sum of its kernels (the
     # cooperative launch and the few small torch ops around it)
     flood_device_ms = profiled_device_ms(lambda: flood(closed, markers))
@@ -774,8 +905,10 @@ def phase_kernels(dev) -> dict:
     for name, masks in worst.items():
         ms = time_ms(lambda: distance_transform(masks), runs=5)
         print(f"time distance {name} 2048^2, {ROWS_PER_CHUNK} rows a chunk: {ms:.4f} ms")
-    print(f"time histogram256 on one 2048^2 frame: kernel {hist_one_ms:.4f} ms, "
-          f"torch.bincount {library['histogram256']:.4f} ms")
+    for name, t in hist_times.items():
+        lib = "" if t["library_ms"] is None else f", torch.bincount {t['library_ms']:.4f} ms"
+        print(f"time histogram256 {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}")
+    print(f"time empty launch through _build.launch: {floor_ms:.4f} ms")
     print(f"time flood: event pair {times['flood'][0]:.4f} ms, {flood_device_ms} ms of device time by the "
           f"profiler; {sweeps} sweeps, {levels} levels visited, {swept} tiles of {TILE_ROWS}x{TILE_COLS} swept "
           f"= {100 * flood_stats['tile_share']:.1f}% of sweeps x tiles; bytes of the tiles swept "
@@ -814,7 +947,9 @@ def phase_kernels(dev) -> dict:
         "times": times,
         "library": library,
         "bounds": bounds,
-        "hist_one_ms": hist_one_ms,
+        "hist_times": hist_times,
+        "hist_bound_one_ms": bound_ms(n_seg + 256 * 4)[0],
+        "empty_launch_ms": floor_ms,
         "case_times": case_times,
         "blend_shared_bytes": CL.blend_shared_bytes(work, luts),
         "flood_device_ms": flood_device_ms,
@@ -950,20 +1085,8 @@ def phase_segmentation(dev) -> dict:
         f"= {1e3 / loop_ms:.2f} frames/s; {frame_ms:.4f} ms per call on the seed-3 scene "
         f"(event pair behind a queued sleep)"
     )
+    print_profile("segmentation", chain_profile(lambda: fn(x, dyn), _SEG_GROUPS))
     return run["launches"]
-
-
-#: substrings of the kernels' names in a profiler trace, by group
-_FLAGSHIP_GROUPS = {
-    "sepconv_": "sepconv",
-    "histogram256_kernel": "histogram256",
-    "lut_apply_kernel": "lut_apply",
-}
-_CLAHE_GROUPS = {
-    "sepconv_": "sepconv",
-    "tile_histogram_kernel": "tile_histogram",
-    "clahe_blend_kernel": "clahe_blend",
-}
 
 
 def chain_profile(fn, groups: dict, runs: int = 3) -> dict:
@@ -997,7 +1120,8 @@ def chain_profile(fn, groups: dict, runs: int = 3) -> dict:
 
 
 def print_profile(name: str, split: dict) -> None:
-    print(f"{name} profile: {split['kernels']:.0f} kernels a batch; device ms a batch "
+    unit = "a frame" if name == "segmentation" else "a batch"
+    print(f"{name} profile: {split['kernels']:.0f} kernels {unit}; device ms {unit} "
           + ", ".join(f"{g} {t:.4f}" for g, t in split["device_ms"].items()))
     for t, kernel in split["other_top"]:
         print(f"  other {t:9.4f} ms  {kernel}")
@@ -1073,7 +1197,8 @@ def main() -> None:
         ("sepconv", "yamimageprocessor_tpu_torch/csrc/sepconv.cu", "yamimageprocessor_tpu/ops/sepconv_pallas.py:118",
          "no single call: conv2d takes float input and needs a separate pad and a rounding cast"),
         ("histogram256", "yamimageprocessor_tpu_torch/csrc/lut_hist.cu", "yamimageprocessor_tpu/pallas_kernels.py:585",
-         "torch.bincount on one 2048^2 frame (the Otsu shape); the kernel on that frame: ms_one_frame"),
+         f"torch.bincount on one {HIST_ONE} frame (the Otsu shape); ms: the flagship batch after the Gaussian; "
+         "by_input: every main-path input"),
         ("lut_apply", "yamimageprocessor_tpu_torch/csrc/lut_hist.cu", "yamimageprocessor_tpu/pallas_kernels.py:161",
          "no single call: every PyTorch table read needs an int64 copy of the uint8 frames first"),
         ("distance", "yamimageprocessor_tpu_torch/csrc/distance.cu", "yamimageprocessor_tpu/ops/distance_pallas.py:219",
@@ -1108,7 +1233,9 @@ def main() -> None:
         if name == "sepconv":
             entry.update(kern["sepconv_clahe"])
         if name == "histogram256":
-            entry["ms_one_frame"] = kern["hist_one_ms"]
+            entry["by_input"] = kern["hist_times"]
+            entry["bound_ms_one_frame"] = kern["hist_bound_one_ms"]
+            entry["empty_launch_ms"] = kern["empty_launch_ms"]
         if name == "cc":
             entry["case_ms"] = {k[3:]: v for k, v in kern["case_times"].items() if k.startswith("cc ")}
         if name == "clahe_blend":

@@ -596,3 +596,37 @@ def test_cuda_clahe_wrappers_refuse_bad_input():
         CL.clahe_blend(y, luts.float(), interp)
     with pytest.raises(ValueError):
         CL.clahe_blend(y, luts, CL.interp_tensors(64, 64, (4, 4), 64, 64, torch.device("cpu")))
+
+
+def _blend_case(y, grid, clip=2.0):
+    grid2 = (grid, grid)
+    work = CL.pad_to_grid(y, grid2)
+    h, w = work.shape[1:]
+    luts = CL.clip_and_lut(CL.tile_histograms_plain(work, grid2), clip, (h // grid) * (w // grid)).to(torch.uint8)
+    return work, luts, CL.interp_tensors(h, w, grid2, y.shape[1], y.shape[2], y.device)
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("shape", [(65_600, 8, 8), (1, 65_600, 16)], ids=["65600-frames", "65600-rows"])
+def test_cuda_tile_histograms_and_blend_take_past_65535_frames_and_rows(shape):
+    y = _card_frames(shape, 3)
+    _same(CL.tile_histograms(y, (2, 2)), CL.tile_histograms_plain(y, (2, 2)).cpu())
+    work, luts, interp = _blend_case(y, 2)
+    _same(CL.clahe_blend(work, luts, interp), CL.clahe_blend_plain(work, luts, interp).cpu())
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("shape", [(7, 64, 48), (2, 200, 64), (1, 333, 40)])
+def test_cuda_blend_and_tile_histograms_in_slices(monkeypatch, shape):
+    """Slices of 3 frames and of 3 bands of 32 rows (the limit lowered from
+    65535): the launches of a call must tile the batch exactly."""
+
+    monkeypatch.setattr(CL, "_MAX_GRID_YZ", 3)
+    work, luts, interp = _blend_case(_card_frames(shape, 5), 4, 40.0)
+    _same(CL.tile_histograms(work, (4, 4)), CL.tile_histograms_plain(work, (4, 4)).cpu())
+    before = CL.clahe_blend.launches
+    got = CL.clahe_blend(work, luts, interp)
+    assert CL.clahe_blend.launches == before + 1
+    _same(got, CL.clahe_blend_plain(work, luts, interp).cpu())

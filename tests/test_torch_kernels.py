@@ -358,6 +358,106 @@ def test_cuda_histogram_and_lut_match_plain(shape, offset):
     _same(ck.lut_apply_batch(frames, luts[0]), ck.lut_apply_batch_plain(frames, luts[0]).cpu())
 
 
+F7_FRAMES = 70_000  # past the 65535 frames one grid dimension takes
+
+
+@cuda
+@needs_card
+def test_cuda_histogram_and_lut_take_70000_frames():
+    frames = _card_frames((F7_FRAMES, 60), 3, 0)
+    _same(ck.histogram256_batch(frames), ck.histogram256_batch_plain(frames).cpu())
+    luts = _card_frames((F7_FRAMES, 256), 4, 0)
+    _same(ck.lut_apply_batch(frames, luts), ck.lut_apply_batch_plain(frames, luts).cpu())
+    _same(ck.lut_apply_batch(frames, luts[9]), ck.lut_apply_batch_plain(frames, luts[9]).cpu())
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("per_frame", [True, False])
+def test_cuda_lut_apply_in_slices(monkeypatch, per_frame):
+    """Slices of 7 frames (the limit lowered from 65535)."""
+
+    monkeypatch.setattr(ck, "_MAX_GRID_Y", 7)
+    frames = _card_frames((20, 999), 5, 1)
+    luts = _card_frames((20, 256) if per_frame else (256,), 6, 0)
+    before = ck.lut_apply_batch.launches
+    _same(ck.lut_apply_batch(frames, luts), ck.lut_apply_batch_plain(frames, luts).cpu())
+    assert ck.lut_apply_batch.launches == before + 1
+
+
+def _hot_frames(kind: str) -> torch.Tensor:
+    """Frames whose levels are hot: one level, two levels in long runs, a
+    few levels in noise, and 13 levels in short runs."""
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    side = 2048
+    if kind == "constant":
+        return torch.full((1, side * side), 77, dtype=torch.uint8, device="cuda")
+    if kind == "two levels in runs":
+        rows = torch.rand((side, 1), generator=gen, device="cuda") < 0.4
+        return (rows.expand(side, side).to(torch.uint8) * 255).reshape(1, -1)
+    if kind == "13 levels":
+        return (torch.randint(0, 13, (2, side * side), generator=gen, device="cuda")).to(torch.uint8)
+    return (torch.randint(0, 3, (3, 50_001), generator=gen, device="cuda") * 100).to(torch.uint8)
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("kind", ["constant", "two levels in runs", "13 levels", "3 levels"])
+def test_cuda_histogram_on_hot_levels_and_again(kind):
+    """Exact on hot levels, and again: each call adds into the output the
+    call before zeroed."""
+
+    frames = _hot_frames(kind)
+    want = ck.histogram256_batch_plain(frames).cpu()
+    for _ in range(3):
+        _same(ck.histogram256_batch(frames), want)
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("length", [1, 15, 17, 16 * 1024, 16 * 1024 + 16, 2**20 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3])
+def test_cuda_histogram_lengths_and_offsets(n, length, offset):
+    frames = _card_frames((n, length), length + offset, offset)
+    before = ck.histogram256_batch.launches
+    _same(ck.histogram256_batch(frames), ck.histogram256_batch_plain(frames).cpu())
+    assert ck.histogram256_batch.launches == before + 1
+
+
+@cuda
+@needs_card
+def test_cuda_histogram_as_the_number_of_frames_changes():
+    """A call with another number of frames than the one before zeroes its
+    own output; the next call with the same number takes the zeroed one."""
+
+    frames = _card_frames((8, 2048 * 2048), 12, 0)
+    wants = {n: ck.histogram256_batch_plain(frames[:n]).cpu() for n in (1, 3, 8)}
+    for n in (1, 8, 8, 1, 1, 3, 8, 3):
+        _same(ck.histogram256_batch(frames[:n]), wants[n])
+
+
+@cuda
+@needs_card
+def test_cuda_histogram_on_two_streams():
+    """Each stream has its own zeroed output for the next call: calls in
+    flight at once on two streams do not share one."""
+
+    frames = [_card_frames((2, 2048 * 2048), s, 0) for s in (10, 11)]
+    wants = [ck.histogram256_batch_plain(f).cpu() for f in frames]
+    streams = [torch.cuda.Stream() for _ in frames]
+    torch.cuda.synchronize()
+    outs = []
+    for stream, f in zip(streams, frames):
+        with torch.cuda.stream(stream):
+            outs.append([ck.histogram256_batch(f) for _ in range(4)])
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        for g in got:
+            _same(g, want)
+
+
 @cuda
 @needs_card
 def test_cuda_wrappers_count_launches_and_refuse_bad_input():

@@ -51,8 +51,10 @@ _L = ctypes.c_longlong
 SIGNATURES: Dict[str, Tuple] = {
     "yam_sepconv_u8_max_channels": (_I, _I, ctypes.POINTER(_I)),
     "yam_sepconv_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "yam_histogram256_u8": (_P, _P, _L, _I, _I, _P),
+    "yam_histogram256_resident_blocks": (ctypes.POINTER(_I),),
+    "yam_histogram256_u8": (_P, _P, _P, _L, _I, _I, _P),
     "yam_lut_apply_u8": (_P, _P, _P, _L, _L, _I, _I, _P),
+    "yam_empty": (_P,),
     "yam_chamfer_resident_blocks": (_I, ctypes.POINTER(_I)),
     "yam_chamfer_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "yam_cc_min_index": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -7,20 +7,35 @@ needed bit-plane counters and select trees because it has no scatter and
 no per-lane table read; the card has both, so the kernels count with
 shared-memory atomics and read the table directly.
 
-Both wrappers take frames flattened to ``(N, L)``.  For a CUDA tensor they
-launch the kernel (counted in ``<wrapper>.launches``) or raise; for a CPU
-tensor they run the plain version.  :mod:`.ops.lutops` shapes images for
-them.
+Both wrappers take frames flattened to ``(N, L)``, any N.  For a CUDA
+tensor they launch the kernel (counted in ``<wrapper>.launches``) or
+raise; for a CPU tensor they run the plain version.  :mod:`.ops.lutops`
+shapes images for them.
+
+The histogram is one launch a call.  :func:`plan` spreads each frame over
+``chunks`` blocks, sized from the blocks the card holds at once.  Where a
+frame takes more than one, the blocks add their counts into an output
+that is already zero: the wrapper keeps, for each device and stream, the
+output of the next such call, which the kernel zeroes while it counts
+(the first call, or one with another number of frames, zeroes its own
+with ``torch.zeros``).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 from yamimageprocessor_tpu_torch import _build
 
 _THREADS = 256
-#: bytes a block covers per pass of its grid-stride loop, times 8 passes
+#: 16-byte vectors a histogram thread loads before it counts (``csrc/lut_hist.cu``: UNROLL)
+_UNROLL = 4
+#: bytes a lookup block covers per pass of its grid-stride loop, times 8 passes
 _BYTES_PER_BLOCK = _THREADS * 16 * 8
+#: frames a lookup launch takes (its gridDim.y)
 _MAX_GRID_Y = 65535
 
 
@@ -28,13 +43,19 @@ def _blocks_per_frame(frame_len: int) -> int:
     return max(1, -(-frame_len // _BYTES_PER_BLOCK))
 
 
+def slices(total: int, limit: int) -> Iterator[Tuple[int, int]]:
+    """``(start, stop)`` pieces of ``range(total)``, each at most ``limit``
+    long: a batch larger than a grid dimension goes through in pieces."""
+
+    for start in range(0, total, limit):
+        yield start, min(total, start + limit)
+
+
 def _check_frames(name: str, frames: torch.Tensor) -> None:
     if frames.dtype != torch.uint8 or frames.ndim != 2:
         raise ValueError(f"{name} takes (N, L) uint8, got {tuple(frames.shape)} {frames.dtype}")
     if not frames.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
-    if frames.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"{name} takes at most {_MAX_GRID_Y} frames, got {frames.shape[0]}")
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +71,31 @@ def histogram256_batch_plain(frames: torch.Tensor) -> torch.Tensor:
     return torch.bincount(flat, minlength=256 * n).reshape(n, 256).to(torch.int32)
 
 
+def plan(n: int, frame_len: int, resident: int) -> int:
+    """Blocks a frame (``chunks``) for ``n`` frames of ``frame_len`` bytes on
+    a card that holds ``resident`` histogram blocks at once: enough that
+    the batch fills the card, but no chunk shorter than one load of every
+    thread (``_THREADS * _UNROLL`` vectors, 16 KiB), so that a frame that
+    fits one block's loads is one chunk."""
+
+    most = -(-(frame_len // 16) // (_THREADS * _UNROLL))
+    return max(1, min(-(-resident // n), most))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: torch.device) -> int:
+    blocks = ctypes.c_int(0)
+    _build.call("yam_histogram256_resident_blocks", device, ctypes.byref(blocks))
+    if blocks.value < 1:
+        raise RuntimeError(f"histogram256_batch: no block fits on {device}")
+    return blocks.value
+
+
+#: by (device, stream): the zeroed output of the next call that takes
+#: more than one chunk a frame (the kernel zeroes it while it counts)
+_zeroed: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
 def histogram256_batch(frames: torch.Tensor) -> torch.Tensor:
     """``(N, L)`` uint8 frames -> ``(N, 256)`` int32 level counts."""
 
@@ -59,19 +105,33 @@ def histogram256_batch(frames: torch.Tensor) -> torch.Tensor:
     n, frame_len = frames.shape
     if frame_len >= 2**31:
         raise ValueError("histogram256_batch counts in int32: frames must hold < 2**31 pixels")
-    out = torch.zeros((n, 256), dtype=torch.int32, device=frames.device)
-    if frames.numel() == 0:
-        return out
+    if n == 0 or frame_len == 0:
+        return torch.zeros((n, 256), dtype=torch.int32, device=frames.device)
+    chunks = plan(n, frame_len, _resident_blocks(frames.device))
+    nxt = None
+    if chunks == 1:
+        out = torch.empty((n, 256), dtype=torch.int32, device=frames.device)
+    else:
+        key = (frames.device, torch.cuda.current_stream(frames.device).cuda_stream)
+        out = _zeroed.pop(key, None)
+        if out is None or out.shape[0] != n:
+            out = torch.zeros((n, 256), dtype=torch.int32, device=frames.device)
+        nxt = torch.empty((n, 256), dtype=torch.int32, device=frames.device)
     _build.launch(
         "yam_histogram256_u8",
         frames.device,
         frames.data_ptr(),
         out.data_ptr(),
+        None if nxt is None else nxt.data_ptr(),
         frame_len,
         n,
-        _blocks_per_frame(frame_len),
+        chunks,
     )
     histogram256_batch.launches += 1
+    if nxt is not None:
+        # pooled only now that the launch that zeroes it is on the stream:
+        # whoever takes it next enqueues after that launch
+        _zeroed[key] = nxt
     return out
 
 
@@ -113,17 +173,19 @@ def lut_apply_batch(frames: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(frames)
     if frames.numel() == 0:
         return out
-    _build.launch(
-        "yam_lut_apply_u8",
-        frames.device,
-        frames.data_ptr(),
-        out.data_ptr(),
-        luts.data_ptr(),
-        frame_len,
-        0 if luts.ndim == 1 else 256,
-        n,
-        _blocks_per_frame(frame_len),
-    )
+    stride = 0 if luts.ndim == 1 else 256
+    for start, stop in slices(n, _MAX_GRID_Y):
+        _build.launch(
+            "yam_lut_apply_u8",
+            frames.device,
+            frames[start].data_ptr(),
+            out[start].data_ptr(),
+            luts.data_ptr() + start * stride,
+            frame_len,
+            stride,
+            stop - start,
+            _blocks_per_frame(frame_len),
+        )
     lut_apply_batch.launches += 1
     return out
 
@@ -136,4 +198,6 @@ __all__ = [
     "histogram256_batch_plain",
     "lut_apply_batch",
     "lut_apply_batch_plain",
+    "plan",
+    "slices",
 ]

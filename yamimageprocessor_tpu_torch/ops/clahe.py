@@ -31,8 +31,12 @@ import numpy as np
 import torch
 
 from yamimageprocessor_tpu_torch import _build
+from yamimageprocessor_tpu_torch.cuda_kernels import slices
 from yamimageprocessor_tpu_torch.ops.filters import convert, fma32, reflect101_index, to_uint8
 
+#: frames a launch takes (the histogram's gridDim.y, the blend's gridDim.z),
+#: and the blend's bands of output rows (its gridDim.y): larger batches and
+#: frames go through in slices
 _MAX_GRID_YZ = 65535
 #: blocks the histogram kernel aims for (132 SMs, several blocks each)
 _TARGET_BLOCKS = 2048
@@ -134,8 +138,6 @@ def _check_planes(name: str, y: torch.Tensor, grid: Tuple[int, int]) -> None:
         raise ValueError(f"{name}: grid {grid} does not fit frames of {tuple(y.shape[1:])}")
     if y.shape[1] % gh or y.shape[2] % gw:
         raise ValueError(f"{name}: frames {tuple(y.shape[1:])} are not padded to the grid {grid}")
-    if y.shape[0] > _MAX_GRID_YZ:
-        raise ValueError(f"{name} takes at most {_MAX_GRID_YZ} frames, got {y.shape[0]}")
 
 
 def tile_histograms_plain(y: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
@@ -176,19 +178,20 @@ def tile_histograms(y: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
     if y.numel() == 0:
         return out
     parts = min(th, max(1, -(-_TARGET_BLOCKS // (b * gh * gw))))
-    _build.launch(
-        "yam_tile_histogram_u8",
-        y.device,
-        y.data_ptr(),
-        out.data_ptr(),
-        b,
-        h,
-        w,
-        gh,
-        gw,
-        parts,
-        _vector_bytes(y, tw),
-    )
+    for start, stop in slices(b, _MAX_GRID_YZ):
+        _build.launch(
+            "yam_tile_histogram_u8",
+            y.device,
+            y[start].data_ptr(),
+            out[start].data_ptr(),
+            stop - start,
+            h,
+            w,
+            gh,
+            gw,
+            parts,
+            _vector_bytes(y, tw),
+        )
     tile_histograms.launches += 1
     return out
 
@@ -299,34 +302,40 @@ def clahe_blend(y: torch.Tensor, luts: torch.Tensor, interp: Interp) -> torch.Te
             raise ValueError(f"clahe_blend: {name} must be contiguous ({n},) {dtype} on {y.device}")
     if not (1 <= h_out <= y.shape[1] and 1 <= w_out <= y.shape[2]):
         raise ValueError(f"clahe_blend: output {h_out}x{w_out} outside frames of {tuple(y.shape[1:])}")
-    if h_out > _MAX_GRID_YZ:
-        raise ValueError(f"clahe_blend takes at most {_MAX_GRID_YZ} output rows, got {h_out}")
     out = torch.empty((b, h_out, w_out), dtype=torch.uint8, device=y.device)
     vec = 16 if (y.data_ptr() % 16 == 0 and y.shape[2] % 16 == 0 and w_out % 16 == 0) else 1
-    _build.launch(
-        "yam_clahe_blend_u8",
-        y.device,
-        y.data_ptr(),
-        out.data_ptr(),
-        luts.data_ptr(),
-        y0.data_ptr(),
-        y1.data_ptr(),
-        fy.data_ptr(),
-        x0.data_ptr(),
-        x1.data_ptr(),
-        fx.data_ptr(),
-        b,
-        y.shape[1],
-        y.shape[2],
-        h_out,
-        w_out,
-        gh,
-        gw,
-        BLEND_ROWS,
-        BLEND_COLS,
-        blend_shared_bytes(y, luts),
-        vec,
-    )
+    shared = blend_shared_bytes(y, luts)
+    # a launch takes _MAX_GRID_YZ frames of _MAX_GRID_YZ bands; taller
+    # frames go one at a time, in slices of whole bands (a slice starts at
+    # the frame's row r0 and at entry r0 of the row arrays)
+    band_limit = _MAX_GRID_YZ * BLEND_ROWS
+    frame_limit = _MAX_GRID_YZ if h_out <= band_limit else 1
+    for f0, f1 in slices(b, frame_limit):
+        for r0, r1 in slices(h_out, band_limit):
+            _build.launch(
+                "yam_clahe_blend_u8",
+                y.device,
+                y[f0, r0].data_ptr(),
+                out[f0, r0].data_ptr(),
+                luts[f0].data_ptr(),
+                y0[r0].data_ptr(),
+                y1[r0].data_ptr(),
+                fy[r0].data_ptr(),
+                x0.data_ptr(),
+                x1.data_ptr(),
+                fx.data_ptr(),
+                f1 - f0,
+                y.shape[1],
+                y.shape[2],
+                r1 - r0,
+                w_out,
+                gh,
+                gw,
+                BLEND_ROWS,
+                BLEND_COLS,
+                shared,
+                vec,
+            )
     clahe_blend.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its three
+"""Build and check the torch port on one CUDA card, then drive its five
 main paths once each: the flagship preprocess chain, the segmentation
-chain and the batched CLAHE chain.
+chain, the batched CLAHE chain, the denoise chain and the bilateral
+filter.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of DIR   # CC, the blend and histogram256 of the port in checkout DIR
@@ -12,7 +13,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    power limit;
 2. build: compiles ``yamimageprocessor_tpu_torch/csrc/*.cu`` with nvcc,
    one process per source;
-3. kernels: each of the eight CUDA kernels against its plain PyTorch version
+3. kernels: each of the ten CUDA kernels against its plain PyTorch version
    on the card, bit for bit, at the main paths' shapes and at awkward
    ones (sepconv at ksizes 1 to 33 on the flagship batch, on widths that
    are not a multiple of 16 and on frames whose base is 1 byte past
@@ -62,7 +63,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
    time, and the device time by kernel from ``torch.profiler`` (as for the
    flagship chain).  The frames
    come from ``np.random.default_rng(0)``, where the bench draws them with
-   ``jax.random``: the one deviation from the bench's config.
+   ``jax.random``: the one deviation from the bench's config;
+7. denoise: Grayscale -> Median 5 -> Sharpen 1.0 -> Normalize 0..255 ->
+   the crop preview at (512, 512, 1024, 1024) on an 8 x 2048^2 x 3 BGR
+   batch from ``np.random.default_rng(0)`` through the chain runner and
+   the pipeline manager, against the digest of the JAX package's output and
+   the port's CPU run on frames 0-1; the same chain ending in the crop
+   itself against its digest; the device time, back to back, and the
+   profiler's split;
+8. bilateral: one Bilateral step at ksize 5 on the same batch, checked
+   and timed the same way.
+
+The kernel phase also holds the median kernel bit for bit against its
+plain version at ksizes 3, 5 and 7 on the denoise path's gray frames and
+at 3, 5, 7, 15 and 31 on 256^2 gray and 3-channel uint8 and uint16 frames
+and on ragged ones, the bilateral kernel at ksizes 1, 5 and 9 on 2048^2
+gray and BGR frames and at 31 on 256^2 ones, and times each of them on
+its main-path input (and the median's PyTorch ``unfold(...).median(-1)``),
+sepconv's generic instance at sharpen's 19 taps on the denoise path, and
+the plain-torch paths left slow: the float32 median and bilateral filter.
 
 Every kernel's launch count is set to 0 just before each main path and
 read just after; a kernel of the path that did not launch fails the run.
@@ -110,10 +129,24 @@ GAUSS_KSIZES = (13, 19)  # non-dyadic taps: the digests pin XLA's fused order
 SEPCONV_KSIZES = (1, 3, 5, 7, 9, 13, 19, 33)
 CLAHE_CLIP = 2.0
 CLAHE_GRID = 4
+DENOISE_SHAPE = (8, 2048, 2048, 3)
+DENOISE_CPU_FRAMES = 2
+CROP_BOX = {"x_offset": 512, "y_offset": 512, "width": 1024, "height": 1024}
+MEDIAN_KSIZES = (3, 5, 7, 15, 31)
+BILATERAL_KSIZES = (1, 5, 9, 31)
+SMALL_SIDE = 256  # frames for the large ksizes, whose plain versions are slow
 RUNS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT32_OPS_PER_S = 16.7e12  # H100 SXM int32: 64 lanes an SM x 132 SMs x 1.98 GHz
+#: uint8 or uint16 values one integer min or max takes on sm_90: the packed
+#: 16x2 forms (PTX min/max .u16x2)
+PACKED16 = 2
+#: compare-exchanges a pixel of the median kernel at ksize 5: a column sort
+#: of 9 shared by 5 windows, 32 for the 13 candidates, 48 for their
+#: forgetful median (a min and a max each)
+MEDIAN5_EXCHANGES = 9 + 32 + 48
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -128,6 +161,10 @@ DIGESTS = {
     "gauss_1024_input": "695684bcedb2df4c1e1bb5ba3e2d74ee96438b6b49d601ffd70c30200184e0e1",
     "gauss13_1024_output": "e55cc8b2585b6f74424fc076a5855ceca3cce73ffc97b99cd2c1e35b67774626",
     "gauss19_1024_output": "fd384ba4bdeea943d3c3bf13da5ac95cc3e68d44a03475b714439dc7a696ef0b",
+    "denoise_input": "1b7acd6457ca4845fe678175c239e6aef0fee00f75a3ef68a346e6b4ab4a13c4",
+    "denoise_output": "ea3b9675fd30c2b9cca38357ce00d4188ed36a6069e7028279fc329fe00b6b55",
+    "denoise_crop_output": "054819afefc9d264073337187e12ed20c4e2e551af394f10f0794ebd4931a85f",
+    "bilateral_output": "4dc181fad127bee0f7cb4660f81c0aa7e018208425873d2b782d3f378393f13d",
 }
 
 
@@ -294,10 +331,54 @@ def clahe_frames(shape) -> np.ndarray:
     return np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
 
 
-def bound_ms(nbytes: float, f32_ops: float = 0.0):
-    """(least time in ms, what bounds it) on an H100 SXM."""
+def denoise_steps(apply_crop: bool):
+    """Grayscale -> Median 5 -> Sharpen 1.0 -> Normalize 0..255 -> Crop
+    (``apply_crop`` False: the preview overlay; True: the slice)."""
 
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, f32_ops / F32_OPS_PER_S
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    p = Stage.PREPROCESSING
+    return [
+        PipelineStep(name="Grayscale", stage=p),
+        PipelineStep(name="NoiseReduction", stage=p, params={"method": "Median", "ksize": 5}),
+        PipelineStep(name="Sharpen", stage=p, params={"strength": 1.0}),
+        PipelineStep(name="IntensityNormalization", stage=p, params={"alpha": 0.0, "beta": 255.0}),
+        PipelineStep(name="Crop", stage=p, params={**CROP_BOX, "apply_crop": apply_crop}),
+    ]
+
+
+def bilateral_steps():
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    return [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING,
+                         params={"method": "Bilateral", "ksize": 5})]
+
+
+def denoise_frames() -> np.ndarray:
+    """The denoise and bilateral paths' BGR batch (8 x 2048^2 x 3)."""
+
+    return np.random.default_rng(0).integers(0, 256, DENOISE_SHAPE, dtype=np.uint8)
+
+
+def bilateral_tables(ksize: int, dev):
+    """(space weights, colour table) of the Bilateral split, on ``dev``."""
+
+    from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
+
+    _, dyn = get_impl("preprocessing.noise_reduction").split({"method": "Bilateral", "ksize": ksize})
+    d = dyn_to_torch(dyn, dev)
+    return d["space_w"], d["color_lut"]
+
+
+def bound_ms(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0):
+    """(least time in ms, what bounds it) on an H100 SXM: the bytes at the
+    memory rate, the float32 and the int32 operations each at its rate
+    (they issue on different pipes), whichever is longest."""
+
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -963,11 +1044,136 @@ def phase_kernels(dev) -> dict:
     }
 
 
+def phase_filter_kernels(dev) -> dict:
+    """The median and bilateral kernels against their plain versions, bit
+    for bit, then their times, sepconv's generic instance at sharpen's 19
+    taps, and the plain-torch paths left slow."""
+
+    from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter, bilateral_plain, window_offsets
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+    from yamimageprocessor_tpu_torch.ops.filters import to_uint8
+    from yamimageprocessor_tpu_torch.ops.median import median_filter, median_float, median_plain
+    from yamimageprocessor_tpu_torch.ops.preprocess import sharpen_taps
+    from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8, sep_filter_u8_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rand(shape, dtype=torch.uint8):
+        high = 256 if dtype == torch.uint8 else 65536
+        return torch.randint(0, high, shape, dtype=torch.int32, device=dev, generator=gen).to(dtype)
+
+    err = {"median": 0, "bilateral": 0}
+    bgr = torch.from_numpy(denoise_frames()).to(dev)
+    gray = bgr_to_gray(bgr).contiguous()  # the median's input on the denoise path
+    side = SMALL_SIDE
+    for ksize in MEDIAN_KSIZES:
+        cases = {
+            f"(2,{side},{side}) uint8": rand((2, side, side)),
+            f"(2,{side},{side},3) uint8": rand((2, side, side, 3)),
+            f"(2,{side},{side}) uint16": rand((2, side, side), torch.uint16),
+            f"(1,{side},{side},3) uint16": rand((1, side, side, 3), torch.uint16),
+            "(1,37,1001) uint8": rand((1, 37, 1001)),
+            "(1,41,101,4) uint16": rand((1, 41, 101, 4), torch.uint16),
+            "(1,9,7,5) uint8": rand((1, 9, 7, 5)),
+        }
+        if ksize <= 7:
+            cases["denoise gray frames 0-1 (2,2048,2048)"] = gray[:2]
+        for name, imgs in cases.items():
+            got, want = median_filter(imgs, ksize), median_plain(imgs, ksize)
+            err["median"] |= exact(f"median k{ksize} {name}", got.to(torch.int32), want.to(torch.int32))
+    print(f"kernels: median bit-exact at k {MEDIAN_KSIZES} on {side}^2 gray and 3-channel uint8 and uint16, "
+          "ragged frames, 4 and 5 channels, and (k <= 7) the denoise path's gray frames")
+    for ksize in BILATERAL_KSIZES:
+        sw, lut = bilateral_tables(ksize, dev)
+        big = ksize <= 9
+        cases = {
+            "denoise BGR (8,2048,2048,3)" if ksize == 5 else f"BGR (2,{side},{side},3)":
+                bgr if ksize == 5 else rand((2, side, side, 3)),
+            "gray (2,2048,2048)" if big else f"gray (2,{side},{side})": gray[:2] if big else rand((2, side, side)),
+            "(1,37,101,4)": rand((1, 37, 101, 4)),
+            "(1,33,40,2)": rand((1, 33, 40, 2)),
+            "(1,29,37,5)": rand((1, 29, 37, 5)),
+            "(1,5,3,3)": rand((1, 5, 3, 3)),
+        }
+        for name, imgs in cases.items():
+            err["bilateral"] |= exact(
+                f"bilateral k{ksize} {name}",
+                bilateral_filter(imgs, sw, lut, ksize),
+                to_uint8(bilateral_plain(imgs, sw, lut, ksize)),
+            )
+    print(f"kernels: bilateral bit-exact at k {BILATERAL_KSIZES} on gray and BGR frames (2048^2 at k <= 9, the "
+          f"denoise batch at k 5, {side}^2 at k 31), 2, 4 and 5 channels, a frame smaller than the window")
+
+    # times on the main paths' inputs: the gray batch (median), the sharpened
+    # median's input to sepconv at 19 taps, the BGR batch (bilateral)
+    taps19 = sharpen_taps(dev)
+    smooth = median_filter(gray, 5)
+    sw5, lut5 = bilateral_tables(5, dev)
+    work = torch.nn.functional.pad(gray[:, None].float(), (2, 2, 2, 2), mode="replicate")[:, 0].to(torch.uint8)
+    n, h, w = gray.shape
+    times = {
+        "median": paired_ms(lambda: median_filter(gray, 5), lambda: median_plain(gray, 5), plain_runs=3),
+        "bilateral": paired_ms(
+            lambda: bilateral_filter(bgr, sw5, lut5, 5),
+            lambda: to_uint8(bilateral_plain(bgr, sw5, lut5, 5)),
+            plain_runs=3,
+        ),
+        "sepconv 19": paired_ms(
+            lambda: sep_filter_u8(smooth, taps19, taps19), lambda: sep_filter_u8_plain(smooth, taps19, taps19),
+            plain_runs=3,
+        ),
+    }
+    library = {
+        # one PyTorch computation of the same median: unfold and median(-1)
+        # on the frames padded beforehand
+        "median": time_ms(lambda: work.unfold(1, 5, 1).unfold(2, 5, 1).reshape(n, h, w, 25).median(-1), runs=5),
+    }
+    for ksize in (3, 7, 15, 31):
+        print(f"time median k{ksize} (8,2048,2048) uint8: {time_ms(lambda k=ksize: median_filter(gray, k), runs=3):.4f} ms")
+    for ksize in (9, 31):
+        print(f"time bilateral k{ksize} (8,2048,2048,3): "
+              f"{time_ms(lambda k=ksize: bilateral_filter(bgr, *bilateral_tables(k, dev), k), runs=3):.4f} ms")
+    # the plain-torch paths of float32 frames (no kernel): one 2048^2 frame
+    gray_f = gray[:1].float()
+    slow = {
+        f"median_float k{k} (1,2048,2048)": time_ms(lambda k=k: median_float(gray_f, k), runs=3, warmup=1)
+        for k in (3, 5, 7)
+    }
+    bgr_f = bgr[:1].float()
+    slow["bilateral_plain k5 float32 (1,2048,2048,3)"] = time_ms(
+        lambda: bilateral_plain(bgr_f, sw5, lut5, 5), runs=3, warmup=1
+    )
+    for name, (k, p) in times.items():
+        print(f"time {name}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    print(f"time median library (unfold + median(-1) on the padded gray batch): {library['median']:.4f} ms")
+    for name, ms in slow.items():
+        print(f"time {name} (plain torch): {ms:.4f} ms")
+
+    px_gray = float(gray.numel())
+    px_bgr = float(bgr.numel() // 3)
+    offsets5 = len(window_offsets(5))
+    bounds = {
+        # u8 in and out; 89 compare-exchanges (a min and a max) a pixel, two
+        # pixels an op (packed 16x2)
+        "median": bound_ms(2 * px_gray, int_ops=2 * MEDIAN5_EXCHANGES * px_gray / PACKED16),
+        # u8 in and out; an offset, all float32 (the faster pipe): 3
+        # differences and 2 adds for the distance (the absolutes are operand
+        # modifiers, and 3 uint8 channels need no clamp), the weight's
+        # multiply, the sum's add and 3 FMAs of 2
+        "bilateral": bound_ms(2 * 3 * px_bgr, f32_ops=offsets5 * 13 * px_bgr),
+        # u8 in and out; 19 + 19 taps, a multiply and an add each
+        "sepconv 19": bound_ms(2 * px_gray, f32_ops=2 * 2 * 19 * px_gray),
+    }
+    return {"err": err, "times": times, "library": library, "bounds": bounds, "slow": slow}
+
+
 def _counters():
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
     from yamimageprocessor_tpu_torch.ops import clahe as CL
     from yamimageprocessor_tpu_torch.ops.distance import distance_transform
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
+    from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter
+    from yamimageprocessor_tpu_torch.ops.median import median_filter
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
     from yamimageprocessor_tpu_torch.ops.watershed import flood
 
@@ -980,6 +1186,8 @@ def _counters():
         "flood": flood,
         "tile_histogram": CL.tile_histograms,
         "clahe_blend": CL.clahe_blend,
+        "median": median_filter,
+        "bilateral": bilateral_filter,
     }
 
 
@@ -1174,6 +1382,67 @@ def phase_clahe(dev) -> dict:
     return run["launches"]
 
 
+_DENOISE_GROUPS = {
+    "median_": "median",
+    "sepconv_": "sepconv",
+    "lut_apply_kernel": "lut_apply",
+}
+_BILATERAL_GROUPS = {"bilateral_kernel": "bilateral"}
+
+
+def _batch_chain(steps, shape, device):
+    from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain
+
+    return get_compiled_chain(steps, shape, np.uint8, batch=shape[0], device=device).pure_callable()
+
+
+def _drive_chain(name: str, steps, kernels, digest: str, dev) -> dict:
+    """One chain on the BGR batch through the chain runner and the
+    manager: launches, the JAX package's digest, frame 0 by the manager,
+    frames 0-1 against the port's CPU run, then its times."""
+
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    images = denoise_frames()
+    check_digest("denoise_input", images)
+    x = torch.from_numpy(images).to(dev)
+    fn, dyn = _batch_chain(steps, DENOISE_SHAPE, dev)
+    manager = PipelineManager(steps, device=dev)
+    run = drive(name, kernels, lambda: (fn(x, dyn)[-1], manager.apply(images[0])))
+    out, frame_out = run["out"]
+    check_digest(digest, out)
+    exact(f"{name} manager.apply frame 0", torch.from_numpy(frame_out), out[0].cpu())
+    k = DENOISE_CPU_FRAMES
+    cpu_fn, cpu_dyn = _batch_chain(steps, (k,) + DENOISE_SHAPE[1:], "cpu")
+    exact(f"{name} cuda vs cpu (frames 0-{k - 1})", out[:k].cpu(), cpu_fn(torch.from_numpy(images[:k]), cpu_dyn)[-1])
+    print(f"{name}: {DENOISE_SHAPE} on cuda == the JAX package's digest, shape {tuple(out.shape)}; frames 0-{k - 1} "
+          "== the port's CPU run; manager.apply == forward")
+    device_ms = time_ms(lambda: fn(x, dyn))
+    loop_ms = back_to_back_ms(lambda: fn(x, dyn))
+    mpix = float(np.prod(DENOISE_SHAPE[:3])) / 1e6
+    print(f"{name}: {loop_ms:.4f} ms per batch back to back ({RUNS} batches) = {mpix / (loop_ms / 1e3):.1f} MPix/s; "
+          f"device time {device_ms:.4f} ms per batch = {mpix / (device_ms / 1e3):.1f} MPix/s")
+    return {"launches": run["launches"], "fn": fn, "dyn": dyn, "x": x}
+
+
+def phase_denoise(dev) -> dict:
+    run = _drive_chain("denoise", denoise_steps(False), ("median", "sepconv", "lut_apply"), "denoise_output", dev)
+    print_profile("denoise", chain_profile(lambda: run["fn"](run["x"], run["dyn"]), _DENOISE_GROUPS))
+    # the same chain ending in the crop itself: the chain runner follows the
+    # change of shape
+    fn, dyn = _batch_chain(denoise_steps(True), DENOISE_SHAPE, dev)
+    cropped = fn(run["x"], dyn)[-1]
+    check_digest("denoise_crop_output", cropped)
+    print(f"denoise crop: {tuple(cropped.shape)} == the JAX package's digest")
+    return run["launches"]
+
+
+def phase_bilateral(dev) -> dict:
+    run = _drive_chain("bilateral", bilateral_steps(), ("bilateral",), "bilateral_output", dev)
+    print_profile("bilateral", chain_profile(lambda: run["fn"](run["x"], run["dyn"]), _BILATERAL_GROUPS))
+    return run["launches"]
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--times-of"]:
         times_of(sys.argv[2])
@@ -1182,8 +1451,15 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     kern = phase_kernels(dev)
+    filt = phase_filter_kernels(dev)
     launches = {}
-    for path_launches in (phase_flagship(dev), phase_segmentation(dev), phase_clahe(dev)):
+    for path_launches in (
+        phase_flagship(dev),
+        phase_segmentation(dev),
+        phase_clahe(dev),
+        phase_denoise(dev),
+        phase_bilateral(dev),
+    ):
         for name, count in path_launches.items():
             launches[name] = launches.get(name, 0) + count
     loaded = sorted(
@@ -1213,7 +1489,19 @@ def main() -> None:
         ("clahe_blend", "yamimageprocessor_tpu_torch/csrc/clahe.cu", "yamimageprocessor_tpu/ops/clahe_pallas.py:137",
          "none: no single PyTorch call blends four table lookups a pixel; shared_bytes: the tables a block "
          "stages on the bench's planes"),
+        ("median", "yamimageprocessor_tpu_torch/csrc/median.cu",
+         "yamimageprocessor_tpu/ops/filters.py:268 median_j (XLA, not a pallas_call)",
+         "unfold(1,5,1).unfold(2,5,1).reshape(...,25).median(-1) on the gray batch padded beforehand; ms: ksize 5 "
+         "on the denoise path's (8,2048,2048) gray frames"),
+        ("bilateral", "yamimageprocessor_tpu_torch/csrc/bilateral.cu",
+         "yamimageprocessor_tpu/ops/filters.py:390 bilateral_j (XLA, not a pallas_call)",
+         "none: PyTorch has no bilateral filter; ms: ksize 5 on the (8,2048,2048,3) BGR batch"),
     ]
+    for name in ("median", "bilateral"):
+        kern["err"][name] = filt["err"][name]
+        kern["times"][name] = filt["times"][name]
+        kern["bounds"][name] = filt["bounds"][name]
+        kern["library"][name] = filt["library"].get(name)
     entries = []
     for name, source, replaces, library_note in rows:
         entry = {
@@ -1232,6 +1520,10 @@ def main() -> None:
         }
         if name == "sepconv":
             entry.update(kern["sepconv_clahe"])
+            entry["ms_19taps"], entry["plain_ms_19taps"] = filt["times"]["sepconv 19"]
+            entry["bound_ms_19taps"] = filt["bounds"]["sepconv 19"][0]
+        if name in ("median", "bilateral"):
+            entry["plain_torch_float32_ms"] = {k: v for k, v in filt["slow"].items() if k.startswith(name)}
         if name == "histogram256":
             entry["by_input"] = kern["hist_times"]
             entry["bound_ms_one_frame"] = kern["hist_bound_one_ms"]

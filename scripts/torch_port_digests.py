@@ -10,13 +10,19 @@ chain's ``bench._dense_scene(2048, seed=3)``; the flagship chain's 8 x
 2048^2 frames from ``np.random.default_rng(0)``; the CLAHE chain's BGR
 frames from ``np.random.default_rng(0)`` at 64 x 1024^2 x 3, the bench's
 shape, and at 4 x 1000^2 x 3, where the blend's fractions are not
-dyadic; the Gaussian's 1024^2 gray frame from ``np.random.default_rng(0)``)
-and of the JAX package's outputs for them (``segmentation_steps()`` and
+dyadic; the Gaussian's 1024^2 gray frame from ``np.random.default_rng(0)``;
+the denoise and bilateral chains' 8 x 2048^2 x 3 BGR frames from
+``np.random.default_rng(0)``) and of the JAX package's outputs for them
+(``segmentation_steps()`` and
 the CLAHE chain through its chain compiler, the CLAHE chain batched as
 ``bench.py:_extra_batched_clahe`` builds it; ``flagship_forward`` under
 ``jax.jit``; one ``NoiseReduction`` step at ksize 13 and at 19, whose taps
-are not dyadic, so the result pins XLA's fused multiply-adds).  ``chip_smoke.py`` keeps these as
-constants.  Takes about 50 s and a few GB of memory on an 8-core CPU.
+are not dyadic, so the result pins XLA's fused multiply-adds; the denoise
+chain, Grayscale -> Median 5 -> Sharpen 1.0 -> Normalize 0..255 -> the
+crop preview at (512, 512, 1024, 1024), and the same chain ending in the
+crop itself; one Bilateral step at ksize 5; each batched over the 8
+frames).  ``chip_smoke.py`` keeps these as constants.  Takes about 90 s and
+a few GB of memory on an 8-core CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ FLAGSHIP_SHAPE = (8, 2048, 2048)
 CLAHE_SHAPES = {"clahe": (64, 1024, 1024, 3), "clahe_1000": (4, 1000, 1000, 3)}
 GAUSS_SHAPE = (1024, 1024)
 GAUSS_KSIZES = (13, 19)
+DENOISE_SHAPE = (8, 2048, 2048, 3)
+CROP_BOX = {"x_offset": 512, "y_offset": 512, "width": 1024, "height": 1024}
 
 
 def digest(array: np.ndarray) -> str:
@@ -63,6 +71,31 @@ def clahe_steps():
             params={"value": "RG"},
         ),
     ]
+
+
+def denoise_steps(apply_crop: bool):
+    """Grayscale -> Median 5 -> Sharpen 1.0 -> Normalize 0..255 -> Crop
+    (``apply_crop`` False: the preview overlay; True: the slice)."""
+
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    p = Stage.PREPROCESSING
+    return [
+        PipelineStep(name="Grayscale", stage=p),
+        PipelineStep(name="NoiseReduction", stage=p, params={"method": "Median", "ksize": 5}),
+        PipelineStep(name="Sharpen", stage=p, params={"strength": 1.0}),
+        PipelineStep(name="IntensityNormalization", stage=p, params={"alpha": 0.0, "beta": 255.0}),
+        PipelineStep(name="Crop", stage=p, params={**CROP_BOX, "apply_crop": apply_crop}),
+    ]
+
+
+def bilateral_steps():
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    return [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING,
+                         params={"method": "Bilateral", "ksize": 5})]
 
 
 def main() -> None:
@@ -107,6 +140,16 @@ def main() -> None:
         steps = [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"ksize": ksize})]
         out = np.asarray(get_compiled_chain(steps, GAUSS_SHAPE, np.uint8).run_final(gray))
         result[f"gauss{ksize}_1024_output"] = digest(out)
+    bgr = np.random.default_rng(0).integers(0, 256, DENOISE_SHAPE, dtype=np.uint8)
+    result["denoise_input"] = digest(bgr)
+    for name, steps in (
+        ("denoise", denoise_steps(False)),
+        ("denoise_crop", denoise_steps(True)),
+        ("bilateral", bilateral_steps()),
+    ):
+        out = np.asarray(get_compiled_chain(steps, bgr.shape, np.uint8, batch=bgr.shape[0]).run_final(bgr, steps))
+        result[f"{name}_output"] = digest(out)
+        result[f"{name}_output_shape"] = list(out.shape)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

@@ -167,16 +167,9 @@ def test_clone_keeps_the_device():
 @pytest.mark.parametrize(
     "steps, frame_shape",
     [
-        ([PipelineStep(name="Sharpen", op_id="preprocessing.sharpen", stage=Stage.PREPROCESSING)], (20, 20)),
-        (
-            [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"method": "Median", "ksize": 3})],
-            (20, 20),
-        ),
-        (
-            [PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING,
-                          params={"method": "Bilateral", "ksize": 5})],
-            (20, 20, 3),
-        ),
+        ([PipelineStep(name="Sobel", op_id="segmentation.sobel", stage=Stage.SEGMENTATION)], (20, 20)),
+        ([PipelineStep(name="Adaptive", op_id="segmentation.adaptive", stage=Stage.SEGMENTATION)], (20, 20)),
+        ([PipelineStep(name="K-Means", op_id="segmentation.kmeans", stage=Stage.SEGMENTATION)], (20, 20, 3)),
     ],
 )
 def test_unported_device_ops_raise(steps, frame_shape):
@@ -186,8 +179,9 @@ def test_unported_device_ops_raise(steps, frame_shape):
 
 
 def test_port_imports_no_jax():
-    """The port runs its three chains, through the chain functions and the
-    manager, without loading jax or any module of the JAX package."""
+    """The port runs its three chains and the rest of preprocessing, through
+    the chain functions and the manager, without loading jax or any module
+    of the JAX package."""
 
     code = (
         "import sys, numpy as np, torch\n"
@@ -212,6 +206,14 @@ def test_port_imports_no_jax():
         "fn, dyn = get_compiled_chain(steps, bgr.shape, np.uint8, batch=2, device='cpu').pure_callable()\n"
         "mix = fn(torch.from_numpy(bgr), dyn)[-1]\n"
         "assert (PipelineManager(steps, device='cpu').apply(bgr) == mix.numpy()).all()\n"
+        "p = Stage.PREPROCESSING\n"
+        "rest = [PipelineStep(name='Grayscale', stage=p),\n"
+        "        PipelineStep(name='NoiseReduction', stage=p, params={'method': 'Median', 'ksize': 5}),\n"
+        "        PipelineStep(name='Sharpen', stage=p), PipelineStep(name='IntensityNormalization', stage=p),\n"
+        "        PipelineStep(name='Crop', stage=p, params={'width': 20, 'height': 9, 'apply_crop': False}),\n"
+        "        PipelineStep(name='NoiseReduction', stage=p, params={'method': 'Bilateral', 'ksize': 5}),\n"
+        "        PipelineStep(name='Crop', stage=p, params={'x_offset': 3, 'width': 20, 'height': 9})]\n"
+        "assert PipelineManager(rest, device='cpu').apply(bgr).shape == (2, 9, 20)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'yamimageprocessor_tpu' or k.startswith('yamimageprocessor_tpu.'))\n"
         "assert not bad, bad\n"

@@ -23,11 +23,16 @@ PORTED = sorted(op.identifier for op in ALL_OPS)
 
 
 def test_the_port_has_the_eleven_ops_of_its_two_chains():
-    """The eleven ops of the flagship and segmentation chains, and the two
-    the CLAHE chain adds."""
+    """The eleven ops of the flagship and segmentation chains, the two the
+    CLAHE chain adds, and the rest of preprocessing: all ten preprocessing
+    ops of the reference."""
 
     assert PORTED == sorted(
         [
+            "preprocessing.grayscale",
+            "preprocessing.normalize",
+            "preprocessing.sharpen",
+            "preprocessing.crop",
             "preprocessing.noise_reduction",
             "preprocessing.histogram_equalization",
             "preprocessing.brightness_contrast",
@@ -74,6 +79,19 @@ _SPLIT_CASES = [
     ("preprocessing.noise_reduction", {"method": "Gaussian", "ksize": 8}),
     ("preprocessing.noise_reduction", {"method": "Gaussian", "ksize": 13}),
     ("preprocessing.noise_reduction", {"method": "Median", "ksize": 3}),
+    ("preprocessing.noise_reduction", {"method": "Median", "ksize": 4}),
+    ("preprocessing.noise_reduction", {"method": "Bilateral", "ksize": 1}),
+    ("preprocessing.noise_reduction", {"method": "Bilateral", "ksize": 5}),
+    ("preprocessing.noise_reduction", {"method": "Bilateral", "ksize": 8}),
+    ("preprocessing.noise_reduction", {"method": "Bilateral", "ksize": 31}),
+    ("preprocessing.noise_reduction", {"method": "Unknown", "ksize": 3}),
+    ("preprocessing.grayscale", {}),
+    ("preprocessing.normalize", {}),
+    ("preprocessing.normalize", {"alpha": 200, "beta": "7.5"}),
+    ("preprocessing.sharpen", {}),
+    ("preprocessing.sharpen", {"strength": 1.3}),
+    ("preprocessing.crop", {}),
+    ("preprocessing.crop", {"x_offset": "5", "y_offset": 7, "width": 300, "height": 2, "apply_crop": 0}),
     ("preprocessing.histogram_equalization", {}),
     ("preprocessing.brightness_contrast", {}),
     ("preprocessing.brightness_contrast", {"alpha": 1.2, "beta": 4.0}),
@@ -113,9 +131,27 @@ def test_splits_and_halos_match_jax(identifier, params):
 @pytest.mark.parametrize("ksize", [1, 3, 5, 7, 9, 11, 13, 19, 31])
 def test_gaussian_tables_match_jax(ksize):
     assert T.gaussian_sigma_for_ksize(ksize) == JK.gaussian_sigma_for_ksize(ksize)
+    for sigma in (0.5, 3.0, ksize / 2):
+        for depth_is_8u in (True, False):
+            assert T.gaussian_ksize_for_sigma(sigma, depth_is_8u) == JK.gaussian_ksize_for_sigma(sigma, depth_is_8u)
     for sigma in (0.0, 1.5):
         ours, ref = T.gaussian_taps(ksize, sigma), JK.gaussian_taps(ksize, sigma)
         assert ours.dtype == ref.dtype and (ours == ref).all()
+
+
+@pytest.mark.parametrize("ksize", [1, 2, 3, 5, 9, 21, 31])
+def test_bilateral_tables_and_window_match_jax(ksize):
+    from yamimageprocessor_tpu.ops.preprocess import dyn_offsets_for
+
+    from yamimageprocessor_tpu_torch.ops.bilateral import window_offsets
+
+    for sigma in (75.0, 10.0):
+        (ours, mask), (ref, ref_mask) = T.bilateral_space_weights(ksize, sigma), JK.bilateral_space_weights(ksize, sigma)
+        assert ours.dtype == ref.dtype and (ours == ref).all() and (mask == ref_mask).all()
+    for channels in (1, 3):
+        ours, ref = T.bilateral_color_weights(75.0, channels), JK.bilateral_color_weights(75.0, channels)
+        assert ours.dtype == ref.dtype and (ours == ref).all()
+    assert window_offsets(ksize) == tuple((int(j), int(i)) for j, i in dyn_offsets_for(ksize))
 
 
 def test_gamma_tables_and_structuring_elements_match_jax():
@@ -167,9 +203,9 @@ def test_step_execution_metadata_round_trips():
 
 def test_unknown_ops_and_host_steps():
     with pytest.raises(NotImplementedError):
-        op_by_identifier("preprocessing.sharpen")
+        op_by_identifier("segmentation.sobel")
     with pytest.raises(NotImplementedError):
-        _ = PipelineStep(name="Sharpen", op_id="preprocessing.sharpen").impl
+        _ = PipelineStep(name="Sobel", op_id="segmentation.sobel").impl
     host = PipelineStep(name="Invert", function=lambda img: 255 - img)
     assert host.impl is None and not host.is_device_capable()
     assert (host.apply(np.zeros((2, 2), np.uint8)) == 255).all()

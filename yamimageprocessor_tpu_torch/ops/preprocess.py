@@ -1,42 +1,57 @@
-"""Torch device functions of the preprocessing ops on the flagship and the
-CLAHE paths (the port of part of ``ops/preprocess.py``).
+"""Torch device functions of the ten preprocessing ops (the port of
+``ops/preprocess.py``).
 
-Ported: ``preprocessing.noise_reduction`` (Gaussian, on 2-D and
-``(H, W, C)`` items), ``preprocessing.histogram_equalization`` (2-D items,
-and BGR items through YCrCb), ``preprocessing.brightness_contrast`` and
-``preprocessing.gamma``, each with its table function,
-``preprocessing.clahe`` (2-D items, and BGR items through YCrCb) and
-``preprocessing.select_channel``.  Median and Bilateral noise reduction
-raise ``NotImplementedError``.
+Ported: ``preprocessing.grayscale``, ``.brightness_contrast`` and
+``.gamma`` (each with its table function), ``.histogram_equalization``
+(2-D items, and BGR items through YCrCb), ``.clahe`` (likewise),
+``.normalize``, ``.noise_reduction`` (Gaussian, Median and Bilateral, on
+2-D and ``(H, W, C)`` items), ``.sharpen``, ``.select_channel`` and
+``.crop`` (the slice and the preview overlay).
 
 Each function takes a batch ``(B, *item_shape)`` of items (see
-:mod:`.registry`).  uint8 items take the kernels.  Items of another dtype
-(float32, uint16) take plain torch, as the reference runs them through
-XLA, not Pallas: they read tables as the JAX package indexes them
-(:func:`.lutops.table_index`), their float arithmetic is contracted into
-fused multiply-adds where XLA's CPU backend contracts it, and the ops
-return uint8 as there, except the Gaussian, which returns float32.  No
-value is read back to the host: the equalization table's first bin,
-remainder and constant-frame case are tensor ops.
+:mod:`.registry`).  uint8 items take the kernels (sepconv for the Gaussian
+and sharpen's blur, the median and bilateral kernels, the table kernel for
+the table ops and normalize's per-frame table); uint16 items take the
+median kernel too.  Other items take plain torch, chosen by dtype, as the
+reference runs them through XLA, not Pallas: float32 medians follow
+``median_j``'s network, the bilateral filter of a frame that is not uint8
+its plain version; tables are read as the JAX package indexes them
+(:func:`.lutops.table_index`); float arithmetic is contracted into fused
+multiply-adds where XLA's CPU backend contracts it.  The ops return uint8
+as there, except the Gaussian, the bilateral filter and sharpen, which
+return float32 for an item that is not uint8, and the median, normalize
+and crop's slice, which keep the dtype.  No value is read back to the
+host: the equalization table's first bin, remainder and constant-frame
+case and normalize's range are tensor ops.
 
 The parameter splits are copies of the JAX package's
-(``ops/preprocess.py:76-85, 105-110, 266-280, 376-382, 576-596, 708-711``),
-with its host dtypes: float32 taps, alpha and beta, a uint8 gamma table.
+(``ops/preprocess.py:76-85, 105-110, 266-280, 376-382, 495-501, 576-589,
+653-656, 708-711, 811-821``), with its host dtypes: float32 taps, alpha,
+beta, strength and bilateral weights, a uint8 gamma table.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter, bilateral_plain
 from yamimageprocessor_tpu_torch.ops.clahe import clahe as clahe_planes
-from yamimageprocessor_tpu_torch.ops.color import bgr_to_ycrcb, ycrcb_to_bgr
+from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray, bgr_to_ycrcb, ycrcb_to_bgr
 from yamimageprocessor_tpu_torch.ops.filters import convert, fma32, sep_filter_fma, to_uint8
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
+from yamimageprocessor_tpu_torch.ops.median import median_filter, median_float
 from yamimageprocessor_tpu_torch.ops.registry import register_op
 from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8, sep_filter_u8_planes
-from yamimageprocessor_tpu_torch.ops.tables import gamma_lut, gaussian_taps
+from yamimageprocessor_tpu_torch.ops.tables import (
+    bilateral_color_weights,
+    bilateral_space_weights,
+    gamma_lut,
+    gaussian_ksize_for_sigma,
+    gaussian_taps,
+)
 
 
 def _uint8_item(item_shape, dtype, **static):
@@ -228,27 +243,44 @@ register_op(
 # Noise reduction
 
 
-def noise_reduction(imgs, dyn, *, method: str = "Gaussian", ksize: int = 5):
-    if method in ("Median", "Bilateral"):
-        raise NotImplementedError(
-            f"preprocessing.noise_reduction: method {method!r} is not ported to torch yet"
-        )
-    if method != "Gaussian":
-        return imgs  # the reference passes unknown methods through
-    taps = dyn["taps"]
+def _gaussian(imgs, taps):
     if imgs.dtype != torch.uint8:  # float32 out, in XLA's contracted order
-        if imgs.ndim == 3:
-            return sep_filter_fma(imgs, taps, taps)
-        return sep_filter_fma(imgs.permute(0, 3, 1, 2), taps, taps).permute(0, 2, 3, 1).contiguous()
+        return _planes(imgs, lambda planes: sep_filter_fma(planes, taps, taps))
     if imgs.ndim == 3:
         return sep_filter_u8(imgs.contiguous(), taps, taps)
     return sep_filter_u8_planes(imgs.contiguous(), taps, taps)
 
 
-def _noise_item(item_shape, dtype, *, method: str = "Gaussian", ksize: int = 5):
-    """The Gaussian of an item that is not uint8 is float32."""
+def _planes(imgs, fn):
+    """``fn`` on the ``(..., H, W)`` planes of a batch of 2-D or ``(H, W, C)``
+    items."""
 
-    if method == "Gaussian" and np.dtype(dtype) != np.uint8:
+    if imgs.ndim == 3:
+        return fn(imgs)
+    return fn(imgs.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+
+
+def noise_reduction(imgs, dyn, *, method: str = "Gaussian", ksize: int = 5):
+    if method == "Gaussian":
+        return _gaussian(imgs, dyn["taps"])
+    if method == "Median":
+        # integer frames take the kernel; float32 frames median_j's network
+        if imgs.is_floating_point():
+            return median_float(imgs, ksize)
+        return median_filter(imgs.contiguous(), ksize)
+    if method == "Bilateral":
+        # uint8 frames take the kernel; others the plain version, float32 out
+        if imgs.dtype == torch.uint8:
+            return bilateral_filter(imgs.contiguous(), dyn["space_w"], dyn["color_lut"], ksize)
+        return bilateral_plain(imgs, dyn["space_w"], dyn["color_lut"], ksize)
+    return imgs  # the reference passes unknown methods through
+
+
+def _noise_item(item_shape, dtype, *, method: str = "Gaussian", ksize: int = 5):
+    """The Gaussian and the bilateral filter of an item that is not uint8
+    are float32; the median keeps the dtype."""
+
+    if method in ("Gaussian", "Bilateral") and np.dtype(dtype) != np.uint8:
         return tuple(item_shape), np.dtype(np.float32)
     return tuple(item_shape), np.dtype(dtype)
 
@@ -259,15 +291,19 @@ def _odd(ksize: int) -> int:
 
 
 def _noise_split(params: Mapping[str, Any]):
-    """The reference split for Gaussian and Median; Bilateral's weight
-    tables are not copied, since Bilateral raises here."""
-
     method = str(params.get("method", "Gaussian"))
     ksize = _odd(int(params.get("ksize", 5)))
+    static = {"method": method, "ksize": ksize}
     dyn: Dict[str, Any] = {}
     if method == "Gaussian":
         dyn["taps"] = gaussian_taps(ksize, 0.0).astype(np.float32)
-    return {"method": method, "ksize": ksize}, dyn
+    elif method == "Bilateral":
+        space_w, mask = bilateral_space_weights(ksize, 75.0)
+        dyn["space_w"] = space_w[mask].astype(np.float32)
+        # the 3-channel table whatever the channels (a gray frame reads its
+        # first 256 entries, unless a float frame's distance passes 255)
+        dyn["color_lut"] = bilateral_color_weights(75.0, 3).astype(np.float32)
+    return static, dyn
 
 
 register_op(
@@ -279,14 +315,248 @@ register_op(
 )
 
 
+# ---------------------------------------------------------------------------
+# Grayscale (core/preprocessing.py:53-57)
+
+
+def grayscale(imgs, dyn):
+    return bgr_to_gray(imgs)
+
+
+def _grayscale_item(item_shape, dtype, **static):
+    """A 2-D item passes through; a colour item becomes ``(H, W)`` uint8."""
+
+    if len(item_shape) == 2:
+        return tuple(item_shape), np.dtype(dtype)
+    return tuple(item_shape[:2]), np.dtype(np.uint8)
+
+
+register_op(
+    "preprocessing.grayscale",
+    device_fn=grayscale,
+    split=lambda params: ({}, {}),
+    out_item=_grayscale_item,
+)
+
+
+# ---------------------------------------------------------------------------
+# Intensity normalization (core/preprocessing.py:93-95: cv2 NORM_MINMAX)
+
+
+def _normalize_scale_shift(imgs, dyn):
+    """Per frame ``(scale, shift)`` float32 of ``normalize_j``: the min and
+    max of each frame alone (the reference vmaps the chain over frames),
+    ``scale = (hi - lo) / span`` (0 for a constant frame) and ``shift =
+    fma(-min, scale, lo)`` as XLA's CPU backend contracts it."""
+
+    flat = imgs.reshape(imgs.shape[0], -1)
+    if not flat.is_floating_point():
+        flat = flat.to(torch.int32)  # exact, and torch reduces few uint16 ops
+    smin = flat.amin(dim=1).to(torch.float32)
+    smax = flat.amax(dim=1).to(torch.float32)
+    lo = torch.minimum(dyn["alpha"], dyn["beta"])
+    hi = torch.maximum(dyn["alpha"], dyn["beta"])
+    span = smax - smin
+    positive = span > 0
+    scale = torch.where(positive, (hi - lo) / torch.where(positive, span, torch.ones_like(span)), torch.zeros_like(span))
+    return scale, fma32(-smin, scale, lo.expand_as(scale))
+
+
+def normalize_luts(imgs, dyn):
+    """``(B, 256)`` uint8 tables of the uint8 action: per level ``v`` the
+    arithmetic of a pixel of value ``v``, ``to_uint8(fma(v, scale, shift))``
+    (``normalize_stats_lut_j``)."""
+
+    scale, shift = _normalize_scale_shift(imgs, dyn)
+    levels = torch.arange(256, dtype=torch.float32, device=imgs.device).expand(imgs.shape[0], 256)
+    return to_uint8(fma32(levels, scale[:, None].expand_as(levels), shift[:, None].expand_as(levels)))
+
+
+def normalize(imgs, dyn):
+    if imgs.dtype == torch.uint8:
+        return apply_lut(imgs, normalize_luts(imgs, dyn))
+    scale, shift = _normalize_scale_shift(imgs, dyn)
+    view = (-1,) + (1,) * (imgs.ndim - 1)
+    x = imgs.to(torch.float32)
+    out = fma32(x, scale.view(view).expand_as(x), shift.view(view).expand_as(x))
+    return convert(out, imgs.dtype)
+
+
+register_op(
+    "preprocessing.normalize",
+    device_fn=normalize,
+    split=lambda params: (
+        {},
+        {
+            "alpha": np.float32(params.get("alpha", 0.0)),
+            "beta": np.float32(params.get("beta", 255.0)),
+        },
+    ),
+)
+
+
+# ---------------------------------------------------------------------------
+# Sharpen / unsharp mask (core/preprocessing.py:97-100)
+
+_SHARPEN_SIGMA = 3.0
+_SHARPEN_KSIZE = gaussian_ksize_for_sigma(_SHARPEN_SIGMA)  # 19
+_SHARPEN_TAPS = gaussian_taps(_SHARPEN_KSIZE, _SHARPEN_SIGMA).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def sharpen_taps(device: torch.device) -> torch.Tensor:
+    """The fixed unsharp Gaussian's 19 float32 taps on ``device``."""
+
+    return torch.from_numpy(_SHARPEN_TAPS).to(device)
+
+
+def sharpen(imgs, dyn):
+    """``img * (1 + s) - blurred * s`` contracted as XLA's CPU backend runs
+    ``sharpen_j``: ``fma(img, 1 + s, -(blurred * s))``; uint8 frames blur
+    through the sepconv kernel and round the result to uint8, others give
+    float32."""
+
+    blurred = _gaussian(imgs, sharpen_taps(imgs.device)).to(torch.float32)
+    s = dyn["strength"]
+    x = imgs.to(torch.float32)
+    out = fma32(x, (s + 1).expand_as(x), -(blurred * s))
+    return to_uint8(out) if imgs.dtype == torch.uint8 else out
+
+
+def _float_item_unless_uint8(item_shape, dtype, **static):
+    if np.dtype(dtype) != np.uint8:
+        return tuple(item_shape), np.dtype(np.float32)
+    return tuple(item_shape), np.dtype(dtype)
+
+
+register_op(
+    "preprocessing.sharpen",
+    device_fn=sharpen,
+    split=lambda params: ({}, {"strength": np.float32(params.get("strength", 1.0))}),
+    halo=_SHARPEN_KSIZE // 2,
+    out_item=_float_item_unless_uint8,
+)
+
+
+# ---------------------------------------------------------------------------
+# Crop (core/preprocessing.py:123-151; modules/preprocessing.py:226-252)
+
+_OVERLAY_ALPHA = np.float32(0.3)
+_OVERLAY_KEEP = np.float32(0.7)
+
+
+def _crop_overlay(imgs, x_offset: int, y_offset: int, width: int, height: int):
+    """``_crop_overlay_j`` on a batch: the region filled with green at alpha
+    0.3 (``fma(img, 0.7, colour * 0.3)``, as XLA folds the constant and
+    contracts the sum) and a border of thickness 2; uint8 out."""
+
+    h, w = imgs.shape[1], imgs.shape[2]
+    dev = imgs.device
+    rows = torch.arange(h, device=dev).view(h, 1)
+    cols = torch.arange(w, device=dev).view(1, w)
+    x0, y0 = int(x_offset), int(y_offset)
+    x1, y1 = x0 + int(width), y0 + int(height)
+    green = [0.0, 255.0, 0.0]
+    color = torch.tensor(85.0 if imgs.ndim == 3 else green[: imgs.shape[3]], dtype=torch.float32, device=dev)
+
+    x = imgs.to(torch.float32)
+    tint = (color * torch.tensor(_OVERLAY_ALPHA, device=dev)).expand_as(x)
+    blended = fma32(x, torch.full_like(x, float(_OVERLAY_KEEP)), tint)
+    blended = convert(torch.round(blended).clamp(0, 255), torch.uint8)
+    out = convert(imgs, torch.uint8)
+
+    def per_pixel(mask):
+        return mask if imgs.ndim == 3 else mask.unsqueeze(-1)
+
+    xa, xb = sorted((x0, x1))
+    ya, yb = sorted((y0, y1))
+    xa, ya = max(xa, 0), max(ya, 0)
+    xb, yb = min(xb, w - 1), min(yb, h - 1)
+    if xa <= xb and ya <= yb:
+        fill = (rows >= ya) & (rows <= yb) & (cols >= xa) & (cols <= xb)
+        out = torch.where(per_pixel(fill), blended, out)
+
+    border = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for off in (-1, 0):
+        bxa, bya, bxb, byb = x0 - off, y0 - off, x1 + off, y1 + off
+        cxa, cxb = max(min(bxa, bxb), 0), min(max(bxa, bxb), w - 1)
+        cya, cyb = max(min(bya, byb), 0), min(max(bya, byb), h - 1)
+        if cxa > cxb or cya > cyb:
+            continue
+        in_x = (cols >= cxa) & (cols <= cxb)
+        in_y = (rows >= cya) & (rows <= cyb)
+        if 0 <= bya < h:
+            border = border | (in_x & (rows == bya))
+        if 0 <= byb < h:
+            border = border | (in_x & (rows == byb))
+        if 0 <= bxa < w:
+            border = border | (in_y & (cols == bxa))
+        if 0 <= bxb < w:
+            border = border | (in_y & (cols == bxb))
+    return torch.where(per_pixel(border), color.to(torch.uint8), out)
+
+
+def crop(
+    imgs,
+    dyn,
+    *,
+    x_offset: int = 0,
+    y_offset: int = 0,
+    width: int = 100,
+    height: int = 100,
+    apply_crop: bool = True,
+):
+    """``apply_crop`` slices every frame as numpy slices (the slice stops at
+    the frame's edge); otherwise the preview overlay, the full frame."""
+
+    if not apply_crop:
+        return _crop_overlay(imgs, x_offset, y_offset, width, height)
+    return imgs[:, y_offset : y_offset + height, x_offset : x_offset + width].contiguous()
+
+
+def _crop_item(item_shape, dtype, *, x_offset=0, y_offset=0, width=100, height=100, apply_crop=True):
+    if not apply_crop:
+        return tuple(item_shape), np.dtype(np.uint8)
+    h = len(range(item_shape[0])[y_offset : y_offset + height])
+    w = len(range(item_shape[1])[x_offset : x_offset + width])
+    return (h, w) + tuple(item_shape[2:]), np.dtype(dtype)
+
+
+def _crop_split(params: Mapping[str, Any]):
+    return (
+        {
+            "x_offset": int(params.get("x_offset", 0)),
+            "y_offset": int(params.get("y_offset", 0)),
+            "width": int(params.get("width", 100)),
+            "height": int(params.get("height", 100)),
+            "apply_crop": bool(params.get("apply_crop", True)),
+        },
+        {},
+    )
+
+
+register_op(
+    "preprocessing.crop",
+    device_fn=crop,
+    split=_crop_split,
+    out_item=_crop_item,
+)
+
+
 __all__ = [
     "brightness_contrast",
     "brightness_contrast_lut",
     "clahe",
+    "crop",
     "equalization_lut",
     "equalization_lut_from_images",
     "gamma",
+    "grayscale",
     "histogram_equalization",
     "noise_reduction",
+    "normalize",
+    "normalize_luts",
     "select_channel",
+    "sharpen",
+    "sharpen_taps",
 ]

@@ -37,9 +37,12 @@ class OpSchema:
 
 
 ALL_OPS: Tuple[OpSchema, ...] = (
+    OpSchema("preprocessing.grayscale", Stage.PREPROCESSING, "grayscale", "Grayscale"),
     OpSchema("preprocessing.brightness_contrast", Stage.PREPROCESSING, "brightness_contrast", "BrightnessContrast"),
     OpSchema("preprocessing.gamma", Stage.PREPROCESSING, "gamma", "Gamma"),
+    OpSchema("preprocessing.normalize", Stage.PREPROCESSING, "normalize", "IntensityNormalization"),
     OpSchema("preprocessing.noise_reduction", Stage.PREPROCESSING, "noise_reduction", "NoiseReduction"),
+    OpSchema("preprocessing.sharpen", Stage.PREPROCESSING, "sharpen", "Sharpen"),
     OpSchema(
         "preprocessing.histogram_equalization",
         Stage.PREPROCESSING,
@@ -48,6 +51,7 @@ ALL_OPS: Tuple[OpSchema, ...] = (
     ),
     OpSchema("preprocessing.select_channel", Stage.PREPROCESSING, "select_channel", "SelectChannel"),
     OpSchema("preprocessing.clahe", Stage.PREPROCESSING, "clahe", "clahe"),
+    OpSchema("preprocessing.crop", Stage.PREPROCESSING, "crop", "Crop"),
     OpSchema("segmentation.global_threshold", Stage.SEGMENTATION, "Global", "Global"),
     OpSchema("segmentation.otsu", Stage.SEGMENTATION, "Otsu", "Otsu"),
     OpSchema("segmentation.watershed", Stage.SEGMENTATION, "Watershed", "Watershed"),

@@ -4,7 +4,8 @@
 They run in numpy on the host, in float64 where the reference does, and
 feed the device as small dynamic inputs, so a parameter change is a new
 value and not new code.  Semantics are OpenCV's (``getGaussianKernel``,
-the reference's gamma table, ``getStructuringElement``).
+the reference's gamma table, ``getStructuringElement``, the circular
+window and colour table of ``bilateralFilter``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,13 @@ def gaussian_taps(ksize: int, sigma: float = 0.0) -> np.ndarray:
     return taps / taps.sum()
 
 
+def gaussian_ksize_for_sigma(sigma: float, depth_is_8u: bool = True) -> int:
+    """Automatic aperture when ksize is 0 (cv2.createGaussianFilter)."""
+
+    factor = 3 if depth_is_8u else 4
+    return int(round(sigma * factor * 2 + 1)) | 1
+
+
 def gamma_lut(gamma: float) -> np.ndarray:
     """256-entry gamma table: float64 pow, then truncation to uint8."""
 
@@ -77,4 +85,34 @@ def structuring_element(shape: str, ksize: int) -> np.ndarray:
     return np.ones((rows, cols), dtype=np.uint8)
 
 
-__all__ = ["gamma_lut", "gaussian_sigma_for_ksize", "gaussian_taps", "structuring_element"]
+def bilateral_space_weights(ksize: int, sigma_space: float):
+    """(weights, mask) over cv2.bilateralFilter's circular window: radius
+    ``max(ksize // 2, 1)``, offsets farther than the radius masked out."""
+
+    radius = max(int(ksize) // 2, 1)
+    coeff = -0.5 / (sigma_space * sigma_space)
+    dy, dx = np.mgrid[-radius : radius + 1, -radius : radius + 1].astype(np.float64)
+    dist = np.sqrt(dx * dx + dy * dy)
+    mask = dist <= radius
+    weights = np.exp(coeff * (dist * dist)) * mask
+    return weights, mask
+
+
+def bilateral_color_weights(sigma_color: float, channels: int) -> np.ndarray:
+    """Colour weights ``exp(-k^2 / (2 sigma^2))`` for every ``k`` a sum of
+    ``channels`` absolute differences can take, ``0 .. 256 * channels - 1``."""
+
+    coeff = -0.5 / (sigma_color * sigma_color)
+    k = np.arange(256 * channels, dtype=np.float64)
+    return np.exp(coeff * k * k)
+
+
+__all__ = [
+    "bilateral_color_weights",
+    "bilateral_space_weights",
+    "gamma_lut",
+    "gaussian_ksize_for_sigma",
+    "gaussian_sigma_for_ksize",
+    "gaussian_taps",
+    "structuring_element",
+]

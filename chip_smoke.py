@@ -5,7 +5,7 @@ chain, the batched CLAHE chain, the denoise chain and the bilateral
 filter.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --times-of DIR   # CC, the blend and histogram256 of the port in checkout DIR
+    python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -75,22 +75,30 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and timed the same way.
 
 The kernel phase also holds the median kernel bit for bit against its
-plain version at ksizes 3, 5 and 7 on the denoise path's gray frames and
-at 3, 5, 7, 15 and 31 on 256^2 gray and 3-channel uint8 and uint16 frames
-and on ragged ones, the bilateral kernel at ksizes 1, 5 and 9 on 2048^2
-gray and BGR frames and at 31 on 256^2 ones, and times each of them on
-its main-path input (and the median's PyTorch ``unfold(...).median(-1)``),
-sepconv's generic instance at sharpen's 19 taps on the denoise path, and
-the plain-torch paths left slow: the float32 median and bilateral filter.
+plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
+and at 3, 5, 7, 9, 15 and 31 on 256^2 gray and 3-channel uint8 and uint16
+frames and on ragged ones (2, 4 and 5 channels, one row, one column, a
+frame smaller than the window, a batch of 5), the bilateral kernel at
+ksizes 1, 3, 5 and 9 on 2048^2 gray and BGR frames and at 31 on 256^2
+ones, on 2, 4, 5 and 9 channels and the same ragged shapes; it measures
+the card's rate of packed 16x2 min and max (``yam_vminmax_rate``), times
+both kernels at every ksize on their main-path inputs and prints each
+time beside its bound (the median's packed min and max at that rate, the
+bilateral's busiest pipe: FP32 instructions, int32 operations or the
+colour table's shared-memory wavefronts) and its share of it, and times
+the median's PyTorch ``unfold(...).median(-1)``, sepconv's generic
+instance at sharpen's 19 taps on the denoise path, and the plain-torch
+paths left slow: the float32 median and bilateral filter.
 
 Every kernel's launch count is set to 0 just before each main path and
 read just after; a kernel of the path that did not launch fails the run.
 The digests come from ``scripts/torch_port_digests.py`` (the JAX package
 on a CPU).  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  With
-``--times-of DIR`` the script only times CC, the blend and histogram256 of
-the port in checkout DIR (an older one, unpacked with ``git archive``) on
-the same inputs, prints SHA-256 digests of their outputs, an empty
+``--times-of DIR`` the script only times CC, the blend, histogram256, the
+median (every ksize above) and the bilateral filter (likewise) of the port
+in checkout DIR (an older one, unpacked with ``git archive``) on the same
+inputs, prints SHA-256 digests of their outputs, an empty
 launch's time, and the kernels a call and the back-to-back time of the
 flagship and segmentation chains: run it on two checkouts in one call to
 compare them.  Nothing falls
@@ -132,21 +140,35 @@ CLAHE_GRID = 4
 DENOISE_SHAPE = (8, 2048, 2048, 3)
 DENOISE_CPU_FRAMES = 2
 CROP_BOX = {"x_offset": 512, "y_offset": 512, "width": 1024, "height": 1024}
-MEDIAN_KSIZES = (3, 5, 7, 15, 31)
-BILATERAL_KSIZES = (1, 5, 9, 31)
+MEDIAN_KSIZES = (3, 5, 7, 9, 15, 31)
+BILATERAL_KSIZES = (1, 3, 5, 9, 31)
 SMALL_SIDE = 256  # frames for the large ksizes, whose plain versions are slow
 RUNS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA two operations
+F32_INST_PER_S = 33.4e12  # H100 SXM FP32 instructions (an add, a multiply or an FMA): 128 lanes an SM x 132 x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12  # H100 SXM int32: 64 lanes an SM x 132 SMs x 1.98 GHz
-#: uint8 or uint16 values one integer min or max takes on sm_90: the packed
-#: 16x2 forms (PTX min/max .u16x2)
-PACKED16 = 2
-#: compare-exchanges a pixel of the median kernel at ksize 5: a column sort
-#: of 9 shared by 5 windows, 32 for the 13 candidates, 48 for their
-#: forgetful median (a min and a max each)
-MEDIAN5_EXCHANGES = 9 + 32 + 48
+SHARED_WAVEFRONTS_PER_S = 261e9  # one 128-byte shared-memory wavefront a clock an SM: 132 x 1.98 GHz
+#: packed 16x2 min and max ops a pixel (two pixels an op, PTX min/max
+#: .u16x2) of the least count this repo knows, by ksize: half the scalar min
+#: and max operations a pixel.  Ksize 3 and 5 are the kernel's own schedule
+#: (csrc/median.cu: 18 and 160 a pixel pair); 7 and 9 the shared-column
+#: construction (562 and 1304: every column sorted once for the k windows
+#: that hold it, each row's rank-feasible candidates from a pruned network,
+#: their forgetful selection).  tests/test_torch_median_schedule.py models
+#: both and counts them.
+MEDIAN_PACKED_OPS = {3: 18 / 2, 5: 160 / 2, 7: 562 / 2, 9: 1304 / 2}
+#: int32 operations a pixel of a Perreault-Hebert sliding histogram (uint8,
+#: 16 coarse x 16 fine bins, 16-bit counts two to a word) that any window
+#: needs: the entering and leaving column histograms' fine and coarse bins
+#: (4), the window's coarse histogram plus one column's and minus another's
+#: (8 + 8 words), one compare in each search (2).  The fine bins' lazy
+#: refresh and the searches' length depend on the data and are left out, so
+#: this is a floor of that algorithm's work.
+MEDIAN_HISTOGRAM_OPS = 4 + 16 + 2
+#: min/max rounds of the rate kernel (yam_vminmax_rate) and its blocks
+RATE_ROUNDS, RATE_BLOCKS = 4096, 132 * 8
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -372,14 +394,52 @@ def bilateral_tables(ksize: int, dev):
     return d["space_w"], d["color_lut"]
 
 
-def bound_ms(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0):
+def bound_ms(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0, *, f32_inst: float = 0.0,
+             minmax: float = 0.0, minmax_rate: float = INT32_OPS_PER_S, wavefronts: float = 0.0):
     """(least time in ms, what bounds it) on an H100 SXM: the bytes at the
-    memory rate, the float32 and the int32 operations each at its rate
-    (they issue on different pipes), whichever is longest."""
+    memory rate, and on their own pipes float32 operations (an FMA two) or
+    FP32 instructions (an FMA one), int32 operations, packed min and max
+    operations at ``minmax_rate`` (measured by :func:`minmax_rate`) and
+    shared-memory wavefronts, whichever is longest."""
 
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
+    t_ops = max(f32_ops / F32_OPS_PER_S, f32_inst / F32_INST_PER_S, int_ops / INT32_OPS_PER_S,
+                minmax / minmax_rate, wavefronts / SHARED_WAVEFRONTS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def minmax_rate(dev) -> float:
+    """Packed 16x2 min and max operations a second on the card, from
+    ``yam_vminmax_rate`` (independent compare-exchange chains on every
+    SM)."""
+
+    from yamimageprocessor_tpu_torch import _build
+
+    out = torch.empty(RATE_BLOCKS * 256, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: _build.launch("yam_vminmax_rate", dev, out.data_ptr(), RATE_BLOCKS, RATE_ROUNDS), runs=5)
+    return RATE_BLOCKS * 256 * RATE_ROUNDS * 16 / (ms / 1e3)
+
+
+def median_bound(px: float, ksize: int, rate: float):
+    """(bound ms, by) of the median of ``px`` uint8 pixels: bytes in and out;
+    up to ksize 9 the packed min and max ops of :data:`MEDIAN_PACKED_OPS`,
+    above it the sliding histogram's :data:`MEDIAN_HISTOGRAM_OPS` at the
+    int32 rate, whatever the window."""
+
+    if ksize in MEDIAN_PACKED_OPS:
+        return bound_ms(2 * px, minmax=MEDIAN_PACKED_OPS[ksize] * px, minmax_rate=rate)
+    return bound_ms(2 * px, int_ops=MEDIAN_HISTOGRAM_OPS * px)
+
+
+def bilateral_bound(px: float, offsets: int, channels: int):
+    """(bound ms, by) of the bilateral filter of ``px`` uint8 pixels: bytes
+    in and out; a pixel's offset takes 2 + C FP32 instructions (the weight's
+    multiply, the sum's add, C fused multiply-adds), one int32 operation for
+    the distance (one per-byte sum of absolute differences) and 1/32 of a
+    shared-memory wavefront for the colour table's read."""
+
+    n = offsets * px
+    return bound_ms(2 * channels * px, f32_inst=(2 + channels) * n, int_ops=n, wavefronts=n / 32)
 
 
 def phase_device() -> str:
@@ -586,14 +646,39 @@ def chain_profiles(dev) -> dict:
     return profiles
 
 
+def time_filters(dev, digests: dict) -> dict:
+    """Device ms ``{"median": {ksize: ms}, "bilateral": {ksize: ms}}`` of
+    the median at every ksize of :data:`MEDIAN_KSIZES` on the denoise
+    path's gray frames and of the bilateral filter at every ksize of
+    :data:`BILATERAL_KSIZES` on its BGR batch; each output's SHA-256 goes
+    into ``digests``."""
+
+    from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+    from yamimageprocessor_tpu_torch.ops.median import median_filter
+
+    bgr = torch.from_numpy(denoise_frames()).to(dev)
+    gray = bgr_to_gray(bgr).contiguous()
+    times = {"median": {}, "bilateral": {}}
+    for k in MEDIAN_KSIZES:
+        digests[f"median k{k} (8,2048,2048)"] = sha256(median_filter(gray, k))
+        times["median"][k] = time_ms(lambda k=k: median_filter(gray, k), runs=5)
+    for k in BILATERAL_KSIZES:
+        tables = bilateral_tables(k, dev)
+        digests[f"bilateral k{k} (8,2048,2048,3)"] = sha256(bilateral_filter(bgr, *tables, k))
+        times["bilateral"][k] = time_ms(lambda k=k: bilateral_filter(bgr, *tables, k), runs=5)
+    return times
+
+
 def times_of(root: str) -> None:
-    """Time CC, the blend and histogram256 of the port in the checkout
-    ``root`` (an older one, unpacked with ``git archive``) on
-    :func:`cc_inputs`, the bench's Y planes and :func:`histogram_cases`,
-    and print the times with a SHA-256 of every output (two checkouts whose
-    digests agree computed the same function), an empty launch's time, and
-    the kernels a call and back-to-back time of the flagship and
-    segmentation chains."""
+    """Time CC, the blend, histogram256, the median and the bilateral
+    filter of the port in the checkout ``root`` (an older one, unpacked with
+    ``git archive``) on :func:`cc_inputs`, the bench's Y planes,
+    :func:`histogram_cases` and the denoise path's frames
+    (:func:`time_filters`), and print the times with a SHA-256 of every
+    output (two checkouts whose digests agree computed the same function),
+    an empty launch's time, and the kernels a call and back-to-back time of
+    the flagship and segmentation chains."""
 
     sys.path.insert(0, root)
     smi = phase_device()
@@ -613,6 +698,9 @@ def times_of(root: str) -> None:
     times = time_cc_and_blend(cc_cases, blend)
     times.update({f"histogram256 {name}": time_ms(lambda f=f: ck.histogram256_batch(f)) for name, f in hist_cases.items()})
     times["empty launch"] = empty_launch_ms(dev)
+    filters = time_filters(dev, digests)
+    times.update({f"median k{k} (8,2048,2048)": ms for k, ms in filters["median"].items()})
+    times.update({f"bilateral k{k} (8,2048,2048,3)": ms for k, ms in filters["bilateral"].items()})
     for name, ms in times.items():
         print(f"time {name}: {ms if ms is None else f'{ms:.4f}'} ms")
     profiles = chain_profiles(dev)
@@ -1046,8 +1134,9 @@ def phase_kernels(dev) -> dict:
 
 def phase_filter_kernels(dev) -> dict:
     """The median and bilateral kernels against their plain versions, bit
-    for bit, then their times, sepconv's generic instance at sharpen's 19
-    taps, and the plain-torch paths left slow."""
+    for bit, then the packed min and max rate, each kernel's time, bound
+    and share at every ksize timed, sepconv's generic instance at sharpen's
+    19 taps, and the plain-torch paths left slow."""
 
     from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter, bilateral_plain, window_offsets
     from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
@@ -1074,15 +1163,21 @@ def phase_filter_kernels(dev) -> dict:
             f"(1,{side},{side},3) uint16": rand((1, side, side, 3), torch.uint16),
             "(1,37,1001) uint8": rand((1, 37, 1001)),
             "(1,41,101,4) uint16": rand((1, 41, 101, 4), torch.uint16),
+            "(1,41,101,2) uint8": rand((1, 41, 101, 2)),
             "(1,9,7,5) uint8": rand((1, 9, 7, 5)),
+            "(1,1,300) uint8 one row": rand((1, 1, 300)),
+            "(2,50,1) uint16 one column": rand((2, 50, 1), torch.uint16),
+            "(1,3,2,3) uint8 smaller than the window": rand((1, 3, 2, 3)),
+            "(5,33,257) uint8 more frames than a block's rows": rand((5, 33, 257)),
         }
-        if ksize <= 7:
+        if ksize <= 9:
             cases["denoise gray frames 0-1 (2,2048,2048)"] = gray[:2]
         for name, imgs in cases.items():
             got, want = median_filter(imgs, ksize), median_plain(imgs, ksize)
             err["median"] |= exact(f"median k{ksize} {name}", got.to(torch.int32), want.to(torch.int32))
     print(f"kernels: median bit-exact at k {MEDIAN_KSIZES} on {side}^2 gray and 3-channel uint8 and uint16, "
-          "ragged frames, 4 and 5 channels, and (k <= 7) the denoise path's gray frames")
+          "ragged frames, 2, 4 and 5 channels, one row, one column, a frame smaller than the window, a batch of "
+          "5, and (k <= 9) the denoise path's gray frames")
     for ksize in BILATERAL_KSIZES:
         sw, lut = bilateral_tables(ksize, dev)
         big = ksize <= 9
@@ -1093,7 +1188,12 @@ def phase_filter_kernels(dev) -> dict:
             "(1,37,101,4)": rand((1, 37, 101, 4)),
             "(1,33,40,2)": rand((1, 33, 40, 2)),
             "(1,29,37,5)": rand((1, 29, 37, 5)),
+            "(1,19,23,9)": rand((1, 19, 23, 9)),
             "(1,5,3,3)": rand((1, 5, 3, 3)),
+            "(1,1,200,3) one row": rand((1, 1, 200, 3)),
+            "(2,50,1) one column": rand((2, 50, 1)),
+            "(3,130,257,3)": rand((3, 130, 257, 3)),
+            "(5,40,129) more frames than a block's rows": rand((5, 40, 129)),
         }
         for name, imgs in cases.items():
             err["bilateral"] |= exact(
@@ -1101,14 +1201,38 @@ def phase_filter_kernels(dev) -> dict:
                 bilateral_filter(imgs, sw, lut, ksize),
                 to_uint8(bilateral_plain(imgs, sw, lut, ksize)),
             )
+    # tables other than the split's: out of the range that keeps the
+    # division on its fast path (the kernel then divides by __fdiv_rn), and
+    # random colour weights in range (the centre's 1)
+    sw5, lut5 = bilateral_tables(5, dev)
+    in_range = torch.rand(768, generator=gen, device=dev)
+    in_range[0] = 1.0
+    other = {
+        "space weights x 2^-12": (sw5 * 2.0**-12, lut5),
+        "space weights x 2^34": (sw5 * 2.0**34, lut5),
+        "random colour weights": (sw5, torch.rand(768, generator=gen, device=dev)),
+        "random colour weights, centre 1": (sw5, in_range),
+    }
+    for tables, (sw, lut) in other.items():
+        for c in (1, 3, 4, 5):
+            imgs = rand((1, 37, 61, c)) if c > 1 else rand((1, 37, 61))
+            err["bilateral"] |= exact(
+                f"bilateral k5 {tables} (1,37,61,{c})",
+                bilateral_filter(imgs, sw, lut, 5),
+                to_uint8(bilateral_plain(imgs, sw, lut, 5)),
+            )
     print(f"kernels: bilateral bit-exact at k {BILATERAL_KSIZES} on gray and BGR frames (2048^2 at k <= 9, the "
-          f"denoise batch at k 5, {side}^2 at k 31), 2, 4 and 5 channels, a frame smaller than the window")
+          f"denoise batch at k 5, {side}^2 at k 31), 2, 4, 5 and 9 channels, one row, one column, a frame smaller "
+          "than the window, widths that are not a multiple of 4, a batch of 5; at k 5 with 1, 3, 4 and 5 channels "
+          "and four tables other than the split's")
 
+    rate = minmax_rate(dev)
+    print(f"time packed 16x2 min and max (yam_vminmax_rate, {RATE_BLOCKS} blocks x 256 threads x {RATE_ROUNDS} "
+          f"rounds of 16): {rate / 1e12:.3f} T ops/s")
     # times on the main paths' inputs: the gray batch (median), the sharpened
     # median's input to sepconv at 19 taps, the BGR batch (bilateral)
     taps19 = sharpen_taps(dev)
     smooth = median_filter(gray, 5)
-    sw5, lut5 = bilateral_tables(5, dev)
     work = torch.nn.functional.pad(gray[:, None].float(), (2, 2, 2, 2), mode="replicate")[:, 0].to(torch.uint8)
     n, h, w = gray.shape
     times = {
@@ -1128,11 +1252,21 @@ def phase_filter_kernels(dev) -> dict:
         # on the frames padded beforehand
         "median": time_ms(lambda: work.unfold(1, 5, 1).unfold(2, 5, 1).reshape(n, h, w, 25).median(-1), runs=5),
     }
-    for ksize in (3, 7, 15, 31):
-        print(f"time median k{ksize} (8,2048,2048) uint8: {time_ms(lambda k=ksize: median_filter(gray, k), runs=3):.4f} ms")
-    for ksize in (9, 31):
-        print(f"time bilateral k{ksize} (8,2048,2048,3): "
-              f"{time_ms(lambda k=ksize: bilateral_filter(bgr, *bilateral_tables(k, dev), k), runs=3):.4f} ms")
+    px_gray = float(gray.numel())
+    px_bgr = float(bgr.numel() // 3)
+    filters = time_filters(dev, {})
+    by_ksize = {"median": {}, "bilateral": {}}
+    for ksize, ms in filters["median"].items():
+        bound = median_bound(px_gray, ksize, rate)
+        by_ksize["median"][ksize] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+    for ksize, ms in filters["bilateral"].items():
+        bound = bilateral_bound(px_bgr, len(window_offsets(ksize)), 3)
+        by_ksize["bilateral"][ksize] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+    for name, rows in by_ksize.items():
+        shape = "(8,2048,2048) gray" if name == "median" else "(8,2048,2048,3) BGR"
+        for ksize, t in rows.items():
+            print(f"time {name} k{ksize} {shape}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it")
     # the plain-torch paths of float32 frames (no kernel): one 2048^2 frame
     gray_f = gray[:1].float()
     slow = {
@@ -1149,22 +1283,14 @@ def phase_filter_kernels(dev) -> dict:
     for name, ms in slow.items():
         print(f"time {name} (plain torch): {ms:.4f} ms")
 
-    px_gray = float(gray.numel())
-    px_bgr = float(bgr.numel() // 3)
-    offsets5 = len(window_offsets(5))
     bounds = {
-        # u8 in and out; 89 compare-exchanges (a min and a max) a pixel, two
-        # pixels an op (packed 16x2)
-        "median": bound_ms(2 * px_gray, int_ops=2 * MEDIAN5_EXCHANGES * px_gray / PACKED16),
-        # u8 in and out; an offset, all float32 (the faster pipe): 3
-        # differences and 2 adds for the distance (the absolutes are operand
-        # modifiers, and 3 uint8 channels need no clamp), the weight's
-        # multiply, the sum's add and 3 FMAs of 2
-        "bilateral": bound_ms(2 * 3 * px_bgr, f32_ops=offsets5 * 13 * px_bgr),
+        "median": median_bound(px_gray, 5, rate),
+        "bilateral": bilateral_bound(px_bgr, len(window_offsets(5)), 3),
         # u8 in and out; 19 + 19 taps, a multiply and an add each
         "sepconv 19": bound_ms(2 * px_gray, f32_ops=2 * 2 * 19 * px_gray),
     }
-    return {"err": err, "times": times, "library": library, "bounds": bounds, "slow": slow}
+    return {"err": err, "times": times, "library": library, "bounds": bounds, "slow": slow, "by_ksize": by_ksize,
+            "minmax_rate": rate}
 
 
 def _counters():
@@ -1387,7 +1513,7 @@ _DENOISE_GROUPS = {
     "sepconv_": "sepconv",
     "lut_apply_kernel": "lut_apply",
 }
-_BILATERAL_GROUPS = {"bilateral_kernel": "bilateral"}
+_BILATERAL_GROUPS = {"bilateral_": "bilateral"}
 
 
 def _batch_chain(steps, shape, device):
@@ -1524,6 +1650,9 @@ def main() -> None:
             entry["bound_ms_19taps"] = filt["bounds"]["sepconv 19"][0]
         if name in ("median", "bilateral"):
             entry["plain_torch_float32_ms"] = {k: v for k, v in filt["slow"].items() if k.startswith(name)}
+            entry["by_ksize"] = filt["by_ksize"][name]
+        if name == "median":
+            entry["minmax_ops_per_s"] = filt["minmax_rate"]
         if name == "histogram256":
             entry["by_input"] = kern["hist_times"]
             entry["bound_ms_one_frame"] = kern["hist_bound_one_ms"]

@@ -25,12 +25,14 @@ is no card::
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
-from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter, bilateral_plain
+from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter, bilateral_plain, radius_for, window_offsets
 from yamimageprocessor_tpu_torch.ops.filters import sep_filter_fma, to_uint8
 from yamimageprocessor_tpu_torch.ops.median import median_filter, median_float, median_plain
 from yamimageprocessor_tpu_torch.ops.registry import dyn_to_torch, get_impl
@@ -187,6 +189,17 @@ def test_bilateral_any_channel_count_matches_jax(channels):
     _same(impl.device_fn(torch.from_numpy(frame)[None], dyn_to_torch(dyn, "cpu"), **static)[0], want)
 
 
+@pytest.mark.parametrize("ksize", range(1, 32))
+def test_bilateral_window_rule_is_window_offsets(ksize):
+    """csrc/bilateral.cu builds the window from the radius: row dy holds dx
+    in [-hw, hw], hw = isqrt(r^2 - dy^2), rows top to bottom."""
+
+    r = radius_for(ksize)
+    rows = [(dy, math.isqrt(r * r - dy * dy)) for dy in range(-r, r + 1)]
+    rule = [(dy + r, dx + r) for dy, hw in rows for dx in range(-hw, hw + 1)]
+    assert rule == list(window_offsets(ksize))
+
+
 def test_sharpen_blur_is_the_fused_gaussian_on_a_1024_frame():
     """``sharpen_j`` traces its 19 taps as XLA constants; ``sep_filter_fma``
     with the taps as operands gives its blurred frame bit for bit."""
@@ -269,11 +282,18 @@ def _card_frames(shape, dtype, seed):
     return torch.randint(0, high, shape, generator=g, dtype=torch.int32).to(dtype)
 
 
+#: frames the kernels' layouts make risky: widths that are not a multiple of
+#: a thread's pixels or pair, width 1 and height 1, frames smaller than the
+#: window, more than one block of rows and columns, batches of several frames
+MEDIAN_SHAPES = [(2, 70, 131), (2, 45, 67, 3), (1, 40, 33, 4), (1, 9, 7, 5), (1, 1, 300), (2, 50, 1), (1, 3, 2, 3),
+                 (3, 130, 517), (1, 41, 101, 2), (5, 33, 257)]
+
+
 @cuda
 @needs_card
 @pytest.mark.parametrize("dtype", (torch.uint8, torch.uint16))
-@pytest.mark.parametrize("shape", [(2, 70, 131), (2, 45, 67, 3), (1, 40, 33, 4), (1, 9, 7, 5)])
-@pytest.mark.parametrize("ksize", (3, 5, 7, 15, 31))
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
+@pytest.mark.parametrize("ksize", (3, 5, 7, 9, 11, 15, 31))
 def test_cuda_median_matches_plain(ksize, shape, dtype):
     imgs = _card_frames(shape, dtype, seed=ksize)
     before = median_filter.launches
@@ -287,9 +307,10 @@ def test_cuda_median_matches_plain(ksize, shape, dtype):
 @needs_card
 @pytest.mark.parametrize(
     "shape", [(2, 70, 131), (2, 45, 67, 3), (1, 40, 33, 4), (1, 5, 3, 3), (1, 33, 40, 2), (2, 29, 37, 5),
-              (1, 19, 23, 9)]
+              (1, 19, 23, 9), (1, 1, 200, 3), (2, 50, 1), (1, 2, 2), (3, 130, 257, 3), (5, 40, 129), (1, 3, 6, 4),
+              (1, 70, 300, 3)]
 )
-@pytest.mark.parametrize("ksize", (1, 3, 5, 9, 31))
+@pytest.mark.parametrize("ksize", (1, 3, 5, 7, 9, 11, 31))
 def test_cuda_bilateral_matches_plain(ksize, shape):
     imgs = _card_frames(shape, torch.uint8, seed=ksize)
     _, dyn = get_impl("preprocessing.noise_reduction").split({"method": "Bilateral", "ksize": ksize})
@@ -301,6 +322,34 @@ def test_cuda_bilateral_matches_plain(ksize, shape):
     want = to_uint8(bilateral_plain(imgs, dyn_to_torch(dyn, "cpu")["space_w"], dyn_to_torch(dyn, "cpu")["color_lut"],
                                     ksize))
     _same(got, want.numpy())
+
+
+#: tables other than the split's (scale of the space weights; seed of random
+#: colour weights, and whether the centre's is 1): out of the range that
+#: keeps the division on its fast path (a weight below 2^-10 or above 2^10,
+#: the centre's weight below 1), where the kernel divides by __fdiv_rn, and
+#: random weights in range
+OTHER_TABLES = {"tiny space weights": (2.0**-12, None, False), "huge space weights": (2.0**34, None, False),
+                "random colour weights": (1.0, 11, False), "random colour weights, centre 1": (1.0, 12, True)}
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("shape", [(1, 37, 61), (1, 37, 61, 3), (1, 37, 61, 4), (1, 37, 61, 5)])
+@pytest.mark.parametrize("tables", sorted(OTHER_TABLES))
+def test_cuda_bilateral_other_tables_match_plain(tables, shape):
+    scale, seed, centre_one = OTHER_TABLES[tables]
+    _, dyn = get_impl("preprocessing.noise_reduction").split({"method": "Bilateral", "ksize": 5})
+    d = dyn_to_torch(dyn, "cpu")
+    sw = d["space_w"] * scale
+    lut = d["color_lut"] if seed is None else torch.from_numpy(
+        np.random.default_rng(seed).uniform(0, 1, 768).astype(np.float32))
+    if centre_one:
+        lut[0] = 1.0
+    imgs = _card_frames(shape, torch.uint8, seed=3)
+    got = bilateral_filter(imgs.cuda(), sw.cuda(), lut.cuda(), 5)
+    torch.cuda.synchronize()
+    _same(got, to_uint8(bilateral_plain(imgs, sw, lut, 5)).numpy())
 
 
 @cuda

@@ -62,7 +62,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_flood": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "yam_tile_histogram_u8": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_median": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "yam_bilateral_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "yam_vminmax_rate": (_P, _I, _I, _P),
+    "yam_bilateral_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_clahe_blend_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 

@@ -25,7 +25,10 @@ some pixels, which rarely moves a uint8 result.
 CUDA tensor of uint8 frames launches the kernel (counted in
 ``bilateral_filter.launches``) at any channel count whose tile fits a
 block's shared memory (94 channels at ksize 31, more below); a CPU tensor
-runs the plain version; nothing falls back from one to the other.
+runs the plain version; nothing falls back from one to the other.  The
+kernel builds the window itself from the radius (row ``dy`` holds ``dx``
+in ``[-hw, hw]``, ``hw = isqrt(r^2 - dy^2)``; the CPU tests hold that rule
+equal to :func:`window_offsets`), so a launch uploads nothing.
 """
 from __future__ import annotations
 
@@ -54,11 +57,6 @@ def window_offsets(ksize: int) -> Tuple[Tuple[int, int], ...]:
 
     _, mask = bilateral_space_weights(ksize, SIGMA)
     return tuple((int(j), int(i)) for j, i in np.argwhere(mask))
-
-
-@functools.lru_cache(maxsize=None)
-def _offsets_tensor(ksize: int, device: torch.device) -> torch.Tensor:
-    return torch.tensor(window_offsets(ksize), dtype=torch.int32, device=device).contiguous()
 
 
 def bilateral_plain(
@@ -118,7 +116,9 @@ def bilateral_filter(
     """``(N, H, W[, C])`` uint8 frames -> the same shape, uint8: the filter,
     rounded half to even and saturated.  ``space_w`` holds the window's
     weights in :func:`window_offsets` order, ``color_lut`` the 768 colour
-    weights (float32 both)."""
+    weights (float32 both).  Any tables give the plain version's bytes: the
+    kernel divides by ``__fdiv_rn``'s fast path only where that path is
+    exact (the split's tables always), and by ``__fdiv_rn`` elsewhere."""
 
     ksize = int(ksize)
     if not _build.on_card("bilateral_filter", imgs):
@@ -133,7 +133,6 @@ def bilateral_filter(
         imgs.device,
         imgs.data_ptr(),
         out.data_ptr(),
-        _offsets_tensor(ksize, imgs.device).data_ptr(),
         space_w.data_ptr(),
         color_lut.data_ptr(),
         n,
@@ -141,7 +140,6 @@ def bilateral_filter(
         w,
         1 if imgs.ndim == 3 else imgs.shape[3],
         radius_for(ksize),
-        len(window_offsets(ksize)),
     )
     bilateral_filter.launches += 1
     return out

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its five
+"""Build and check the torch port on one CUDA card, then drive its six
 main paths once each: the flagship preprocess chain, the segmentation
-chain, the batched CLAHE chain, the denoise chain and the bilateral
-filter.
+chain, the batched CLAHE chain, the denoise chain, the bilateral filter
+and the region-properties extraction.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
@@ -13,7 +13,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    power limit;
 2. build: compiles ``yamimageprocessor_tpu_torch/csrc/*.cu`` with nvcc,
    one process per source;
-3. kernels: each of the ten CUDA kernels against its plain PyTorch version
+3. kernels: each of the ten older CUDA kernels against its plain PyTorch version
    on the card, bit for bit, at the main paths' shapes and at awkward
    ones (sepconv at ksizes 1 to 33 on the flagship batch, on widths that
    are not a multiple of 16 and on frames whose base is 1 byte past
@@ -72,7 +72,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    itself against its digest; the device time, back to back, and the
    profiler's split;
 8. bilateral: one Bilateral step at ksize 5 on the same batch, checked
-   and timed the same way.
+   and timed the same way;
+9. extraction: ``extraction.region_properties``'s
+   ``data_fn`` on ``bench.py:_extra_extraction``'s BGR 1024^2 dense scene
+   (64 regions), ``region_tables`` on its batches of 8 and 32 frames
+   (seeds 0..n-1), on the 4096^2 scene (1024 regions) and on a 2048^2
+   frame of 4x4 blobs (65536 regions), and the op's annotation through
+   the pipeline manager; the tables' exact columns (area, bbox, solidity)
+   against SHA-256 digests of the JAX package's tables, the annotated
+   frame against its digest, every column against the port's CPU run on
+   3 frames; the four extraction kernels (row extremes, moment sums, hull
+   areas, annotation) against their plain versions, bit for bit, on each
+   of those label sets and on a 1024^2 checkerboard, all-background and
+   all-foreground frame, gray and BGR; each kernel's, its plain
+   version's and (scatter_reduce_ for the row extremes, index_add_ for
+   the sums) the library call's device time on the 32-frame batch and
+   on one frame, beside its bound; the data path's device time and
+   back-to-back rate on 1, 8 and 32 frames, the annotation's, and the
+   profiler's split of the 32-frame batch.
 
 The kernel phase also holds the median kernel bit for bit against its
 plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
@@ -169,6 +186,13 @@ MEDIAN_PACKED_OPS = {3: 18 / 2, 5: 160 / 2, 7: 562 / 2, 9: 1304 / 2}
 MEDIAN_HISTOGRAM_OPS = 4 + 16 + 2
 #: min/max rounds of the rate kernel (yam_vminmax_rate) and its blocks
 RATE_ROUNDS, RATE_BLOCKS = 4096, 132 * 8
+EXTRACT_SIDE = 1024  # bench.py:_extra_extraction's frame, BGR
+EXTRACT_BATCHES = (8, 32)  # its mass-extraction batches, seeds 0..n-1
+EXTRACT_WIDE_SIDE = 4096  # the 32 x 32 grid MAX_REGIONS = 1024 was sized for
+BLOBS_SIDE = 2048  # 4x4 blobs on an 8-pixel pitch: 65536 regions
+EXTRACT_CPU_BATCH = 2  # frames of the 8-batch the port's CPU run also takes
+EXTRACT_REPS = 5  # back-to-back calls of the data path
+EXTRACT_KERNELS = ("row_extremes", "moment_sums", "hull_areas", "annotate")
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -187,6 +211,17 @@ DIGESTS = {
     "denoise_output": "ea3b9675fd30c2b9cca38357ce00d4188ed36a6069e7028279fc329fe00b6b55",
     "denoise_crop_output": "054819afefc9d264073337187e12ed20c4e2e551af394f10f0794ebd4931a85f",
     "bilateral_output": "4dc181fad127bee0f7cb4660f81c0aa7e018208425873d2b782d3f378393f13d",
+    "extract_1024_input": "84e8ff962e4d7efde78e161ac08ed4e7c5708ff8047b7a5fec1f2ae2d3062c86",
+    "extract_1024_table": "779ad9cdab5159f0185ed2c2432ec9c520b1af2cd07f246d753602d9c3038341",
+    "extract_4096_input": "d4b085faf6a8d8d8c521adf920e7a459b7fe271ebe0a5f7d28c821737e5f0a94",
+    "extract_4096_table": "03104267c4a9640e1b790bc69fd838465fecbc236029560eef073df9a7b7985b",
+    "extract_blobs_input": "dbb8d622f92eb3eb5282423022a63e80c1b94a5ee3a266f28a283b29050b20d1",
+    "extract_blobs_table": "66b619d84ef5863e7ef44f28879e99a29b8397e43332324f6335a298d1f06165",
+    "extract_batch8_input": "0cfe169af1b9194d61705b74a30921fe5f43cb200f4da6d1d34a872e3f3faf99",
+    "extract_batch8_table": "c764f89370af79ef9944ee4ac5439ed965de843f212dcc3eb0cd10a61016769b",
+    "extract_batch32_input": "7d29de7e4cafffb16cd4918e73793db6d8b1cc2df8a77967e40e5c53b0302a7f",
+    "extract_batch32_table": "19eddff2236005a42fdfcb5a13c576815c113b67cb529abc449eb507506e11b9",
+    "extract_annotated_1024": "cab962cc22fd9eb9a243fd3ae2a36326dc86843e628e772aff1773aed4dcece0",
 }
 
 
@@ -1302,6 +1337,8 @@ def _counters():
     from yamimageprocessor_tpu_torch.ops.median import median_filter
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
     from yamimageprocessor_tpu_torch.ops.watershed import flood
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
 
     return {
         "sepconv": sep_filter_u8,
@@ -1314,6 +1351,10 @@ def _counters():
         "clahe_blend": CL.clahe_blend,
         "median": median_filter,
         "bilateral": bilateral_filter,
+        "row_extremes": RP.row_extremes,
+        "moment_sums": RP.moment_sums,
+        "hull_areas": RP.hull_pixel_areas,
+        "annotate": XD.region_annotate,
     }
 
 
@@ -1569,6 +1610,320 @@ def phase_bilateral(dev) -> dict:
     return run["launches"]
 
 
+# ---------------------------------------------------------------------------
+# extraction: region properties (BASELINE config 4)
+
+
+def extraction_frame(side: int = EXTRACT_SIDE, seed: int = 3) -> np.ndarray:
+    """``bench.py:_extra_extraction``'s BGR frame: the dense scene, gray
+    repeated over three channels."""
+
+    return np.repeat(dense_scene(side, seed)[..., None], 3, axis=-1)
+
+
+def blobs_frame(side: int = BLOBS_SIDE) -> np.ndarray:
+    """4x4 blobs of 220 on an 8-pixel pitch, BGR: (side / 8)^2 regions (a
+    copy of ``scripts/torch_port_digests.py:blobs_frame``)."""
+
+    img = np.zeros((side, side), np.uint8)
+    for y in range(2, side, 8):
+        img[y : y + 4] = np.where((np.arange(side) % 8 >= 2) & (np.arange(side) % 8 < 6), 220, 0)
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def table_digest(tables) -> str:
+    """SHA-256 of the exact columns (area, bbox, solidity over regions
+    1..n; int64, int64, float64) of the port's tables, as
+    ``scripts/torch_port_digests.py:table_digest`` hashes the JAX
+    package's."""
+
+    h = hashlib.sha256()
+    for t in tables:
+        for column, dtype in ((t["meas"].area, np.int64), (t["meas"].bbox, np.int64), (t["solidity"], np.float64)):
+            h.update(np.ascontiguousarray(np.asarray(column)[1:], dtype=dtype).tobytes())
+    return h.hexdigest()
+
+
+def same_tables(name: str, got, want) -> None:
+    """Every column of two lists of tables equal bit for bit."""
+
+    for k, (a, b) in enumerate(zip(got, want)):
+        for col in ("area", "bbox", "centroid_r", "centroid_c", "mu20", "mu02", "mu11", "perimeter"):
+            if not np.array_equal(getattr(a["meas"], col), getattr(b["meas"], col)):
+                raise AssertionError(f"{name} frame {k}: {col} differs")
+        if not np.array_equal(a["solidity"], b["solidity"]):
+            raise AssertionError(f"{name} frame {k}: solidity differs")
+
+
+def extraction_kernels_vs_plain(name: str, labels: torch.Tensor, imgs: torch.Tensor) -> dict:
+    """Kernels A-D against their plain versions on one batch of labels (D
+    on ``imgs``): bit for bit.  Returns the intermediates for timing."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
+
+    nseg = XD.region_count_bound(labels)
+    mn, mx = RP.row_extremes(labels, nseg)
+    pmn, pmx = RP.row_extremes_plain(labels, nseg)
+    err = {"row_extremes": max(exact(f"row_extremes {name} mn", mn, pmn), exact(f"row_extremes {name} mx", mx, pmx))}
+    box = RP.bounding_boxes(mn, mx)
+    sr2, sc2 = (box[..., 0] + box[..., 2]).contiguous(), (box[..., 1] + box[..., 3]).contiguous()
+    sums = RP.moment_sums(labels, sr2, sc2, nseg)
+    err["moment_sums"] = exact(f"moment_sums {name}", sums, RP.moment_sums_plain(labels, sr2, sc2, nseg))
+    lo, hi = box[..., 0].contiguous(), box[..., 2].contiguous()
+    err["hull_areas"] = exact(f"hull_areas {name}", RP.hull_pixel_areas(mn, mx, lo, hi),
+                              RP.hull_pixel_areas_plain(mn, mx, lo, hi))
+    boxes = XD.annotation_boxes(box, sums)
+    err["annotate"] = exact(f"annotate {name}", XD.region_annotate(imgs, boxes), XD.region_annotate_plain(imgs, boxes))
+    torch.cuda.synchronize()
+    return {"labels": labels, "nseg": nseg, "mn": mn, "mx": mx, "box": box, "sr2": sr2, "sc2": sc2, "lo": lo,
+            "hi": hi, "sums": sums, "boxes": boxes, "imgs": imgs, "err": err}
+
+
+def extraction_kernel_times(case: dict) -> dict:
+    """Each kernel's, its plain version's and the library call's device
+    ms on one case, and each kernel's bound."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
+
+    lab, nseg, mn, mx = case["labels"], case["nseg"], case["mn"], case["mx"]
+    sr2, sc2, lo, hi, boxes, imgs = case["sr2"], case["sc2"], case["lo"], case["hi"], case["boxes"], case["imgs"]
+    n, h, w = lab.shape
+    times = {
+        "row_extremes": paired_ms(lambda: RP.row_extremes(lab, nseg), lambda: RP.row_extremes_plain(lab, nseg),
+                                  plain_runs=5),
+        "moment_sums": paired_ms(lambda: RP.moment_sums(lab, sr2, sc2, nseg),
+                                 lambda: RP.moment_sums_plain(lab, sr2, sc2, nseg), plain_runs=3),
+        "hull_areas": paired_ms(lambda: RP.hull_pixel_areas(mn, mx, lo, hi),
+                                lambda: RP.hull_pixel_areas_plain(mn, mx, lo, hi), plain_runs=3),
+        "annotate": paired_ms(lambda: XD.region_annotate(imgs, boxes), lambda: XD.region_annotate_plain(imgs, boxes),
+                              plain_runs=5),
+    }
+    # the one PyTorch call (or pair) that computes each function, given its
+    # index and values: scatter_reduce_ amin and amax for A, index_add_ for B
+    slot = RP._region_index(lab, nseg)
+    rows = torch.arange(h, device=lab.device).reshape(1, h, 1)
+    at = torch.where(slot < n * nseg, slot * h + rows, n * nseg * h).reshape(-1)
+    cols = torch.arange(w, dtype=torch.int32, device=lab.device).expand(n, h, w).reshape(-1)
+    fmn = torch.full((n * nseg * h + 1,), RP.BIG, dtype=torch.int32, device=lab.device)
+    fmx = torch.full((n * nseg * h + 1,), -1, dtype=torch.int32, device=lab.device)
+    vslot, values = RP.moment_values(lab, sr2, sc2, nseg)
+    acc = torch.zeros((n * nseg + 1, RP.SUMS), dtype=torch.int64, device=lab.device)
+    library = {
+        "row_extremes": time_ms(lambda: (fmn.scatter_reduce_(0, at, cols, "amin"),
+                                         fmx.scatter_reduce_(0, at, cols, "amax"))),
+        "moment_sums": time_ms(lambda: acc.index_add_(0, vslot, values)),
+        "hull_areas": None,
+        "annotate": None,
+    }
+    px, g = n * h * w, n * nseg
+    heights = float((hi - lo + 1).clamp_min(0)[:, 1:].sum())
+    channels = 1 if imgs.ndim == 3 else imgs.shape[-1]
+    bounds = {
+        # labels in, the extremes out
+        "row_extremes": bound_ms(4 * px + 2 * 4 * g * h),
+        # labels, the two bbox sums in; nine int64 sums out
+        "moment_sums": bound_ms(4 * px + 2 * 4 * g + 8 * RP.SUMS * g),
+        # each region's rows of mn and mx, its first and last row in; the area out
+        "hull_areas": bound_ms(2 * 4 * heights + 2 * 4 * g + 8 * g),
+        # the image and the boxes in, the annotated image out
+        "annotate": bound_ms(2 * channels * px + 4 * XD.ANNOTATION_BOX * g),
+    }
+    return {"times": times, "library": library, "bounds": bounds}
+
+
+def wall_ms(fn, calls: int = EXTRACT_REPS) -> float:
+    """Host wall ms a call of ``fn`` back to back, after a warm call, each
+    call ending in what it reads back from the device."""
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / calls
+
+
+def phase_extraction(dev) -> dict:
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops.extraction import REGION_COLUMNS, histogram_data, hu_moments_data
+    from yamimageprocessor_tpu_torch.ops.labeling import label
+    from yamimageprocessor_tpu_torch.ops.registry import get_impl
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    frame = extraction_frame()
+    batches = {n: [extraction_frame(seed=s) for s in range(n)] for n in EXTRACT_BATCHES}
+    wide = extraction_frame(EXTRACT_WIDE_SIDE)
+    blobs = blobs_frame()
+    for key, frames in (("1024", [frame]), ("4096", [wide]), ("blobs", [blobs]),
+                        *((f"batch{n}", b) for n, b in batches.items())):
+        check_digest(f"extract_{key}_input", np.stack(frames))
+    impl = get_impl("extraction.region_properties")
+    manager = PipelineManager([PipelineStep(name="Region Properties", stage=Stage.ANALYSIS)], device=dev)
+
+    XD.clear_table_cache()
+    run = drive(
+        "extraction",
+        ("histogram256", "cc") + EXTRACT_KERNELS,
+        lambda: (
+            impl.data_fn(frame),
+            {n: XD.region_tables(b) for n, b in batches.items()},
+            XD.region_tables([wide]),
+            XD.region_tables([blobs]),
+            manager.apply(frame),
+            hu_moments_data(frame),
+            histogram_data(frame),
+        ),
+    )
+    data, batch_tables, wide_tables, blob_tables, annotated, hu, hist = run["out"]
+    one = XD.region_table(frame)  # a memo hit: the table data_fn made
+    counts = {"1024": [one["meas"].count], "4096": [t["meas"].count for t in wide_tables],
+              "blobs": [t["meas"].count for t in blob_tables]}
+    for key, tables in (("1024", [one]), ("4096", wide_tables), ("blobs", blob_tables),
+                        *((f"batch{n}", t) for n, t in batch_tables.items())):
+        got = table_digest(tables)
+        if got != DIGESTS[f"extract_{key}_table"]:
+            raise AssertionError(f"extract_{key}_table: {got}, the JAX package's is {DIGESTS[f'extract_{key}_table']}")
+    # the dense scene has a disk every 128 pixels, the blobs one every 8
+    want = {"1024": [(EXTRACT_SIDE // 128) ** 2], "4096": [(EXTRACT_WIDE_SIDE // 128) ** 2],
+            "blobs": [(BLOBS_SIDE // 8) ** 2]}
+    if counts != want:
+        raise AssertionError(f"extraction region counts {counts}, want {want}")
+    if tuple(data) != REGION_COLUMNS or data["centroid"].shape != (want["1024"][0], 2):
+        raise AssertionError(f"extraction data_fn columns {tuple(data)}")
+    check_digest("extract_annotated_1024", annotated)
+    XD.clear_table_cache()
+    cpu_frames = [frame] + batches[EXTRACT_BATCHES[0]][:EXTRACT_CPU_BATCH]
+    same_tables("extraction cuda vs cpu", [one] + batch_tables[EXTRACT_BATCHES[0]][:EXTRACT_CPU_BATCH],
+                XD.region_tables(cpu_frames, device="cpu"))
+    exact("extraction annotation cuda vs cpu", torch.from_numpy(annotated),
+          XD.region_properties_device_fn(torch.from_numpy(frame)[None], {})[0])
+    for name, got, want in (("hu_moments", hu, hu_moments_data(frame, device="cpu")),
+                            ("histogram", hist, histogram_data(frame, device="cpu"))):
+        if list(got) != list(want) or any(not np.array_equal(got[k], want[k]) for k in got):
+            raise AssertionError(f"extraction {name} data on cuda differs from the CPU run: {got} {want}")
+    print(f"extraction: exact columns == the JAX package's digests on {EXTRACT_SIDE}^2 ({counts['1024'][0]} regions), batches of "
+          f"{EXTRACT_BATCHES}, {EXTRACT_WIDE_SIDE}^2 ({counts['4096'][0]} regions) and {BLOBS_SIDE}^2 blobs "
+          f"({counts['blobs'][0]} regions); the annotated {EXTRACT_SIDE}^2 frame == its digest; every column == "
+          f"the port's CPU run on {len(cpu_frames)} frames; data_fn columns {len(data)}; Hu moments and histogram "
+          f"statistics == the port's CPU run")
+
+    # kernels A-D against their plain versions
+    def labels_of(frames):
+        return XD.region_labels(torch.from_numpy(np.stack(frames)).to(dev))
+
+    yy, xx = np.mgrid[:EXTRACT_SIDE, :EXTRACT_SIDE]
+    noise = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, EXTRACT_SIDE, EXTRACT_SIDE, 3),
+                                                               dtype=np.uint8)).to(dev)
+    masks = {
+        "checkerboard": (yy + xx) % 2 == 0,
+        "all background": np.zeros_like(yy, bool),
+        "all foreground": np.ones_like(yy, bool),
+    }
+    cases = {}
+    for name, frames in ((f"scene {EXTRACT_SIDE}^2", [frame]), *((f"batch {n}", b) for n, b in batches.items()),
+                         (f"scene {EXTRACT_WIDE_SIDE}^2", [wide]), (f"blobs {BLOBS_SIDE}^2", [blobs])):
+        imgs = torch.from_numpy(np.stack(frames)).to(dev)
+        cases[name] = extraction_kernels_vs_plain(name, labels_of(frames), imgs)
+    errors = {k: max(c["err"][k] for c in cases.values()) for k in EXTRACT_KERNELS}
+    scene = cases[f"scene {EXTRACT_SIDE}^2"]
+    for dtype in (torch.float32, torch.uint16):  # the annotation copies a pixel's bytes whatever the dtype
+        imgs = scene["imgs"].to(torch.int32).mul(7).to(dtype)
+        errors["annotate"] = max(errors["annotate"], exact(
+            f"annotate scene {dtype}", XD.region_annotate(imgs, scene["boxes"]),
+            XD.region_annotate_plain(imgs, scene["boxes"])))
+    for name, mask in masks.items():
+        lab = label(torch.from_numpy(mask)[None].to(dev))
+        for colour, imgs in (("BGR", noise), ("gray", noise[..., 0].contiguous())):
+            err = extraction_kernels_vs_plain(f"{name} {colour}", lab, imgs)["err"]
+            errors = {k: max(errors[k], err[k]) for k in EXTRACT_KERNELS}
+    print(f"kernels: row_extremes, moment_sums, hull_areas and annotate bit-exact on {', '.join(cases)}, and on a "
+          f"{EXTRACT_SIDE}^2 checkerboard, all-background and all-foreground frame (gray and BGR); annotate also on "
+          "float32 and uint16 copies of the scene")
+
+    main_case = f"batch {EXTRACT_BATCHES[-1]}"
+    timed = extraction_kernel_times(cases[main_case])
+    one_frame = extraction_kernel_times(cases[f"scene {EXTRACT_SIDE}^2"])
+    for k in EXTRACT_KERNELS:
+        print(f"time {k} on {main_case}: kernel {timed['times'][k][0]:.4f} ms, plain {timed['times'][k][1]:.4f}, "
+              f"library {timed['library'][k]}, bound {timed['bounds'][k][0]:.4f} ({timed['bounds'][k][1]}); "
+              f"one {EXTRACT_SIDE}^2 frame: kernel {one_frame['times'][k][0]:.4f}, "
+              f"bound {one_frame['bounds'][k][0]:.4f}")
+
+    # the data path and the annotation chain: device time (event pairs, the
+    # region count known) and back to back on the host clock (upload, the
+    # two reads back and the host's float64 finish included)
+    rates = {}
+    for name, frames in (("1 frame", [frame]), *((f"{n} frames", b) for n, b in batches.items())):
+        x = torch.from_numpy(np.stack(frames)).to(dev)
+        nseg = XD.region_count_bound(XD.region_labels(x))
+        device_ms = time_ms(lambda: XD.region_pack(XD.region_labels(x), nseg), runs=10)
+
+        def tables():
+            XD.clear_table_cache()
+            return XD.region_tables(frames)
+
+        loop_ms = wall_ms(tables)
+        mpix = len(frames) * EXTRACT_SIDE * EXTRACT_SIDE / 1e6
+        rates[name] = {"device_ms": device_ms, "wall_ms": loop_ms, "device_mpix_s": mpix / (device_ms / 1e3),
+                       "wall_mpix_s": mpix / (loop_ms / 1e3)}
+        print(f"extraction data path, {name} of {EXTRACT_SIDE}^2: device {device_ms:.4f} ms "
+              f"({rates[name]['device_mpix_s']:.1f} MPix/s); back to back {loop_ms:.4f} ms a call "
+              f"({rates[name]['wall_mpix_s']:.1f} MPix/s)")
+    # where the 32-frame call's host time goes, one pass on the host clock
+    frames = batches[EXTRACT_BATCHES[-1]]
+    marks = [time.perf_counter()]
+    tokens = [XD._frame_token(f) for f in frames]
+    marks.append(time.perf_counter())
+    x = torch.from_numpy(np.stack(frames)).to(dev)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    labels = XD.region_labels(x)
+    maxima = labels.amax(dim=(1, 2)).cpu()
+    pack = XD.region_pack(labels, int(maxima.max()) + 1).cpu().numpy()
+    marks.append(time.perf_counter())
+    finished = [XD._finalize_region_table(pack[k, : int(c) + 1], int(c)) for k, c in enumerate(maxima)]
+    marks.append(time.perf_counter())
+    split = dict(zip(("content tokens", "stack and upload", "device and two reads back", "float64 finish"),
+                     np.diff(marks) * 1e3))
+    same_tables("extraction host split", finished, batch_tables[EXTRACT_BATCHES[-1]])
+    rates["host split 32 frames ms"] = split
+    print(f"extraction data path, {len(frames)} frames, host clock split (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; {len(tokens)} tokens")
+    x = torch.from_numpy(frame)[None].to(dev)
+    nseg = XD.region_count_bound(XD.region_labels(x))
+
+    def annotate_device():
+        box, sums, _ = XD.measure(XD.region_labels(x), nseg)
+        return XD.region_annotate(x, XD.annotation_boxes(box, sums))
+
+    ann_device = time_ms(annotate_device, runs=10)
+    ann_wall = wall_ms(lambda: manager.apply(frame))
+    rates["annotation"] = {"device_ms": ann_device, "wall_ms": ann_wall}
+    print(f"extraction annotation chain, one {EXTRACT_SIDE}^2 frame: device {ann_device:.4f} ms; manager.apply "
+          f"back to back {ann_wall:.4f} ms")
+    x32 = torch.from_numpy(np.stack(batches[EXTRACT_BATCHES[-1]])).to(dev)
+    nseg32 = XD.region_count_bound(XD.region_labels(x32))
+    print_profile("extraction", chain_profile(lambda: XD.region_pack(XD.region_labels(x32), nseg32),
+                                              _EXTRACTION_GROUPS))
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], "timed": timed, "one_frame": one_frame, "main_case": main_case,
+            "rates": rates, "err": errors}
+
+
+_EXTRACTION_GROUPS = {
+    "histogram256": "histogram256",
+    "cc_": "cc",
+    "row_extremes": "row_extremes",
+    "moment_sums": "moment_sums",
+    "hull_areas": "hull_areas",
+}
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--times-of"]:
         times_of(sys.argv[2])
@@ -1579,15 +1934,12 @@ def main() -> None:
     kern = phase_kernels(dev)
     filt = phase_filter_kernels(dev)
     launches = {}
-    for path_launches in (
-        phase_flagship(dev),
-        phase_segmentation(dev),
-        phase_clahe(dev),
-        phase_denoise(dev),
-        phase_bilateral(dev),
-    ):
-        for name, count in path_launches.items():
+    for phase in (phase_flagship, phase_segmentation, phase_clahe, phase_denoise, phase_bilateral):
+        for name, count in phase(dev).items():
             launches[name] = launches.get(name, 0) + count
+    ext = phase_extraction(dev)
+    for name, count in ext["launches"].items():
+        launches[name] = launches.get(name, 0) + count
     loaded = sorted(
         k for k in sys.modules
         if k == "jax" or k.startswith("jax.") or k == "yamimageprocessor_tpu" or k.startswith("yamimageprocessor_tpu.")
@@ -1622,7 +1974,26 @@ def main() -> None:
         ("bilateral", "yamimageprocessor_tpu_torch/csrc/bilateral.cu",
          "yamimageprocessor_tpu/ops/filters.py:390 bilateral_j (XLA, not a pallas_call)",
          "none: PyTorch has no bilateral filter; ms: ksize 5 on the (8,2048,2048,3) BGR batch"),
+        ("row_extremes", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
+         "yamimageprocessor_tpu/ops/regionprops.py:196 row_extremes_j (XLA, not a pallas_call)",
+         f"two scatter_reduce_ calls (amin, amax) on the precomputed index; ms: the {ext['main_case']} labels"),
+        ("moment_sums", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
+         "yamimageprocessor_tpu/ops/regionprops.py:369 _moment_sums_matmul and :500 _perimeter_weights_j "
+         "(XLA, not a pallas_call)",
+         f"index_add_ of the precomputed (pixels, 9) values; ms: the {ext['main_case']} labels"),
+        ("hull_areas", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
+         "yamimageprocessor_tpu/ops/regionprops.py:574 hull_pixel_areas_j (XLA, not a pallas_call)",
+         f"none: PyTorch has no convex hull; ms: the {ext['main_case']} labels"),
+        ("annotate", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
+         "yamimageprocessor_tpu/ops/extraction_device.py:90 region_annotate_j (XLA, not a pallas_call)",
+         f"none: no PyTorch call paints outlines and disks; ms: the {ext['main_case']} BGR frames "
+         "(a memset and 2 CUDA launches)"),
     ]
+    for name in EXTRACT_KERNELS:
+        kern["err"][name] = ext["err"][name]
+        kern["times"][name] = ext["timed"]["times"][name]
+        kern["bounds"][name] = ext["timed"]["bounds"][name]
+        kern["library"][name] = ext["timed"]["library"][name]
     for name in ("median", "bilateral"):
         kern["err"][name] = filt["err"][name]
         kern["times"][name] = filt["times"][name]
@@ -1661,11 +2032,15 @@ def main() -> None:
             entry["case_ms"] = {k[3:]: v for k, v in kern["case_times"].items() if k.startswith("cc ")}
         if name == "clahe_blend":
             entry["shared_bytes"] = kern["blend_shared_bytes"]
+        if name in EXTRACT_KERNELS:
+            entry["one_frame_ms"] = ext["one_frame"]["times"][name][0]
+            entry["one_frame_bound_ms"] = ext["one_frame"]["bounds"][name][0]
         if name == "flood":
             entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]
             entry["swept_bound_ms"] = kern["flood_swept_bound_ms"]
         entries.append(entry)
+    print(f"extraction rates: {json.dumps(ext['rates'])}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(

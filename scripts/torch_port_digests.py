@@ -21,8 +21,14 @@ are not dyadic, so the result pins XLA's fused multiply-adds; the denoise
 chain, Grayscale -> Median 5 -> Sharpen 1.0 -> Normalize 0..255 -> the
 crop preview at (512, 512, 1024, 1024), and the same chain ending in the
 crop itself; one Bilateral step at ksize 5; each batched over the 8
-frames).  ``chip_smoke.py`` keeps these as constants.  Takes about 90 s and
-a few GB of memory on an 8-core CPU.
+frames); and the exact columns (area, bbox, solidity) of the JAX package's
+region tables on a CPU (``region_properties_data``'s host path: ``label_np``,
+``measure_np``, ``solidity_np``) for the extraction frames (the BGR
+``bench._dense_scene(1024)``, its batches of seeds 0-7 and 0-31 as
+``bench.py:_extra_extraction`` builds them, ``_dense_scene(4096)``, and a
+2048^2 frame of 4x4 blobs on an 8-pixel pitch, 65536 regions), with the
+1024^2 frame's annotated image.  ``chip_smoke.py`` keeps these as
+constants.  Takes about 3 min and a few GB of memory on an 8-core CPU.
 """
 from __future__ import annotations
 
@@ -45,8 +51,60 @@ DENOISE_SHAPE = (8, 2048, 2048, 3)
 CROP_BOX = {"x_offset": 512, "y_offset": 512, "width": 1024, "height": 1024}
 
 
+EXTRACT_SIDE = 1024
+EXTRACT_BATCHES = (8, 32)
+EXTRACT_WIDE_SIDE = 4096
+BLOBS_SIDE = 2048
+
+
 def digest(array: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def table_digest(tables) -> str:
+    """SHA-256 of the exact columns of per-frame region tables, each
+    ``(area, bbox, solidity)`` over regions 1..n: int64, int64, float64."""
+
+    h = hashlib.sha256()
+    for area, bbox, solidity in tables:
+        for column, dtype in ((area, np.int64), (bbox, np.int64), (solidity, np.float64)):
+            h.update(np.ascontiguousarray(np.asarray(column)[1:], dtype=dtype).tobytes())
+    return h.hexdigest()
+
+
+def blobs_frame(side: int = BLOBS_SIDE) -> np.ndarray:
+    """4x4 blobs of 220 on an 8-pixel pitch, BGR: (side / 8)^2 regions."""
+
+    img = np.zeros((side, side), np.uint8)
+    for y in range(2, side, 8):
+        img[y : y + 4] = np.where((np.arange(side) % 8 >= 2) & (np.arange(side) % 8 < 6), 220, 0)
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def extraction_digests(result: dict) -> None:
+    from bench import _dense_scene
+    from yamimageprocessor_tpu.ops import extraction as EX
+    from yamimageprocessor_tpu.ops import regionprops as RP
+    from yamimageprocessor_tpu.ops.labeling import label_np
+
+    def bgr(side, seed=3):
+        return np.repeat(_dense_scene(side, seed=seed)[..., None], 3, axis=-1)
+
+    def table(frame):
+        labels = label_np(EX._binary(frame) > 0)
+        meas = RP.measure_np(labels)
+        return meas.area, meas.bbox, RP.solidity_np(labels, meas)
+
+    frame = bgr(EXTRACT_SIDE)
+    cases = {"extract_1024": [frame], "extract_4096": [bgr(EXTRACT_WIDE_SIDE)], "extract_blobs": [blobs_frame()]}
+    for count in EXTRACT_BATCHES:
+        cases[f"extract_batch{count}"] = [bgr(EXTRACT_SIDE, seed=s) for s in range(count)]
+    for name, frames in cases.items():
+        tables = [table(f) for f in frames]
+        result[f"{name}_input"] = digest(np.stack(frames))
+        result[f"{name}_table"] = table_digest(tables)
+        result[f"{name}_regions"] = [int(len(t[0]) - 1) for t in tables]
+    result["extract_annotated_1024"] = digest(EX.region_properties_extraction(frame))
 
 
 def clahe_steps():
@@ -150,6 +208,7 @@ def main() -> None:
         out = np.asarray(get_compiled_chain(steps, bgr.shape, np.uint8, batch=bgr.shape[0]).run_final(bgr, steps))
         result[f"{name}_output"] = digest(out)
         result[f"{name}_output_shape"] = list(out.shape)
+    extraction_digests(result)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

@@ -24,8 +24,9 @@ PORTED = sorted(op.identifier for op in ALL_OPS)
 
 def test_the_port_has_the_eleven_ops_of_its_two_chains():
     """The eleven ops of the flagship and segmentation chains, the two the
-    CLAHE chain adds, and the rest of preprocessing: all ten preprocessing
-    ops of the reference."""
+    CLAHE chain adds, the rest of preprocessing (all ten preprocessing ops
+    of the reference), the region-properties extraction, Hu moments and
+    histogram statistics."""
 
     assert PORTED == sorted(
         [
@@ -46,6 +47,9 @@ def test_the_port_has_the_eleven_ops_of_its_two_chains():
             "segmentation.dilation",
             "segmentation.erosion",
             "segmentation.watershed",
+            "extraction.region_properties",
+            "extraction.hu_moments",
+            "extraction.histogram",
         ]
     )
 
@@ -63,6 +67,7 @@ def test_records_and_flags_match_jax(identifier):
     assert (impl.lut_fn is not None) == (jimpl.lut_fn is not None)
     assert impl.lut_needs_image == jimpl.lut_needs_image
     assert tuple(impl.lut_ndims) == tuple(jimpl.lut_ndims)
+    assert (impl.data_fn is not None) == (jimpl.data_fn is not None)
 
 
 @pytest.mark.parametrize("identifier", PORTED)
@@ -112,6 +117,9 @@ _SPLIT_CASES = [
     ("segmentation.closing", {"kernel_shape": "Elliptical", "kernel_size": 5, "iterations": 1}),
     ("segmentation.dilation", {}),
     ("segmentation.erosion", {"kernel_shape": "Cross", "kernel_size": 7, "iterations": 0}),
+    ("extraction.region_properties", {}),
+    ("extraction.hu_moments", {}),
+    ("extraction.histogram", {}),
 ]
 
 

@@ -16,7 +16,8 @@ shape ``(256,)`` (one for every frame) or ``(B, 256)`` (one per frame);
 open a composed run, and ``lut_ndims`` the item ranks the table applies
 to.  ``out_item(item_shape, dtype, **static)`` gives the item shape and
 numpy dtype a step produces, which the chain runner tracks from step to
-step.
+step.  ``data_fn`` is an extraction op's table function (the reference's
+``*_data``).
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ class OpImpl:
     """A torch device implementation of one op."""
 
     schema: OpSchema
-    device_fn: Callable[..., torch.Tensor]
+    #: None for an op whose only output in the port is its ``data_fn`` table
+    device_fn: Optional[Callable[..., torch.Tensor]]
     split: Callable[[Mapping[str, Any]], SplitResult] = field(default=_no_params)
     #: stencil radius given params: an int or ``fn(params) -> int``
     halo: Any = 0
@@ -53,6 +55,7 @@ class OpImpl:
     lut_needs_image: bool = False
     lut_ndims: Tuple[int, ...] = (2, 3)
     out_item: Callable[..., Tuple[Tuple[int, ...], np.dtype]] = field(default=_same_item)
+    data_fn: Optional[Callable[..., Any]] = None
 
     @property
     def identifier(self) -> str:
@@ -80,6 +83,7 @@ def get_impl(identifier: str) -> OpImpl:
     impl = _REGISTRY.get(identifier)
     if impl is None:
         # importing these modules registers every ported op
+        from yamimageprocessor_tpu_torch.ops import extraction  # noqa: F401
         from yamimageprocessor_tpu_torch.ops import preprocess  # noqa: F401
         from yamimageprocessor_tpu_torch.ops import segmentation  # noqa: F401
 

@@ -59,6 +59,9 @@ ALL_OPS: Tuple[OpSchema, ...] = (
     OpSchema("segmentation.closing", Stage.SEGMENTATION, "Closing", "Closing"),
     OpSchema("segmentation.dilation", Stage.SEGMENTATION, "Dilation", "Dilation"),
     OpSchema("segmentation.erosion", Stage.SEGMENTATION, "Erosion", "Erosion"),
+    OpSchema("extraction.region_properties", Stage.ANALYSIS, "Region Properties", "Region Properties"),
+    OpSchema("extraction.hu_moments", Stage.ANALYSIS, "Hu Moments", "Hu Moments"),
+    OpSchema("extraction.histogram", Stage.ANALYSIS, "Histogram", "Histogram"),
 )
 
 _BY_ID: Dict[str, OpSchema] = {op.identifier: op for op in ALL_OPS}

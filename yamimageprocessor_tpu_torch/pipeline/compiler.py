@@ -4,8 +4,9 @@
 The plan is the reference's (``compiler.py:66-74``): consecutive op steps
 form a device segment, consecutive steps that hold a plain function a
 host segment, which runs them on host arrays.  An op the port has no
-torch implementation for raises ``NotImplementedError``; it is never sent
-to the host instead.
+torch implementation for raises ``NotImplementedError``, and so does an
+extraction op whose only output in the port is its table (``data_fn``);
+neither is sent to the host instead.
 
 The item shape and dtype are tracked from step to step, as the reference
 does with ``eval_shape`` (``compiler.py:115-160``): each op's ``out_item``
@@ -193,6 +194,12 @@ class CompiledChain:
                 known = False  # a host step's output is known only by running it
                 continue
             impls = [_torch_impl(self.steps[i]) for i in plan.indices]
+            for impl in impls:
+                if impl is not None and impl.device_fn is None:
+                    raise NotImplementedError(
+                        f"op {impl.identifier!r} has no image output in the port (the reference draws host "
+                        "text); call its data_fn"
+                    )
             self._impls[seg_idx] = impls
             if known:
                 statics, _ = self._split(seg_idx, self.steps)

@@ -81,15 +81,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    the pipeline manager; the tables' exact columns (area, bbox, solidity)
    against SHA-256 digests of the JAX package's tables, the annotated
    frame against its digest, every column against the port's CPU run on
-   3 frames; the four extraction kernels (row extremes, moment sums, hull
-   areas, annotation) against their plain versions, bit for bit, on each
-   of those label sets and on a 1024^2 checkerboard, all-background and
-   all-foreground frame, gray and BGR; each kernel's, its plain
-   version's and (scatter_reduce_ for the row extremes, index_add_ for
-   the sums) the library call's device time on the 32-frame batch and
-   on one frame, beside its bound; the data path's device time and
-   back-to-back rate on 1, 8 and 32 frames, the annotation's, and the
-   profiler's split of the 32-frame batch.
+   3 frames; the three extraction kernels (the label pass: row extremes,
+   bboxes, moment and perimeter sums; hull areas; annotation) against
+   their plain versions, bit for bit, on each of those label sets and on
+   a 1024^2 checkerboard, all-background and all-foreground frame, gray
+   and BGR, the label pass also against the parent's composition (row
+   extremes, their bbox, the sums about the bbox centre); each kernel's,
+   its plain version's and (for the label pass: scatter_reduce_ amin and
+   amax, then index_add_ of the per-pixel sums) the library calls'
+   device time on the 32-frame batch and on one frame, beside its bound,
+   and the label pass's time and bound on each of the five label sets;
+   the data path's device time and back-to-back rate on 1, 8 and 32
+   frames, the annotation's, and the profiler's split of the 32-frame
+   batch.
 
 The kernel phase also holds the median kernel bit for bit against its
 plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
@@ -192,7 +196,7 @@ EXTRACT_WIDE_SIDE = 4096  # the 32 x 32 grid MAX_REGIONS = 1024 was sized for
 BLOBS_SIDE = 2048  # 4x4 blobs on an 8-pixel pitch: 65536 regions
 EXTRACT_CPU_BATCH = 2  # frames of the 8-batch the port's CPU run also takes
 EXTRACT_REPS = 5  # back-to-back calls of the data path
-EXTRACT_KERNELS = ("row_extremes", "moment_sums", "hull_areas", "annotate")
+EXTRACT_KERNELS = ("region_scan", "hull_areas", "annotate")
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -1351,8 +1355,7 @@ def _counters():
         "clahe_blend": CL.clahe_blend,
         "median": median_filter,
         "bilateral": bilateral_filter,
-        "row_extremes": RP.row_extremes,
-        "moment_sums": RP.moment_sums,
+        "region_scan": RP.region_scan,
         "hull_areas": RP.hull_pixel_areas,
         "annotate": XD.region_annotate,
     }
@@ -1656,75 +1659,88 @@ def same_tables(name: str, got, want) -> None:
 
 
 def extraction_kernels_vs_plain(name: str, labels: torch.Tensor, imgs: torch.Tensor) -> dict:
-    """Kernels A-D against their plain versions on one batch of labels (D
-    on ``imgs``): bit for bit.  Returns the intermediates for timing."""
+    """The label pass, the hull and the annotation (on ``imgs``) against
+    their plain versions on one batch of labels, bit for bit; the label
+    pass also against the parent's composition (row extremes, their bbox,
+    the sums about the bbox centre).  Returns the intermediates for
+    timing."""
 
     from yamimageprocessor_tpu_torch.ops import extraction_device as XD
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
 
     nseg = XD.region_count_bound(labels)
-    mn, mx = RP.row_extremes(labels, nseg)
-    pmn, pmx = RP.row_extremes_plain(labels, nseg)
-    err = {"row_extremes": max(exact(f"row_extremes {name} mn", mn, pmn), exact(f"row_extremes {name} mx", mx, pmx))}
-    box = RP.bounding_boxes(mn, mx)
-    sr2, sc2 = (box[..., 0] + box[..., 2]).contiguous(), (box[..., 1] + box[..., 3]).contiguous()
-    sums = RP.moment_sums(labels, sr2, sc2, nseg)
-    err["moment_sums"] = exact(f"moment_sums {name}", sums, RP.moment_sums_plain(labels, sr2, sc2, nseg))
+    box, sums, mn, mx = RP.region_scan(labels, nseg)
+    pbox, psums, pmn, pmx = RP.region_scan_plain(labels, nseg)
+    err = {"region_scan": max(exact(f"region_scan {name} {k}", a, b) for k, a, b in
+                              (("box", box, pbox), ("sums", sums, psums), ("mn", mn, pmn), ("mx", mx, pmx)))}
+    omn, omx = RP.row_extremes_plain(labels, nseg)
+    obox = RP.bounding_boxes(omn, omx)
+    sr2, sc2 = (obox[..., 0] + obox[..., 2]).contiguous(), (obox[..., 1] + obox[..., 3]).contiguous()
+    for k, a, b in (("box", box, obox), ("sums", sums, RP.moment_sums_plain(labels, sr2, sc2, nseg)),
+                    ("mn", mn, omn), ("mx", mx, omx)):
+        exact(f"region_scan {name} {k} vs the parent's composition", a, b)
     lo, hi = box[..., 0].contiguous(), box[..., 2].contiguous()
     err["hull_areas"] = exact(f"hull_areas {name}", RP.hull_pixel_areas(mn, mx, lo, hi),
                               RP.hull_pixel_areas_plain(mn, mx, lo, hi))
     boxes = XD.annotation_boxes(box, sums)
     err["annotate"] = exact(f"annotate {name}", XD.region_annotate(imgs, boxes), XD.region_annotate_plain(imgs, boxes))
     torch.cuda.synchronize()
-    return {"labels": labels, "nseg": nseg, "mn": mn, "mx": mx, "box": box, "sr2": sr2, "sc2": sc2, "lo": lo,
-            "hi": hi, "sums": sums, "boxes": boxes, "imgs": imgs, "err": err}
+    return {"labels": labels, "nseg": nseg, "mn": mn, "mx": mx, "box": box, "lo": lo, "hi": hi, "sums": sums,
+            "boxes": boxes, "imgs": imgs, "err": err}
+
+
+def region_scan_bound(labels: torch.Tensor, nseg: int):
+    """The label pass's bound: the labels read once, the (N, nseg, H)
+    extremes, the boxes and the sums written once."""
+
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
+
+    n, h, w = labels.shape
+    g = n * nseg
+    return bound_ms(4 * n * h * w + 2 * 4 * g * h + 4 * 4 * g + 8 * RP.SUMS * g)
 
 
 def extraction_kernel_times(case: dict) -> dict:
-    """Each kernel's, its plain version's and the library call's device
+    """Each kernel's, its plain version's and the library calls' device
     ms on one case, and each kernel's bound."""
 
     from yamimageprocessor_tpu_torch.ops import extraction_device as XD
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
 
     lab, nseg, mn, mx = case["labels"], case["nseg"], case["mn"], case["mx"]
-    sr2, sc2, lo, hi, boxes, imgs = case["sr2"], case["sc2"], case["lo"], case["hi"], case["boxes"], case["imgs"]
+    lo, hi, boxes, imgs = case["lo"], case["hi"], case["boxes"], case["imgs"]
     n, h, w = lab.shape
     times = {
-        "row_extremes": paired_ms(lambda: RP.row_extremes(lab, nseg), lambda: RP.row_extremes_plain(lab, nseg),
-                                  plain_runs=5),
-        "moment_sums": paired_ms(lambda: RP.moment_sums(lab, sr2, sc2, nseg),
-                                 lambda: RP.moment_sums_plain(lab, sr2, sc2, nseg), plain_runs=3),
+        "region_scan": paired_ms(lambda: RP.region_scan(lab, nseg), lambda: RP.region_scan_plain(lab, nseg),
+                                 plain_runs=3),
         "hull_areas": paired_ms(lambda: RP.hull_pixel_areas(mn, mx, lo, hi),
                                 lambda: RP.hull_pixel_areas_plain(mn, mx, lo, hi), plain_runs=3),
         "annotate": paired_ms(lambda: XD.region_annotate(imgs, boxes), lambda: XD.region_annotate_plain(imgs, boxes),
                               plain_runs=5),
     }
-    # the one PyTorch call (or pair) that computes each function, given its
-    # index and values: scatter_reduce_ amin and amax for A, index_add_ for B
+    # the PyTorch calls that compute the label pass's function, given its
+    # index and values: scatter_reduce_ amin and amax for the extremes,
+    # index_add_ of the (pixels, 9) sums (the port calls neither)
     slot = RP._region_index(lab, nseg)
     rows = torch.arange(h, device=lab.device).reshape(1, h, 1)
     at = torch.where(slot < n * nseg, slot * h + rows, n * nseg * h).reshape(-1)
     cols = torch.arange(w, dtype=torch.int32, device=lab.device).expand(n, h, w).reshape(-1)
     fmn = torch.full((n * nseg * h + 1,), RP.BIG, dtype=torch.int32, device=lab.device)
     fmx = torch.full((n * nseg * h + 1,), -1, dtype=torch.int32, device=lab.device)
-    vslot, values = RP.moment_values(lab, sr2, sc2, nseg)
+    vslot, values = RP.origin_values(lab, nseg)
     acc = torch.zeros((n * nseg + 1, RP.SUMS), dtype=torch.int64, device=lab.device)
     library = {
-        "row_extremes": time_ms(lambda: (fmn.scatter_reduce_(0, at, cols, "amin"),
-                                         fmx.scatter_reduce_(0, at, cols, "amax"))),
-        "moment_sums": time_ms(lambda: acc.index_add_(0, vslot, values)),
+        "region_scan": time_ms(lambda: (fmn.scatter_reduce_(0, at, cols, "amin"),
+                                        fmx.scatter_reduce_(0, at, cols, "amax"), acc.index_add_(0, vslot, values))),
         "hull_areas": None,
         "annotate": None,
     }
+    del vslot, values, slot, at, cols
     px, g = n * h * w, n * nseg
     heights = float((hi - lo + 1).clamp_min(0)[:, 1:].sum())
     channels = 1 if imgs.ndim == 3 else imgs.shape[-1]
     bounds = {
-        # labels in, the extremes out
-        "row_extremes": bound_ms(4 * px + 2 * 4 * g * h),
-        # labels, the two bbox sums in; nine int64 sums out
-        "moment_sums": bound_ms(4 * px + 2 * 4 * g + 8 * RP.SUMS * g),
+        "region_scan": region_scan_bound(lab, nseg),
         # each region's rows of mn and mx, its first and last row in; the area out
         "hull_areas": bound_ms(2 * 4 * heights + 2 * 4 * g + 8 * g),
         # the image and the boxes in, the annotated image out
@@ -1748,6 +1764,7 @@ def wall_ms(fn, calls: int = EXTRACT_REPS) -> float:
 
 def phase_extraction(dev) -> dict:
     from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
     from yamimageprocessor_tpu_torch.ops.extraction import REGION_COLUMNS, histogram_data, hu_moments_data
     from yamimageprocessor_tpu_torch.ops.labeling import label
     from yamimageprocessor_tpu_torch.ops.registry import get_impl
@@ -1766,20 +1783,25 @@ def phase_extraction(dev) -> dict:
     manager = PipelineManager([PipelineStep(name="Region Properties", stage=Stage.ANALYSIS)], device=dev)
 
     XD.clear_table_cache()
-    run = drive(
-        "extraction",
-        ("histogram256", "cc") + EXTRACT_KERNELS,
+    # the table path, then the annotation path, each with the counts set to 0
+    tables_run = drive(
+        "extraction tables",
+        ("histogram256", "cc", "region_scan", "hull_areas"),
         lambda: (
             impl.data_fn(frame),
             {n: XD.region_tables(b) for n, b in batches.items()},
             XD.region_tables([wide]),
             XD.region_tables([blobs]),
-            manager.apply(frame),
             hu_moments_data(frame),
             histogram_data(frame),
         ),
     )
-    data, batch_tables, wide_tables, blob_tables, annotated, hu, hist = run["out"]
+    annotation_run = drive("extraction annotation", ("histogram256", "cc", "region_scan", "annotate"),
+                           lambda: manager.apply(frame))
+    data, batch_tables, wide_tables, blob_tables, hu, hist = tables_run["out"]
+    annotated = annotation_run["out"]
+    launches = {k: tables_run["launches"].get(k, 0) + annotation_run["launches"].get(k, 0)
+                for k in ("histogram256", "cc") + EXTRACT_KERNELS}
     one = XD.region_table(frame)  # a memo hit: the table data_fn made
     counts = {"1024": [one["meas"].count], "4096": [t["meas"].count for t in wide_tables],
               "blobs": [t["meas"].count for t in blob_tables]}
@@ -1841,9 +1863,17 @@ def phase_extraction(dev) -> dict:
         for colour, imgs in (("BGR", noise), ("gray", noise[..., 0].contiguous())):
             err = extraction_kernels_vs_plain(f"{name} {colour}", lab, imgs)["err"]
             errors = {k: max(errors[k], err[k]) for k in EXTRACT_KERNELS}
-    print(f"kernels: row_extremes, moment_sums, hull_areas and annotate bit-exact on {', '.join(cases)}, and on a "
+    print(f"kernels: region_scan, hull_areas and annotate bit-exact on {', '.join(cases)}, and on a "
           f"{EXTRACT_SIDE}^2 checkerboard, all-background and all-foreground frame (gray and BGR); annotate also on "
-          "float32 and uint16 copies of the scene")
+          "float32 and uint16 copies of the scene; region_scan also == the parent's composition")
+    # the label pass on each of the five label sets
+    scan_times = {}
+    for name, case in cases.items():
+        lab, nseg = case["labels"], case["nseg"]
+        scan_times[name] = {"ms": time_ms(lambda: RP.region_scan(lab, nseg)),
+                            "bound_ms": region_scan_bound(lab, nseg)[0]}
+        print(f"time region_scan on {name} ({nseg - 1} regions max): kernel {scan_times[name]['ms']:.4f} ms, "
+              f"bound {scan_times[name]['bound_ms']:.4f}")
 
     main_case = f"batch {EXTRACT_BATCHES[-1]}"
     timed = extraction_kernel_times(cases[main_case])
@@ -1911,15 +1941,14 @@ def phase_extraction(dev) -> dict:
     print_profile("extraction", chain_profile(lambda: XD.region_pack(XD.region_labels(x32), nseg32),
                                               _EXTRACTION_GROUPS))
     torch.cuda.empty_cache()
-    return {"launches": run["launches"], "timed": timed, "one_frame": one_frame, "main_case": main_case,
-            "rates": rates, "err": errors}
+    return {"launches": launches, "timed": timed, "one_frame": one_frame, "main_case": main_case,
+            "rates": rates, "err": errors, "scan_times": scan_times}
 
 
 _EXTRACTION_GROUPS = {
     "histogram256": "histogram256",
     "cc_": "cc",
-    "row_extremes": "row_extremes",
-    "moment_sums": "moment_sums",
+    "region_scan": "region_scan",
     "hull_areas": "hull_areas",
 }
 
@@ -1974,13 +2003,12 @@ def main() -> None:
         ("bilateral", "yamimageprocessor_tpu_torch/csrc/bilateral.cu",
          "yamimageprocessor_tpu/ops/filters.py:390 bilateral_j (XLA, not a pallas_call)",
          "none: PyTorch has no bilateral filter; ms: ksize 5 on the (8,2048,2048,3) BGR batch"),
-        ("row_extremes", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
-         "yamimageprocessor_tpu/ops/regionprops.py:196 row_extremes_j (XLA, not a pallas_call)",
-         f"two scatter_reduce_ calls (amin, amax) on the precomputed index; ms: the {ext['main_case']} labels"),
-        ("moment_sums", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
-         "yamimageprocessor_tpu/ops/regionprops.py:369 _moment_sums_matmul and :500 _perimeter_weights_j "
-         "(XLA, not a pallas_call)",
-         f"index_add_ of the precomputed (pixels, 9) values; ms: the {ext['main_case']} labels"),
+        ("region_scan", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
+         "yamimageprocessor_tpu/ops/regionprops.py:196 row_extremes_j, :369 _moment_sums_matmul and :500 "
+         "_perimeter_weights_j (XLA, not a pallas_call)",
+         "two scatter_reduce_ calls (amin, amax) on the precomputed index, then index_add_ of the precomputed "
+         f"(pixels, 9) values, in one event pair; ms: the {ext['main_case']} labels (one cooperative launch: "
+         "fill, pass, centring); by_input: the five label sets"),
         ("hull_areas", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
          "yamimageprocessor_tpu/ops/regionprops.py:574 hull_pixel_areas_j (XLA, not a pallas_call)",
          f"none: PyTorch has no convex hull; ms: the {ext['main_case']} labels"),
@@ -2035,6 +2063,10 @@ def main() -> None:
         if name in EXTRACT_KERNELS:
             entry["one_frame_ms"] = ext["one_frame"]["times"][name][0]
             entry["one_frame_bound_ms"] = ext["one_frame"]["bounds"][name][0]
+        if name == "region_scan":
+            entry["one_frame_plain_ms"] = ext["one_frame"]["times"][name][1]
+            entry["one_frame_library_ms"] = ext["one_frame"]["library"][name]
+            entry["by_input"] = ext["scan_times"]
         if name == "flood":
             entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]

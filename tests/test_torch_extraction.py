@@ -173,7 +173,7 @@ def test_labels_are_the_jax_packages(scene, grid):
 def test_row_extremes_match_jax(label_cases, case):
     lab = label_cases[case]
     nseg = int(lab.max()) + 1
-    mn, mx = RP.row_extremes(torch.from_numpy(lab)[None], nseg)
+    _, _, mn, mx = RP.region_scan(torch.from_numpy(lab)[None], nseg)
     jmn, jmx, jhas = (np.asarray(a) for a in JRP.row_extremes_j(lab, max(nseg - 1, 64)))
     has = mx[0].numpy() >= 0
     np.testing.assert_array_equal(has[1:], jhas[1:nseg])
@@ -463,44 +463,293 @@ def test_op_through_the_manager(grid):
 # numpy models of the kernels' arithmetic
 
 
-def _kernel_b_model(lab: np.ndarray, sr2: np.ndarray, sc2: np.ndarray, cls: np.ndarray, nseg: int) -> np.ndarray:
-    """csrc/extraction.cu moment_sums_kernel: 32-pixel warp segments of a
-    row, runs of one label summed in closed form from length and first
-    column, the categories counted over the run."""
+def _scan_model(lab: np.ndarray, nseg: int, blocks: int, *, lanes: int = 32, px: int = 8,
+                warps: int = RP.SCAN_WARPS, min_span: int = RP.MIN_SPAN):
+    """csrc/extraction.cu region_scan_kernel in numpy: the persistent
+    blocks' (frame, chunk, strip) warp tasks from ``scan_plan``, each strip
+    of ``lanes * px`` columns loaded with its 2-column halo over rows y0 - 2
+    .. y1 + 1 (0 outside the frame), border flags from that window, and per
+    row and lane of ``px`` pixels: categories of the border pixels; the
+    lane's pixels of its current region summed as n, Sum j, Sum j^2, Sum y,
+    Sum y^2, Sum y j about its first column, with mn/mx at the region's
+    first and last pixel where the neighbour across the lane or strip
+    differs; other regions' pixels as the lane's runs straight into the
+    outputs; a lane whose row has other regions but not its own flushes and
+    takes the first of them; every lane flushes at the end of its task.
+    Then the epilogue modulo 2^64.  Returns (box, sums, mn, mx, runs of
+    other regions, flushes mid-task).  The kernel has 32 lanes of 8 pixels;
+    fewer and narrower lanes put many strip edges into a small frame."""
 
-    h, w = lab.shape
-    out = np.zeros((nseg, RP.SUMS), np.int64)
-    for y in range(h):
-        for x0 in range(0, w, 32):
-            seg = lab[y, x0 : x0 + 32]
-            start = 0
-            for lane in range(len(seg)):
-                if lane + 1 < len(seg) and seg[lane + 1] == seg[lane]:
-                    continue
-                g = int(seg[lane])
-                if 0 < g < nseg:
-                    n = lane - start + 1
-                    a = 2 * y - int(sr2[g])
-                    b0 = 2 * (x0 + start) - int(sc2[g])
-                    tri, sq = n * (n - 1), (n - 1) * n * (2 * n - 1) // 6
-                    sb = n * b0 + tri
-                    run = cls[y, x0 + start : x0 + lane + 1]
-                    out[g] += [n, n * a, sb, n * a * a, n * b0 * b0 + 2 * b0 * tri + 4 * sq, a * sb,
-                               (run == 1).sum(), (run == 2).sum(), (run == 3).sum()]
-                start = lane + 1
-    return out
+    n, h, w = lab.shape
+    cols = lanes * px
+    grid, chunks, span = RP.scan_plan(n, h, w, blocks, warps=warps, cols=cols, min_span=min_span)
+    strips = -(-w // cols)
+    tasks = n * chunks * strips
+    mn = np.full((n * nseg, h), RP.BIG, np.int64)
+    mx = np.full((n * nseg, h), -1, np.int64)
+    box = np.tile(np.array([RP.BIG, RP.BIG, -1, -1], np.int64), (n * nseg, 1))
+    raw = np.zeros((n * nseg, RP.SUMS), np.uint64)
+    counts = {"runs": 0, "flushes": 0}
+    padded = np.pad(lab.astype(np.int64), ((0, 0), (2, 2), (2, cols + 2)))  # the halos read 0 outside
+
+    def border(win, r, c):
+        v = win[r, c]
+        return v > 0 and not (win[r - 1, c] == v and win[r + 1, c] == v and win[r, c - 1] == v and win[r, c + 1] == v)
+
+    def category(win, flag, r, c):
+        v = win[r, c]
+        same = lambda dr, dc: int(win[r + dr, c + dc] == v and flag[r + dr, c + dc])
+        orth = same(-1, 0) + same(1, 0) + same(0, -1) + same(0, 1)
+        diag = same(-1, -1) + same(-1, 1) + same(1, -1) + same(1, 1)
+        if 2 <= orth <= 3 and diag <= 2:
+            return 1
+        if (orth == 0 and diag == 2) or (orth == 1 and diag == 3):
+            return 2
+        if orth == 1 and diag in (1, 2):
+            return 3
+        return 0
+
+    def flush(acc, x):
+        """A lane's sums (or a run's) into the outputs: acc = [g, minr,
+        maxr, minc, maxc, n, j1, j2, k1, k2, k3, r1, r2, rj]."""
+
+        g, minr, maxr, minc, maxc, cnt, j1, j2, k1, k2, k3, r1, r2, rj = acc
+        if cnt == 0:
+            return
+        v = [cnt, r1, x * cnt + j1, r2, (x * cnt + 2 * j1) * x + j2, x * r1 + rj, k1, k2, k3]
+        raw[g] += np.array([int(t) % 2**64 for t in v], np.uint64)
+        box[g] = [min(box[g, 0], minr), min(box[g, 1], minc), max(box[g, 2], maxr), max(box[g, 3], maxc)]
+
+    def empty(g):
+        return [g, RP.BIG, -1, RP.BIG, -1] + [0] * 9
+
+    for b in range(grid):
+        for wi in range(warps):
+            for task in range(b * warps + wi, tasks, grid * warps):
+                strip, rest = task % strips, task // strips
+                chunk, frame = rest % chunks, rest // chunks
+                xw, y0 = strip * cols, chunk * span
+                y1 = min(h, y0 + span)
+                # window rows y0 - 2 .. y1 + 1, columns xw - 2 .. xw + cols + 1
+                win = padded[frame, y0 : y1 + 4, xw : xw + cols + 4].copy()
+                win[:, 2:][:, max(0, w - xw) :] = 0  # past the frame's right edge
+                flag = np.zeros(win.shape, bool)
+                for r in range(1, win.shape[0] - 1):
+                    for c in range(1, cols + 3):
+                        flag[r, c] = border(win, r, c)
+                base = frame * nseg
+                accs = [empty(-1) for _ in range(lanes)]
+                for y in range(y0, y1):
+                    r = y - y0 + 2
+                    for lane in range(lanes):
+                        acc, x = accs[lane], xw + px * lane
+                        c0 = 2 + px * lane  # the lane's first column in the window
+                        p = [int(v) for v in win[r, c0 : c0 + px]]
+                        valid = [0 < v < nseg for v in p]
+                        mine = [v == acc[0] - base for v in p]
+                        cats = [category(win, flag, r, c0 + k) if valid[k] and flag[r, c0 + k] else 0
+                                for k in range(px)]
+                        if any(mine):
+                            ks = [k for k in range(px) if mine[k]]
+                            acc[1], acc[2] = min(acc[1], y), max(acc[2], y)
+                            acc[3], acc[4] = min(acc[3], x + ks[0]), max(acc[4], x + ks[-1])
+                            acc[5] += len(ks)
+                            acc[6] += sum(ks)
+                            acc[7] += sum(k * k for k in ks)
+                            for j, code in enumerate((1, 2, 3)):
+                                acc[8 + j] += sum(cats[k] == code for k in ks)
+                            acc[11] += y * len(ks)
+                            acc[12] += y * y * len(ks)
+                            acc[13] += y * sum(ks)
+                            g = acc[0]
+                            if mine[0] and win[r, c0 - 1] != p[0] or any(mine[k] and not mine[k - 1] for k in range(1, px)):
+                                mn[g, y] = min(mn[g, y], x + ks[0])
+                            if mine[-1] and win[r, c0 + px] != p[-1] or any(mine[k] and not mine[k + 1]
+                                                                            for k in range(px - 1)):
+                                mx[g, y] = max(mx[g, y], x + ks[-1])
+                        miss = None
+                        k = 0
+                        while k < px:
+                            if not valid[k] or mine[k]:
+                                k += 1
+                                continue
+                            e = k
+                            while e + 1 < px and valid[e + 1] and not mine[e + 1] and p[e + 1] == p[k]:
+                                e += 1
+                            g = base + p[k]
+                            if win[r, c0 + k - 1] != p[k]:
+                                mn[g, y] = min(mn[g, y], x + k)
+                            if win[r, c0 + e + 1] != p[k]:
+                                mx[g, y] = max(mx[g, y], x + e)
+                            m = e - k + 1
+                            run = [g, y, y, x + k, x + e, m, m * (m - 1) // 2, (m - 1) * m * (2 * m - 1) // 6,
+                                   *[sum(cats[t] == code for t in range(k, e + 1)) for code in (1, 2, 3)],
+                                   y * m, y * y * m, y * (m * (m - 1) // 2)]
+                            flush(run, x + k)
+                            counts["runs"] += 1
+                            miss = g if miss is None else miss
+                            k = e + 1
+                        if not any(mine) and miss is not None:
+                            if acc[5]:
+                                counts["flushes"] += 1
+                            flush(acc, x)
+                            accs[lane] = empty(miss)
+                for lane in range(lanes):
+                    flush(accs[lane], xw + px * lane)
+    # the epilogue, modulo 2^64
+    A, R1, C1, R2, C2, RC = (raw[:, j] for j in range(6))
+    with np.errstate(over="ignore"):
+        s = (box[:, 0] + box[:, 2]).astype(np.uint64)
+        t = (box[:, 1] + box[:, 3]).astype(np.uint64)
+        two, four = np.uint64(2), np.uint64(4)
+        sums = raw.copy()
+        sums[:, 1] = two * R1 - s * A
+        sums[:, 2] = two * C1 - t * A
+        sums[:, 3] = four * R2 - four * s * R1 + s * s * A
+        sums[:, 4] = four * C2 - four * t * C1 + t * t * A
+        sums[:, 5] = four * RC - two * t * R1 - two * s * C1 + s * t * A
+    return (box.reshape(n, nseg, 4).astype(np.int32), sums.view(np.int64).reshape(n, nseg, RP.SUMS),
+            mn.reshape(n, nseg, h).astype(np.int32), mx.reshape(n, nseg, h).astype(np.int32), counts)
+
+
+def _noise_labels(shape, seed: int = 1, p: float = 0.5) -> np.ndarray:
+    return label(torch.from_numpy(np.random.default_rng(seed).random(shape) < p)).numpy()
+
+
+def _model_cases():
+    """(labels (N, H, W), nseg): widths 1-7 and 1, 2, 3 mod 4, N > 1,
+    labels at or past nseg, many regions a block, runs across strips."""
+
+    rng = np.random.default_rng(4)
+    cases = {
+        "shapes": _labels(shapes_mask())[None],
+        "noise": _labels(np.random.default_rng(1).random((37, 101)) < 0.5)[None],
+        "batch of 3": _noise_labels((3, 19, 45), seed=2, p=0.45),
+        "wide runs": label(torch.from_numpy(rng.random((2, 24, 61)) < 0.9)).numpy(),
+        "all foreground": label(torch.ones((1, 9, 50), dtype=torch.bool)).numpy(),
+    }
+    for w in (1, 2, 3, 4, 5, 6, 7, 61, 62, 63):
+        cases[f"width {w}"] = _noise_labels((2, 13, w), seed=w, p=0.6)
+    nseg = {k: int(v.max()) + 1 for k, v in cases.items()}
+    cases["labels past nseg"] = cases["noise"]
+    nseg["labels past nseg"] = nseg["noise"] // 2
+    return {k: (v, nseg[k]) for k, v in cases.items()}
+
+
+MODEL_CASES = ("shapes", "noise", "batch of 3", "wide runs", "all foreground", "width 1", "width 2", "width 3",
+               "width 4", "width 5", "width 6", "width 7", "width 61", "width 62", "width 63", "labels past nseg")
+#: (lanes, px, warps, blocks): the kernel's own sizes on 132 SMs at 4
+#: blocks an SM, then strips of 8 columns (2 lanes of 4 pixels) in blocks
+#: of 2 warps, and one block of 3 warps (every task in it)
+MODEL_SIZES = {"kernel": (32, 8, RP.SCAN_WARPS, 528), "narrow": (2, 4, 2, 7), "one block": (2, 4, 3, 1)}
+
+
+def _plain_scan(lab: np.ndarray, nseg: int):
+    box, sums, mn, mx = RP.region_scan_plain(torch.from_numpy(lab), nseg)
+    return box.numpy(), sums.numpy(), mn.numpy(), mx.numpy()
+
+
+def _model(lab, nseg, size):
+    lanes, px, warps, blocks = MODEL_SIZES[size]
+    return _scan_model(lab, nseg, blocks, lanes=lanes, px=px, warps=warps)
 
 
 @pytest.mark.parametrize("case", ["shapes", "noise"])
 def test_kernel_b_closed_form_matches_plain(case):
-    if case == "shapes":
-        lab = _labels(shapes_mask())
-    else:
-        lab = _labels(np.random.default_rng(1).random((37, 101)) < 0.5)
-    nseg, box, sums, _, _, _ = _measured(lab)
-    cls = RP.perimeter_classes(torch.from_numpy(lab)[None])[0].numpy()
-    model = _kernel_b_model(lab, box[:, 0] + box[:, 2], box[:, 1] + box[:, 3], cls, nseg)
-    np.testing.assert_array_equal(model[1:], sums[1:])
+    """The label pass's closed-form sums about the origin, centred by the
+    epilogue, equal the plain sums about the bbox centre
+    (``moment_sums_plain`` of the bbox the extremes give)."""
+
+    lab, nseg = _model_cases()[case]
+    box, sums, mn, mx, _ = _model(lab, nseg, "kernel")
+    t = torch.from_numpy(lab)
+    pmn, pmx = RP.row_extremes_plain(t, nseg)
+    pbox = RP.bounding_boxes(pmn, pmx)
+    sr2, sc2 = (pbox[..., 0] + pbox[..., 2]).contiguous(), (pbox[..., 1] + pbox[..., 3]).contiguous()
+    np.testing.assert_array_equal(sums, RP.moment_sums_plain(t, sr2, sc2, nseg).numpy())
+    np.testing.assert_array_equal(box, pbox.numpy())
+    np.testing.assert_array_equal(mn, pmn.numpy())
+    np.testing.assert_array_equal(mx, pmx.numpy())
+
+
+@pytest.mark.parametrize("size", list(MODEL_SIZES))
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_scan_model_matches_plain(case, size):
+    """The kernel's schedule in numpy (strips with halos, runs split at
+    lane and strip edges, origin sums in the lanes' registers, other
+    regions' runs straight to the outputs, the uint64 epilogue) against
+    ``region_scan_plain`` bit for bit: mn, mx, box and sums."""
+
+    lab, nseg = _model_cases()[case]
+    *got, counts = _model(lab, nseg, size)
+    for name, a, b in zip(("box", "sums", "mn", "mx"), got, _plain_scan(lab, nseg)):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    if case in ("shapes", "noise", "batch of 3"):
+        # rows with two regions in a lane, and (in longer tasks) lanes whose region changes
+        assert counts["runs"] > 0 and (size == "kernel" or counts["flushes"] > 0), counts
+
+
+def test_scan_model_sends_other_regions_to_device_memory():
+    """The kernel's own sizes over a 64^2 noise frame of 300 regions, one
+    block: many lanes meet a second region while their first goes on, or
+    change region mid-task, so runs and flushes go to the outputs."""
+
+    lab = _noise_labels((1, 64, 64), seed=5, p=0.15)
+    nseg = int(lab.max()) + 1
+    assert nseg > 256
+    *got, counts = _scan_model(lab, nseg, 1)
+    for name, a, b in zip(("box", "sums", "mn", "mx"), got, _plain_scan(lab, nseg)):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert counts["runs"] > 100 and counts["flushes"] > 10, counts
+
+
+def test_scan_model_splits_runs_at_strip_edges():
+    """A region whose rows cross several 8-column strips and 4-pixel lanes
+    is summed from the lanes' pieces."""
+
+    lab = label(torch.ones((1, 6, 30), dtype=torch.bool)).numpy()
+    got = _scan_model(lab, 2, 5, lanes=2, px=4, warps=2)[:4]
+    for a, b in zip(got, _plain_scan(lab, 2)):
+        np.testing.assert_array_equal(a, b)
+    assert RP.scan_plan(1, 6, 30, 5, warps=2, cols=8) == (2, 1, 6)  # 4 strips
+
+
+def test_centre_sums_at_16384_scale():
+    """The epilogue on synthetic origin sums at 16384^2-frame coordinates
+    (areas to 2^28, every term below 2^60) against exact Python integers,
+    and on a full 16384^2 frame against the sums about its centre."""
+
+    rng = np.random.default_rng(7)
+    k = 64
+    minr, minc = rng.integers(0, 16384, k), rng.integers(0, 16384, k)
+    maxr = minr + rng.integers(0, 16384 - minr)
+    maxc = minc + rng.integers(0, 16384 - minc)
+    area = (maxr - minr + 1) * (maxc - minc + 1)
+    fill = [int(v) for v in rng.integers(1, 2**20, k)]
+    raw = np.zeros((k, RP.SUMS), np.int64)
+    want = np.zeros((k, RP.SUMS), object)
+    for i in range(k):
+        A = int(area[i]) * fill[i] // 2**20 + 1  # any count up to the box's
+        R1, C1 = A * int(maxr[i]) // 2, A * int(maxc[i]) // 2
+        R2, C2, RC = A * int(maxr[i]) ** 2 // 3, A * int(maxc[i]) ** 2 // 3, A * int(maxr[i]) * int(maxc[i]) // 4
+        s, t = int(minr[i] + maxr[i]), int(minc[i] + maxc[i])
+        cats = [int(v) for v in rng.integers(0, 2**16, 3)]
+        raw[i] = [A, R1, C1, R2, C2, RC, *cats]
+        terms = [4 * R2, 4 * s * R1, s * s * A, 4 * RC, 2 * t * R1, 2 * s * C1, s * t * A]
+        assert max(terms) < 2**60
+        want[i] = [A, 2 * R1 - s * A, 2 * C1 - t * A, 4 * R2 - 4 * s * R1 + s * s * A,
+                   4 * C2 - 4 * t * C1 + t * t * A, 4 * RC - 2 * t * R1 - 2 * s * C1 + s * t * A, *cats]
+    box = torch.from_numpy(np.stack([minr, minc, maxr, maxc], 1).astype(np.int32))
+    got = RP.centre_sums(torch.from_numpy(raw), box).numpy()
+    assert [[int(v) for v in row] for row in got] == want.tolist()
+    # one region filling a 16384^2 frame: its sums about the centre in closed form
+    side = 16384
+    s1, s2 = side * (side - 1) // 2, (side - 1) * side * (2 * side - 1) // 6
+    full = torch.tensor([[side * side, side * s1, side * s1, side * s2, side * s2, s1 * s1, 0, 0, 0]])
+    got = RP.centre_sums(full, torch.tensor([[0, 0, side - 1, side - 1]], dtype=torch.int32))[0].tolist()
+    sa = sum(2 * r - (side - 1) for r in range(side))
+    saa = sum((2 * r - (side - 1)) ** 2 for r in range(side))
+    assert got[:6] == [side * side, side * sa, side * sa, side * saa, side * saa, sa * sa]
 
 
 def _kernel_c_model(x: np.ndarray, has: np.ndarray, r0: int, r1: int) -> int:
@@ -550,56 +799,85 @@ def test_kernel_c_chain_matches_plain(case):
 
 
 CARD_CASES = ("grid", "shapes", "big disk", "noise batch", "checkerboard", "blocks", "all foreground",
-              "all background", "one row", "one column")
+              "all background", "one row", "one column", "widths 1-7", "odd width past 1024", "scene 1024",
+              "batch 8", "blobs 2048")
 
 
-def _card_cases():
+def _blobs(side: int) -> np.ndarray:
+    """4x4 blobs on an 8-pixel pitch: (side / 8)^2 regions."""
+
+    m = np.zeros((side, side), bool)
+    for y in range(2, side, 8):
+        m[y : y + 4] = (np.arange(side) % 8 >= 2) & (np.arange(side) % 8 < 6)
+    return m
+
+
+def _card_cases(case: str) -> np.ndarray:
     rng = np.random.default_rng(2)
     yy, xx = np.mgrid[:300, :257]
-    return {
-        "grid": _scene_labels(grid_scene()),
-        "shapes": _labels(shapes_mask()),
-        "big disk": _labels(big_disk_mask()),
-        "noise batch": label(torch.from_numpy(rng.random((3, 129, 77)) < 0.45)).numpy(),
-        "checkerboard": _labels((yy + xx) % 2 == 0),
-        "blocks": _labels(((yy // 2) + (xx // 2)) % 2 == 0),
-        "all foreground": _labels(np.ones((70, 45), bool)),
-        "all background": _labels(np.zeros((70, 45), bool)),
-        "one row": _labels(rng.random((1, 300)) < 0.5),
-        "one column": _labels(rng.random((300, 1)) < 0.5),
+    make = {
+        "grid": lambda: _scene_labels(grid_scene()),
+        "shapes": lambda: _labels(shapes_mask()),
+        "big disk": lambda: _labels(big_disk_mask()),
+        "noise batch": lambda: label(torch.from_numpy(rng.random((3, 129, 77)) < 0.45)).numpy(),
+        "checkerboard": lambda: _labels((yy + xx) % 2 == 0),
+        "blocks": lambda: _labels(((yy // 2) + (xx // 2)) % 2 == 0),
+        "all foreground": lambda: _labels(np.ones((70, 45), bool)),
+        "all background": lambda: _labels(np.zeros((70, 45), bool)),
+        "one row": lambda: _labels(rng.random((1, 300)) < 0.5),
+        "one column": lambda: _labels(rng.random((300, 1)) < 0.5),
+        "odd width past 1024": lambda: label(torch.from_numpy(rng.random((2, 70, 1030)) < 0.5)).numpy(),
+        "scene 1024": lambda: _scene_labels(grid_scene(1024, 128)),
+        "batch 8": lambda: TXD.region_labels(torch.from_numpy(np.stack([grid_scene(1024, 128, seed=s)
+                                                                        for s in range(8)]))).numpy(),
+        "blobs 2048": lambda: _labels(_blobs(2048)),
     }
+    if case == "widths 1-7":
+        return [label(torch.from_numpy(rng.random((3, 41, w)) < 0.6)).numpy() for w in range(1, 8)]
+    return [make[case]()]
 
 
 @cuda
 @needs_card
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_kernels_match_plain_on_the_card(case):
-    lab = _card_cases()[case]
-    if lab.ndim == 2:
-        lab = lab[None]
+    """The label pass bit for bit against its plain version and against
+    the parent's composition (row extremes, their bbox, the sums about the
+    bbox centre), on the labels as given and on a copy whose frames start
+    4 bytes past a 16-byte boundary; then the hull and annotation kernels."""
+
     dev = torch.device("cuda")
-    t = torch.from_numpy(np.ascontiguousarray(lab)).to(dev)
-    nseg = TXD.region_count_bound(t)
-    counts = (RP.row_extremes.launches, RP.moment_sums.launches, RP.hull_pixel_areas.launches,
-              TXD.region_annotate.launches)
-    mn, mx = RP.row_extremes(t, nseg)
-    pmn, pmx = RP.row_extremes_plain(t, nseg)
-    assert torch.equal(mn, pmn) and torch.equal(mx, pmx)
-    box = RP.bounding_boxes(mn, mx)
-    sr2, sc2 = (box[..., 0] + box[..., 2]).contiguous(), (box[..., 1] + box[..., 3]).contiguous()
-    sums = RP.moment_sums(t, sr2, sc2, nseg)
-    assert torch.equal(sums, RP.moment_sums_plain(t, sr2, sc2, nseg))
-    lo, hi = box[..., 0].contiguous(), box[..., 2].contiguous()
-    assert torch.equal(RP.hull_pixel_areas(mn, mx, lo, hi), RP.hull_pixel_areas_plain(mn, mx, lo, hi))
-    boxes = TXD.annotation_boxes(box, sums)
-    rng = np.random.default_rng(0)
-    for shape in (lab.shape, lab.shape + (3,)):
-        for dtype in (torch.uint8, torch.uint16, torch.float32):
-            img = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int32)).to(dtype).to(dev)
-            assert torch.equal(TXD.region_annotate(img, boxes), TXD.region_annotate_plain(img, boxes))
-    torch.cuda.synchronize()
-    assert (RP.row_extremes.launches, RP.moment_sums.launches, RP.hull_pixel_areas.launches,
-            TXD.region_annotate.launches) == (counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + 6)
+    for lab in _card_cases(case):
+        if lab.ndim == 2:
+            lab = lab[None]
+        t = torch.from_numpy(np.ascontiguousarray(lab)).to(dev)
+        nseg = TXD.region_count_bound(t)
+        counts = (RP.region_scan.launches, RP.hull_pixel_areas.launches, TXD.region_annotate.launches)
+        box, sums, mn, mx = RP.region_scan(t, nseg)
+        for name, a, b in zip(("box", "sums", "mn", "mx"), (box, sums, mn, mx), RP.region_scan_plain(t, nseg)):
+            assert torch.equal(a, b), name
+        pmn, pmx = RP.row_extremes_plain(t, nseg)
+        pbox = RP.bounding_boxes(pmn, pmx)
+        sr2, sc2 = (pbox[..., 0] + pbox[..., 2]).contiguous(), (pbox[..., 1] + pbox[..., 3]).contiguous()
+        mbox, msums, (mmn, mmx) = TXD.measure(t, nseg)
+        assert torch.equal(mbox, pbox) and torch.equal(mmn, pmn) and torch.equal(mmx, pmx)
+        assert torch.equal(msums, RP.moment_sums_plain(t, sr2, sc2, nseg))
+        flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:] = t.reshape(-1)
+        unaligned = flat[1:].view(t.shape)
+        for a, b in zip(RP.region_scan(unaligned, nseg), (box, sums, mn, mx)):
+            assert torch.equal(a, b)
+        lo, hi = box[..., 0].contiguous(), box[..., 2].contiguous()
+        assert torch.equal(RP.hull_pixel_areas(mn, mx, lo, hi), RP.hull_pixel_areas_plain(mn, mx, lo, hi))
+        boxes = TXD.annotation_boxes(box, sums)
+        rng = np.random.default_rng(0)
+        for shape in (lab.shape, lab.shape + (3,)):
+            for dtype in (torch.uint8, torch.uint16, torch.float32):
+                img = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int32)).to(dtype).to(dev)
+                assert torch.equal(TXD.region_annotate(img, boxes), TXD.region_annotate_plain(img, boxes))
+        torch.cuda.synchronize()
+        assert (RP.region_scan.launches, RP.hull_pixel_areas.launches, TXD.region_annotate.launches) == (
+            counts[0] + 3, counts[1] + 1, counts[2] + 6)
 
 
 @cuda

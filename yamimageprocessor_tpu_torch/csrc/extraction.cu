@@ -1,7 +1,7 @@
 // Per-region work of the region-properties extraction: row extremes,
-// moment and perimeter sums, filled convex-hull pixel counts and the
-// annotation, over int32 label frames (N, H, W) whose regions are numbered
-// 1..R (0 is background).  Per-region outputs are (N, nseg, ...) with
+// bounding boxes, moment and perimeter sums, filled convex-hull pixel
+// counts and the annotation, over int32 label frames (N, H, W) whose
+// regions are numbered 1..R (0 is background).  Per-region outputs are (N, nseg, ...) with
 // nseg = R + 1, region 0 unused.
 //
 // Replaces XLA code of the JAX package, not a pallas_call:
@@ -16,24 +16,50 @@
 // card scatters with atomics, so the work is O(H*W) at any region count,
 // and every sum is an integer, exact in any order of the atomics.
 //
-// row_extremes_kernel (A)  a warp takes 32 pixels of a row; each run of one
-//     label costs one atomicMin of its first column and one atomicMax of
-//     its last into mn/mx[frame, label, row].  Bound: device memory, 4 B a
-//     pixel read, the (N, nseg, H) extremes written once.
-// moment_sums_kernel (B)  a block a 32 x 64 tile, labels staged in shared
-//     memory with a 2-pixel halo (a pixel's perimeter category counts the
-//     border flags of its neighbours, and a border flag needs their
-//     neighbours).  A warp takes 32 pixels of a row; a run of one label is
-//     summed in closed form from its length and first column (dr is
-//     constant along a row, dc an arithmetic series), its perimeter
-//     categories by popcounts of ballots.  The run's sums go into a
-//     256-slot table of the regions the block meets (shared-memory 64-bit
-//     atomics), flushed into sums[frame, label, 0..8] with global atomics
-//     (a region the table cannot hold adds directly).  Columns: area,
-//     Sum a, Sum b, Sum a^2, Sum b^2, Sum a*b, n1, n2, n3, where a = 2r -
-//     (minr + maxr) and b = 2c - (minc + maxc) are twice the offsets from
-//     the bbox centre, and n1/n2/n3 count skimage's perimeter categories
-//     of weight 1, sqrt(2) and (1 + sqrt(2))/2.  Bound: device memory.
+// region_scan_kernel (A+B)  one pass over the labels for what the
+//     reference's row_extremes_j (:196), _moment_sums_matmul (:369) and
+//     _perimeter_weights_j (:500) compute: the row extremes mn/mx[frame,
+//     label, row] (leftmost and rightmost column, BIG and -1 where the
+//     region has no pixel on the row), the inclusive bbox, and per region
+//     the area, Sum r, Sum c, Sum r^2, Sum c^2, Sum rc about the frame's
+//     origin and the counts of skimage's three perimeter categories
+//     (weights 1, sqrt(2), (1 + sqrt(2)) / 2).  Its last phase moves the
+//     moments to the bbox centre in place, in unsigned 64-bit arithmetic:
+//     Sum a, Sum b, Sum a^2, Sum b^2, Sum ab with a = 2r - (minr + maxr), b
+//     = 2c - (minc + maxc), exactly what a pass about the centre gives, so
+//     the pass no longer needs the bbox first.
+//     Bound: device memory, the labels read once (4 B a pixel), the
+//     (N, nseg, H) extremes filled and written, the per-region rows out.
+//     Design: one cooperative launch of persistent blocks in three phases
+//     behind grid-wide barriers (fill the outputs; the pass; centre the
+//     sums), so the pass costs one launch.  A warp owns a strip of 256
+//     columns (8 a lane) of a chunk of rows, sized by
+//     ops/regionprops.py:scan_plan so that the tasks fill the resident
+//     warps about once (32 x 1024^2: chunks of 64 rows; one 1024^2 frame:
+//     of 8) on a 1-D grid.  Rows come into the warp's ring of RING rows in
+//     shared memory by cp.async, AHEAD rows in flight: two 16-byte copies
+//     a lane where every row of the task is aligned and the strip lies in
+//     the frame (a row pointer stepped by w, no 64-bit product a row),
+//     else 16-byte copies where a row is aligned and 4-byte ones,
+//     zero-filled past the frame, otherwise; lanes 0 and 31 also copy the
+//     2 columns past each edge of the strip.  So each label leaves device
+//     memory once apart from the halos.  Once row i is in, the border flags of row i - 1 (a pixel's
+//     category counts its neighbours' flags, and a flag needs their
+//     neighbours), then row i - 2's pixels; neighbours across lanes come by
+//     shuffles, a warp row without labels is skipped.  A lane keeps the
+//     sums of its current region in registers: its pixels' count, Sum j
+//     and Sum j^2 of their offsets j from its first column, Sum y, Sum y^2,
+//     Sum y j, the category counts and its bbox, so a row inside a region
+//     costs no atomic; mn/mx take one atomicMin/atomicMax where the
+//     region's run starts or ends in the lane (its neighbour across the
+//     lane or strip differs).  A lane's pixels of another region go
+//     straight to device memory as its runs; a row that has other regions
+//     but not the lane's makes the first of them current after flushing
+//     the old one.  At the end of a task the warp adds its lanes' sums
+//     region by region with shuffles and flushes each region with 13
+//     atomics.  Categories are computed only for border pixels, their
+//     neighbours read from the ring.  Every value is an integer, so the
+//     atomics' order changes no bit.
 // hull_areas_kernel (C)  a warp a (frame, region).  The region's rows
 //     minr..maxr of mx (then of -mn) come in 32 at a time; lane 0 runs
 //     Andrew's monotone chain over them with exact int64 cross products,
@@ -53,157 +79,513 @@
 //     last painter (later region over earlier, disk over border): O(sum of
 //     outlines), not O(H*W*R).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int BIG = 1 << 30;  // mn of a row without the region
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_FRAMES = 65535;  // gridDim.y
 constexpr int GRID_CAP = 132 * 64;
 
 // ---------------------------------------------------------------------------
-// A: row extremes
+// The label pass: row extremes, bounding boxes and moment and perimeter sums
 
-constexpr int EXT_THREADS = 256;
+constexpr int PX = 8;                          // a lane's columns
+constexpr int WARP_COLS = 32 * PX;             // a warp's strip
+constexpr int SCAN_WARPS = 1024 / WARP_COLS;   // a block: warps side by side over 1024 columns
+constexpr int SCAN_THREADS = SCAN_WARPS * 32;
+constexpr int RING = 8;                        // rows of a warp's ring in shared memory
+constexpr int AHEAD = RING - 4;                // rows in flight: the ring holds rows i - 3 .. i + AHEAD
+constexpr int ROW_INTS = WARP_COLS + 8;        // a ring row: [2] col -2, [3] col -1, [4 ..], then cols 256, 257
+constexpr int SUMS = 9;                        // columns of sums
+constexpr int EMPTY = -1;                      // no current region
 
-__global__ void __launch_bounds__(EXT_THREADS) row_extremes_kernel(const int* __restrict__ lab, int* __restrict__ mn,
-                                                                   int* __restrict__ mx, long long rows, int h, int w,
-                                                                   int nseg) {
-  const int lane = threadIdx.x & 31;
-  const int chunks = (w + 31) / 32;
-  const long long tasks = rows * chunks;
-  const long long nwarps = static_cast<long long>(gridDim.x) * (EXT_THREADS / 32);
-  for (long long t = blockIdx.x * static_cast<long long>(EXT_THREADS / 32) + threadIdx.x / 32; t < tasks;
-       t += nwarps) {
-    const long long row = t / chunks;  // frame * h + r
-    const int c = static_cast<int>(t - row * chunks) * 32 + lane;
-    const int label = c < w ? __ldg(lab + row * w + c) : 0;
-    const int left = __shfl_up_sync(FULL, label, 1);
-    const int right = __shfl_down_sync(FULL, label, 1);
-    if (label <= 0 || label >= nseg) continue;
-    const long long frame = row / h;
-    const long long at = (frame * nseg + label) * h + (row - frame * h);
-    if (lane == 0 || left != label) atomicMin(mn + at, c);
-    if (lane == 31 || right != label) atomicMax(mx + at, c);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// 4 bytes, or 4 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// One row of a warp's strip: a lane's 8 labels and, on lanes 0 and 31,
+// the 2 columns past the strip's edge (lane 0: -2, -1; lane 31: 256, 257;
+// 0 outside the frame).
+struct Row {
+  int a[PX];
+  int h0, h1;
+};
+
+// Row y of the frame into a ring row by cp.async: 16 bytes where the row
+// is aligned and the 4 columns lie in the frame, else 4 at a time (zeros
+// past the frame's edge); a row outside the frame is zeros.  rp: the row's
+// column 0; fast: every row of the task is aligned and the strip lies in
+// the frame.
+__device__ __forceinline__ void fetch_row(int* ring_row, const int* rp, bool inside, bool fast, int xw, int w,
+                                          int lane) {
+  int* own = ring_row + 4 + PX * lane;
+  const int cx = xw + PX * lane;
+  if (!inside) {
+#pragma unroll
+    for (int q = 0; q < PX / 4; ++q) reinterpret_cast<int4*>(own)[q] = make_int4(0, 0, 0, 0);
+    if (lane == 0) ring_row[2] = ring_row[3] = 0;
+    if (lane == 31) ring_row[WARP_COLS + 4] = ring_row[WARP_COLS + 5] = 0;
+    return;
+  }
+  if (fast) {
+#pragma unroll
+    for (int q = 0; q < PX / 4; ++q) cp_async16(own + 4 * q, rp + cx + 4 * q);
+  } else {
+    const bool aligned = (reinterpret_cast<uintptr_t>(rp) & 15u) == 0;
+#pragma unroll
+    for (int q = 0; q < PX / 4; ++q) {
+      const int c = cx + 4 * q;
+      if (aligned && c + 3 < w) {
+        cp_async16(own + 4 * q, rp + c);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cp_async4(own + 4 * q + k, rp + (c + k < w ? c + k : 0), c + k < w);
+      }
+    }
+  }
+  if (lane == 0) {
+    cp_async4(ring_row + 2, rp + (xw >= 2 ? xw - 2 : 0), xw >= 2);
+    cp_async4(ring_row + 3, rp + (xw >= 1 ? xw - 1 : 0), xw >= 1);
+  } else if (lane == 31) {
+    cp_async4(ring_row + WARP_COLS + 4, rp + (xw + WARP_COLS < w ? xw + WARP_COLS : 0), xw + WARP_COLS < w);
+    cp_async4(ring_row + WARP_COLS + 5, rp + (xw + WARP_COLS + 1 < w ? xw + WARP_COLS + 1 : 0),
+              xw + WARP_COLS + 1 < w);
   }
 }
 
-// ---------------------------------------------------------------------------
-// B: moment and perimeter sums
-
-constexpr int MT_ROWS = 32;
-constexpr int MT_COLS = 64;
-constexpr int MT_THREADS = 256;
-constexpr int SLOTS = 256;            // regions a block's table holds
-constexpr int SUMS = 9;               // columns of sums
-constexpr int LR = MT_ROWS + 4;       // staged labels: 2-pixel halo
-constexpr int LC = MT_COLS + 4;
-constexpr int BR = MT_ROWS + 2;       // border flags: 1-pixel halo
-constexpr int BC = MT_COLS + 2;
-
-__global__ void __launch_bounds__(MT_THREADS)
-    moment_sums_kernel(const int* __restrict__ lab, const int* __restrict__ sr2, const int* __restrict__ sc2,
-                       unsigned long long* __restrict__ sums, int h, int w, int nseg, int tiles_x) {
-  __shared__ int s_lab[LR * LC];
-  __shared__ unsigned char s_border[BR * BC];
-  __shared__ int s_key[SLOTS];
-  __shared__ unsigned long long s_val[SUMS * SLOTS];
-
-  const long long frame = blockIdx.y;
-  const int y0 = static_cast<int>(blockIdx.x / tiles_x) * MT_ROWS;
-  const int x0 = static_cast<int>(blockIdx.x % tiles_x) * MT_COLS;
-  const int* f = lab + frame * h * static_cast<long long>(w);
-  for (int i = threadIdx.x; i < LR * LC; i += MT_THREADS) {
-    const int y = y0 - 2 + i / LC, x = x0 - 2 + i % LC;
-    s_lab[i] = (y >= 0 && y < h && x >= 0 && x < w) ? __ldg(f + static_cast<long long>(y) * w + x) : 0;
+__device__ __forceinline__ Row read_row(const int* ring_row, int lane) {
+  Row r;
+#pragma unroll
+  for (int q = 0; q < PX / 4; ++q) {
+    const int4 v = reinterpret_cast<const int4*>(ring_row + 4 + PX * lane)[q];
+    r.a[4 * q] = v.x, r.a[4 * q + 1] = v.y, r.a[4 * q + 2] = v.z, r.a[4 * q + 3] = v.w;
   }
-  for (int i = threadIdx.x; i < SLOTS; i += MT_THREADS) s_key[i] = 0;
-  for (int i = threadIdx.x; i < SUMS * SLOTS; i += MT_THREADS) s_val[i] = 0;
-  __syncthreads();
-  // border: a region pixel with a 4-neighbour of another label (outside
-  // the frame is 0)
-  for (int i = threadIdx.x; i < BR * BC; i += MT_THREADS) {
-    const int* p = s_lab + (i / BC + 1) * LC + i % BC + 1;
-    const int v = *p;
-    s_border[i] = v > 0 && !(p[-LC] == v && p[LC] == v && p[-1] == v && p[1] == v);
-  }
-  __syncthreads();
+  // the halo, read by every lane (branch-free) and kept by lanes 0 and 31
+  const int at = lane == 31 ? WARP_COLS + 4 : 2;
+  const bool edge = lane == 0 || lane == 31;
+  const int h0 = ring_row[at], h1 = ring_row[at + 1];
+  r.h0 = edge ? h0 : 0;
+  r.h1 = edge ? h1 : 0;
+  return r;
+}
 
+__device__ __forceinline__ bool row_any(const Row& r) {
+  int v = r.h0 | r.h1;
+#pragma unroll
+  for (int k = 0; k < PX; ++k) v |= r.a[k];
+  return __any_sync(FULL, v != 0);
+}
+
+// The lane's columns 8l - 1 .. 8l + 8 of a row (neighbours by shuffles;
+// lane 0's column -1 and lane 31's column 256 from the halo).
+struct Window {
+  int c[PX + 2];
+};
+
+__device__ __forceinline__ Window window(const Row& r, int lane) {
+  const int left = __shfl_up_sync(FULL, r.a[PX - 1], 1);
+  const int right = __shfl_down_sync(FULL, r.a[0], 1);
+  Window w;
+  w.c[0] = lane == 0 ? r.h1 : left;
+#pragma unroll
+  for (int k = 0; k < PX; ++k) w.c[k + 1] = r.a[k];
+  w.c[PX + 1] = lane == 31 ? r.h0 : right;
+  return w;
+}
+
+// a region pixel with a 4-neighbour of another label (outside the frame is 0)
+__device__ __forceinline__ unsigned border(int v, int up, int down, int left, int right) {
+  return v > 0 && !(up == v && down == v && left == v && right == v);
+}
+
+// Border flags of row M (window m) as PX + 2 bits, bit k for the window's
+// column k (lanes 0 and 31 compute their outer column's flag from the
+// halo, the others take their neighbours' by shuffles).
+__device__ __forceinline__ unsigned border_flags(const Row& U, const Row& M, const Window& m, const Row& D,
+                                                 int lane) {
+  unsigned f = 0;
+#pragma unroll
+  for (int k = 1; k <= PX; ++k) f |= border(m.c[k], U.a[k - 1], D.a[k - 1], m.c[k - 1], m.c[k + 1]) << k;
+  const unsigned edge = lane == 0    ? border(m.c[0], U.h1, D.h1, M.h0, m.c[1])
+                        : lane == 31 ? border(m.c[PX + 1], U.h0, D.h0, m.c[PX], M.h1)
+                                     : 0u;
+  const unsigned left = __shfl_up_sync(FULL, f, 1);
+  const unsigned right = __shfl_down_sync(FULL, f, 1);
+  return f | (lane == 0 ? edge : (left >> PX) & 1u) | ((lane == 31 ? edge : (right >> 1) & 1u) << (PX + 1));
+}
+
+// skimage's perimeter category of the border pixel at column k of a
+// lane's PX (1: weight 1, 2: sqrt(2), 3: (1 + sqrt(2)) / 2, 0: none): u,
+// r, d point at the lane's column 0 in rows y - 1, y, y + 1 of the ring
+// (the halo makes columns -1 and PX readable), fu, fr, fd are the rows'
+// border flags (bit j: column j - 1).
+__device__ __forceinline__ unsigned category(const int* u, const int* r, const int* d, int k, unsigned fu,
+                                             unsigned fr, unsigned fd) {
+  const int v = r[k];
+  const int orth = (u[k] == v && ((fu >> (k + 1)) & 1u)) + (d[k] == v && ((fd >> (k + 1)) & 1u)) +
+                   (r[k - 1] == v && ((fr >> k) & 1u)) + (r[k + 1] == v && ((fr >> (k + 2)) & 1u));
+  const int diag = (u[k - 1] == v && ((fu >> k) & 1u)) + (u[k + 1] == v && ((fu >> (k + 2)) & 1u)) +
+                   (d[k - 1] == v && ((fd >> k) & 1u)) + (d[k + 1] == v && ((fd >> (k + 2)) & 1u));
+  if (orth >= 2 && orth <= 3 && diag <= 2) return 1u;
+  if ((orth == 0 && diag == 2) || (orth == 1 && diag == 3)) return 2u;
+  if (orth == 1 && (diag == 1 || diag == 2)) return 3u;
+  return 0u;
+}
+
+struct ScanOut {
+  int* mn;
+  int* mx;
+  int* box;                  // (n * nseg, 4)
+  unsigned long long* sums;  // (n * nseg, 9): origin sums until the epilogue
+  int h, w, nseg;
+};
+
+// The sums a lane keeps in registers for its current region g: its own
+// pixels of g in the rows of the task so far, at columns x + j (x the
+// lane's first column, j its offset): n pixels, Sum j, Sum j^2, Sum y,
+// Sum y^2, Sum y j, and the category counts.  The sums about the origin
+// follow at the flush: Sum c = x n + Sum j, Sum c^2 = x^2 n + 2 x Sum j +
+// Sum j^2, Sum rc = x Sum y + Sum y j.
+struct Acc {
+  int g;  // the current region, or EMPTY
+  int minr, maxr, minc, maxc;
+  unsigned n, j1, j2, k1, k2, k3;
+  unsigned long long r1, r2, rj;
+};
+
+__device__ __forceinline__ void acc_clear(Acc& a, int g) {
+  a.g = g;
+  a.minr = a.minc = BIG;
+  a.maxr = a.maxc = -1;
+  a.n = a.j1 = a.j2 = a.k1 = a.k2 = a.k3 = 0;
+  a.r1 = a.r2 = a.rj = 0;
+}
+
+// The lane's nine sums about the origin (x: the lane's first column).
+__device__ __forceinline__ void acc_sums(const Acc& a, int x, unsigned long long v[SUMS]) {
+  const unsigned long long X = static_cast<unsigned>(x);
+  v[0] = a.n;
+  v[1] = a.r1;
+  v[2] = X * a.n + a.j1;
+  v[3] = a.r2;
+  v[4] = (X * a.n + 2ull * a.j1) * X + a.j2;
+  v[5] = X * a.r1 + a.rj;
+  v[6] = a.k1;
+  v[7] = a.k2;
+  v[8] = a.k3;
+}
+
+// One lane's sums into device memory (its region changed mid-task, or a
+// run of another region), by atomics without a reply.  Out of line, its
+// arguments by value.
+__device__ __noinline__ void acc_flush(unsigned long long* sums, int* boxes, Acc a, int x) {
+  if (a.n == 0) return;
+  unsigned long long v[SUMS];
+  acc_sums(a, x, v);
+  unsigned long long* sum = sums + static_cast<long long>(a.g) * SUMS;
+#pragma unroll
+  for (int j = 0; j < SUMS; ++j)
+    if (v[j] != 0) atomicAdd(sum + j, v[j]);
+  int* b = boxes + static_cast<long long>(a.g) * 4;
+  atomicMin(b, a.minr);
+  atomicMin(b + 1, a.minc);
+  atomicMax(b + 2, a.maxr);
+  atomicMax(b + 3, a.maxc);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+template <bool MAX>
+__device__ __forceinline__ int warp_extreme(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int o = __shfl_xor_sync(FULL, v, off);
+    v = MAX ? max(v, o) : min(v, o);
+  }
+  return v;
+}
+
+// Every lane's sums into device memory at the end of a task (warp-wide):
+// the lanes of one region are added across the warp first, so a region
+// costs 13 atomics a warp, not 13 a lane.
+__device__ __forceinline__ void acc_flush_warp(unsigned long long* sums, int* boxes, const Acc& a, int x, int lane) {
+  unsigned long long own[SUMS];
+  acc_sums(a, x, own);
+  bool pending = a.n != 0;
+  for (unsigned left = __ballot_sync(FULL, pending); left; left = __ballot_sync(FULL, pending)) {
+    const int g = __shfl_sync(FULL, a.g, __ffs(left) - 1);
+    const bool mine = pending && a.g == g;
+    pending = pending && !mine;
+    unsigned long long mv = 0;
+#pragma unroll
+    for (int j = 0; j < SUMS; ++j) {
+      const unsigned long long t = warp_sum<unsigned long long>(mine ? own[j] : 0ull);
+      mv = lane == j ? t : mv;
+    }
+    const int bx[4] = {warp_extreme<false>(mine ? a.minr : BIG), warp_extreme<false>(mine ? a.minc : BIG),
+                       warp_extreme<true>(mine ? a.maxr : -1), warp_extreme<true>(mine ? a.maxc : -1)};
+    int mb = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mb = lane == SUMS + j ? bx[j] : mb;
+    if (lane < SUMS && mv != 0) atomicAdd(sums + static_cast<long long>(g) * SUMS + lane, mv);
+    int* b = boxes + static_cast<long long>(g) * 4;
+    if (lane == SUMS || lane == SUMS + 1) atomicMin(b + lane - SUMS, mb);
+    if (lane == SUMS + 2 || lane == SUMS + 3) atomicMax(b + lane - SUMS, mb);
+  }
+}
+
+// Where a task's rows are: the warp's ring, the frame, the lane's columns.
+struct Strip {
+  int (*ring)[ROW_INTS];
+  int frame_base, xw, x;  // x: the lane's first column
+};
+
+// Row y of the warp's strip (window r, border flags fu, fr, fd of rows y -
+// 1, y, y + 1, which are ring rows ru, rr, rd).  A lane sums its own
+// pixels of the warp's current region in registers, in closed form from
+// the pixel offsets, and sets mn/mx at the region's first and last pixel
+// in its columns where the neighbour across the lane (or strip) differs;
+// other regions' pixels go to device memory as the lane's runs, with
+// their extremes.  Categories of border pixels read their neighbours from the
+// ring.  A row that meets other regions but not the current one makes the
+// first of them current.
+__device__ __forceinline__ void scan_row(const Window& r, unsigned fu, unsigned fr, unsigned fd, int ru, int rr,
+                                         int rd, int y, const Strip& sp, int lane, const ScanOut& o,
+                                         Acc& acc) {
+  const int label = acc.g - sp.frame_base;  // the current region's label in this frame (valid, or none)
+  unsigned km = 0;                          // the current region's pixels
+#pragma unroll
+  for (int k = 0; k < PX; ++k) km |= (r.c[k + 1] == label ? 1u : 0u) << k;
+  unsigned vm = km;  // valid pixels: labels 1 .. nseg - 1
+  if (km != (1u << PX) - 1) {
+#pragma unroll
+    for (int k = 0; k < PX; ++k)
+      vm |= (static_cast<unsigned>(r.c[k + 1] - 1) < static_cast<unsigned>(o.nseg - 1) ? 1u : 0u) << k;
+  }
+  if (!__any_sync(FULL, vm != 0)) return;
+  const int* ur = sp.ring[ru] + 4 + PX * lane;
+  const int* rw = sp.ring[rr] + 4 + PX * lane;
+  const int* dr = sp.ring[rd] + 4 + PX * lane;
+  // perimeter categories of the border pixels: the current region's
+  // counted here, the others' kept as 2-bit codes for their runs
+  unsigned need = vm & (fr >> 1) & ((1u << PX) - 1), codes = 0, k1 = 0, k2 = 0, k3 = 0;
+  while (need) {
+    const int k = __ffs(need) - 1;
+    need &= need - 1;
+    const unsigned c = category(ur, rw, dr, k, fu, fr, fd);
+    if (km >> k & 1u) {
+      k1 += c == 1u;
+      k2 += c == 2u;
+      k3 += c == 3u;
+    } else {
+      codes |= c << (2 * k);
+    }
+  }
+  if (km) {
+    // Sum j and Sum j^2 over the offsets j = b0 + 2 b1 + 4 b2 of the pixels
+    const unsigned n = __popc(km), p0 = __popc(km & 0xaau), p1 = __popc(km & 0xccu), p2 = __popc(km & 0xf0u);
+    const unsigned s1 = p0 + 2 * p1 + 4 * p2;
+    const unsigned s2 = p0 + 4 * p1 + 16 * p2 + 4 * __popc(km & 0x88u) + 8 * __popc(km & 0xa0u) + 16 * __popc(km & 0xc0u);
+    const unsigned uy = static_cast<unsigned>(y);
+    acc.n += n;
+    acc.j1 += s1;
+    acc.j2 += s2;
+    acc.r1 += static_cast<unsigned long long>(uy) * n;
+    acc.r2 += static_cast<unsigned long long>(uy) * uy * n;
+    acc.rj += static_cast<unsigned long long>(uy) * s1;
+    acc.k1 += k1;
+    acc.k2 += k2;
+    acc.k3 += k3;
+    const int first = sp.x + __ffs(km) - 1, last = sp.x + 31 - __clz(km);
+    acc.minc = min(acc.minc, first);
+    acc.maxc = max(acc.maxc, last);
+    acc.minr = min(acc.minr, y);
+    acc.maxr = max(acc.maxr, y);
+    // the first and last pixel of the region in the row, if they lie here
+    const unsigned starts = km & ~((km << 1) | (r.c[0] == label ? 1u : 0u));
+    const unsigned ends = km & ~((km >> 1) | (r.c[PX + 1] == label ? 1u << (PX - 1) : 0u));
+    const long long at = static_cast<long long>(acc.g) * o.h + y;
+    if (starts) atomicMin(o.mn + at, first);
+    if (ends) atomicMax(o.mx + at, last);
+  }
+  // other regions' pixels: the lane's runs of them into device memory
+  unsigned om = vm & ~km;
+  int miss = EMPTY;
+  while (om) {
+    const int k = __ffs(om) - 1;
+    const int v = rw[k];
+    int e = k;
+    unsigned cats = 1u << (8 * (codes >> (2 * k) & 3u)) >> 8;
+    while (e < PX - 1 && (om >> (e + 1) & 1u) && rw[e + 1] == v) {
+      ++e;
+      cats += 1u << (8 * (codes >> (2 * e) & 3u)) >> 8;
+    }
+    om &= ~((2u << e) - (1u << k));
+    const int g = sp.frame_base + v;
+    const long long at = static_cast<long long>(g) * o.h + y;
+    if (rw[k - 1] != v) atomicMin(o.mn + at, sp.x + k);
+    if (rw[e + 1] != v) atomicMax(o.mx + at, sp.x + e);
+    Acc run;  // n pixels from column sp.x + k: offsets 0 .. n - 1
+    const unsigned n = e - k + 1, uy = static_cast<unsigned>(y);
+    run.g = g;
+    run.minr = run.maxr = y;
+    run.minc = sp.x + k;
+    run.maxc = sp.x + e;
+    run.n = n;
+    run.j1 = n * (n - 1) / 2;
+    run.j2 = (n - 1) * n * (2 * n - 1) / 6;
+    run.k1 = cats & 0xffu;
+    run.k2 = (cats >> 8) & 0xffu;
+    run.k3 = cats >> 16;
+    run.r1 = static_cast<unsigned long long>(uy) * n;
+    run.r2 = static_cast<unsigned long long>(uy) * uy * n;
+    run.rj = static_cast<unsigned long long>(uy) * run.j1;
+    acc_flush(o.sums, o.box, run, sp.x + k);
+    if (miss == EMPTY) miss = g;
+  }
+  if (!km && miss != EMPTY) {
+    acc_flush(o.sums, o.box, acc, sp.x);
+    acc_clear(acc, miss);
+  }
+}
+
+// mn, mx: BIG and -1; box: BIG, BIG, -1, -1; sums: 0 (grid-strided).
+__device__ __forceinline__ void fill_outputs(const ScanOut& o, long long regions, long long first, long long stride) {
+  const long long extremes = regions * o.h, quads = extremes / 4;  // torch's allocations are 16-byte aligned
+  for (long long i = first; i < quads; i += stride) {
+    reinterpret_cast<int4*>(o.mn)[i] = make_int4(BIG, BIG, BIG, BIG);
+    reinterpret_cast<int4*>(o.mx)[i] = make_int4(-1, -1, -1, -1);
+  }
+  for (long long i = quads * 4 + first; i < extremes; i += stride) {
+    o.mn[i] = BIG;
+    o.mx[i] = -1;
+  }
+  for (long long g = first; g < regions; g += stride) reinterpret_cast<int4*>(o.box)[g] = make_int4(BIG, BIG, -1, -1);
+  const long long pairs = regions * SUMS / 2;
+  for (long long i = first; i < pairs; i += stride) reinterpret_cast<ulonglong2*>(o.sums)[i] = make_ulonglong2(0, 0);
+  if (first == 0 && regions * SUMS % 2) o.sums[regions * SUMS - 1] = 0;
+}
+
+// The sums about the origin to the sums about each region's bbox centre,
+// in place: with s = minr + maxr, t = minc + maxc, a = 2r - s and b = 2c -
+// t, Sum a = 2 R1 - s A, Sum b = 2 C1 - t A, Sum a^2 = 4 R2 - 4 s R1 + s^2
+// A, Sum b^2 = 4 C2 - 4 t C1 + t^2 A, Sum ab = 4 RC - 2 t R1 - 2 s C1 + s
+// t A, modulo 2^64 (exact wherever the result fits an int64).
+__device__ __forceinline__ void centre_sums(const ScanOut& o, long long regions, long long first, long long stride) {
+  for (long long g = first; g < regions; g += stride) {
+    const int4 b = reinterpret_cast<const int4*>(o.box)[g];
+    unsigned long long* v = o.sums + g * SUMS;
+    const unsigned long long A = v[0], R1 = v[1], C1 = v[2], R2 = v[3], C2 = v[4], RC = v[5];
+    const unsigned long long s = static_cast<unsigned long long>(static_cast<long long>(b.x) + b.z);
+    const unsigned long long t = static_cast<unsigned long long>(static_cast<long long>(b.y) + b.w);
+    v[1] = 2 * R1 - s * A;
+    v[2] = 2 * C1 - t * A;
+    v[3] = 4 * R2 - 4 * s * R1 + s * s * A;
+    v[4] = 4 * C2 - 4 * t * C1 + t * t * A;
+    v[5] = 4 * RC - 2 * t * R1 - 2 * s * C1 + s * t * A;
+  }
+}
+
+// Persistent blocks: warp task t is (frame, row chunk, strip of
+// WARP_COLS columns), strips fastest, so a block's warps take 1024 columns
+// of one chunk; warp b * SCAN_WARPS + w takes tasks b * SCAN_WARPS + w,
+// + gridDim.x * SCAN_WARPS, ...  A warp walks its chunk's rows y0 - 2 ..
+// y1 + 1 through its ring in shared memory, AHEAD rows in flight by
+// cp.async: once row i is in, the border flags of row i - 1, then row i -
+// 2's pixels.  Its lanes' sums go to device memory at the end of the task.
+// One cooperative launch: the outputs are filled first and the sums
+// centred last, each phase behind a grid-wide barrier.
+__global__ void __launch_bounds__(SCAN_THREADS, 4)
+    region_scan_kernel(const int* __restrict__ lab, ScanOut o, int n, int chunks, int span) {
+  __shared__ __align__(16) int s_ring[SCAN_WARPS][RING][ROW_INTS];
+  cg::grid_group grid = cg::this_grid();
+  const long long regions = static_cast<long long>(n) * o.nseg;
+  const long long thread = blockIdx.x * static_cast<long long>(SCAN_THREADS) + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * SCAN_THREADS;
+  fill_outputs(o, regions, thread, threads);
+  grid.sync();
   const int lane = threadIdx.x & 31;
-  for (int task = threadIdx.x / 32; task < MT_ROWS * (MT_COLS / 32); task += MT_THREADS / 32) {
-    const int r = task / (MT_COLS / 32);
-    const int cl = (task % (MT_COLS / 32)) * 32 + lane;
-    const int y = y0 + r, x = x0 + cl;
-    const int* p = s_lab + (r + 2) * LC + cl + 2;
-    const unsigned char* b = s_border + (r + 1) * BC + cl + 1;
-    const int label = (y < h && x < w) ? *p : 0;
-    const bool ok = label > 0 && label < nseg;
-    int cls = 0;  // 1: weight 1, 2: sqrt(2), 3: (1 + sqrt(2)) / 2
-    if (ok && *b) {
-      const int orth = (p[-LC] == label && b[-BC]) + (p[LC] == label && b[BC]) + (p[-1] == label && b[-1]) +
-                       (p[1] == label && b[1]);
-      const int diag = (p[-LC - 1] == label && b[-BC - 1]) + (p[-LC + 1] == label && b[-BC + 1]) +
-                       (p[LC - 1] == label && b[BC - 1]) + (p[LC + 1] == label && b[BC + 1]);
-      if (orth >= 2 && orth <= 3 && diag <= 2)
-        cls = 1;
-      else if ((orth == 0 && diag == 2) || (orth == 1 && diag == 3))
-        cls = 2;
-      else if (orth == 1 && (diag == 1 || diag == 2))
-        cls = 3;
+  const int h = o.h, w = o.w;
+  const int strips = (w + WARP_COLS - 1) / WARP_COLS;
+  const long long tasks = static_cast<long long>(n) * chunks * strips;
+  Strip sp;
+  sp.ring = s_ring[threadIdx.x / 32];
+  for (long long task = blockIdx.x * static_cast<long long>(SCAN_WARPS) + threadIdx.x / 32; task < tasks;
+       task += static_cast<long long>(gridDim.x) * SCAN_WARPS) {
+    const int strip = static_cast<int>(task % strips);
+    const long long rest = task / strips;
+    const int chunk = static_cast<int>(rest % chunks);
+    const int frame = static_cast<int>(rest / chunks);
+    sp.xw = strip * WARP_COLS;
+    sp.x = sp.xw + PX * lane;
+    sp.frame_base = frame * o.nseg;
+    const int y0 = chunk * span;
+    const int rows = (y0 + span < h ? span : h - y0) + 4;  // y0 - 2 .. y1 + 1
+    const int* frame_lab = lab + static_cast<long long>(frame) * h * w;
+    const bool fast = (reinterpret_cast<uintptr_t>(frame_lab) & 15u) == 0 && w % 4 == 0 && sp.xw + WARP_COLS <= w;
+    const int* rp = frame_lab + static_cast<long long>(y0 - 2) * w;  // the next row to fetch, column 0
+    __syncwarp();  // every lane has read the last task's rows
+#pragma unroll
+    for (int j = 0; j < AHEAD; ++j, rp += w) {
+      const int y = y0 - 2 + j;
+      fetch_row(sp.ring[j], rp, y >= 0 && y < h, fast, sp.xw, w, lane);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    const unsigned m1 = __ballot_sync(FULL, cls == 1);
-    const unsigned m2 = __ballot_sync(FULL, cls == 2);
-    const unsigned m3 = __ballot_sync(FULL, cls == 3);
-    const int left = __shfl_up_sync(FULL, label, 1);
-    const int right = __shfl_down_sync(FULL, label, 1);
-    const unsigned starts = __ballot_sync(FULL, lane == 0 || left != label);
-    if (!ok || (lane != 31 && right == label)) continue;
-    // the last lane of a run of `label`: its sums in closed form
-    const unsigned upto = FULL >> (31 - lane);  // lanes 0..lane
-    const int start = 31 - __clz(starts & upto);
-    const unsigned run = upto & ~((1u << start) - 1u);
-    const long long g = frame * nseg + label;
-    const long long len = lane - start + 1;
-    const long long a = 2LL * y - sr2[g];
-    const long long b0 = 2LL * (x - (lane - start)) - sc2[g];
-    const long long tri = len * (len - 1);                   // Sum 2j, j < len
-    const long long sq = (len - 1) * len * (2 * len - 1) / 6;  // Sum j^2
-    const long long sb = len * b0 + tri;                     // Sum (b0 + 2j)
-    const long long v[SUMS] = {len, len * a, sb, len * a * a, len * b0 * b0 + 2 * b0 * tri + 4 * sq, a * sb,
-                               __popc(m1 & run), __popc(m2 & run), __popc(m3 & run)};
-    int slot = -1;
-    const unsigned hash = (static_cast<unsigned>(label) * 2654435761u) >> 24;
-    for (int k = 0; k < SLOTS; ++k) {
-      const int s = (hash + k) & (SLOTS - 1);
-      const int prev = atomicCAS(s_key + s, 0, label);
-      if (prev == 0 || prev == label) {
-        slot = s;
-        break;
+    Acc acc;
+    acc_clear(acc, EMPTY);
+    unsigned fu = 0, fr = 0;  // border flags of rows i - 3 and i - 2
+    Window wr;                // the window of row i - 2
+    unsigned any = 0;         // bit k: row i - k holds a label other than 0
+    for (int i = 0; i < rows; ++i) {
+      const int next = i + AHEAD, y = y0 - 2 + next;
+      __syncwarp();  // row next - RING's ring row is no longer read
+      if (next < rows) {
+        fetch_row(sp.ring[next % RING], rp, y >= 0 && y < h, fast, sp.xw, w, lane);
+        rp += w;
       }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD) : "memory");
+      __syncwarp();
+      const Row d = read_row(sp.ring[i % RING], lane);
+      any = (any << 1) | (row_any(d) ? 1u : 0u);
+      // flags of row i - 1 (between rows i - 2 and i)
+      unsigned fd = 0;
+      Window wd;
+      if (i >= 2 && (any & 2u)) {
+        const Row m = read_row(sp.ring[(i + RING - 1) % RING], lane);
+        wd = window(m, lane);
+        fd = border_flags(read_row(sp.ring[(i + RING - 2) % RING], lane), m, wd, d, lane);
+      }
+      // row i - 2 (between rows i - 3 and i - 1)
+      if (i >= 4 && (any & 4u))
+        scan_row(wr, fu, fr, fd, (i + RING - 3) % RING, (i + RING - 2) % RING, (i + RING - 1) % RING, y0 + i - 4, sp,
+                 lane, o, acc);
+      fu = fr;
+      fr = fd;
+      wr = wd;
     }
-#pragma unroll
-    for (int j = 0; j < SUMS; ++j) {
-      if (v[j] == 0) continue;
-      if (slot >= 0)
-        atomicAdd(s_val + j * SLOTS + slot, static_cast<unsigned long long>(v[j]));
-      else
-        atomicAdd(sums + g * SUMS + j, static_cast<unsigned long long>(v[j]));
-    }
+    acc_flush_warp(o.sums, o.box, acc, sp.x, lane);
   }
-  __syncthreads();
-  for (int s = threadIdx.x; s < SLOTS; s += MT_THREADS) {
-    const int label = s_key[s];
-    if (label == 0) continue;
-    unsigned long long* o = sums + (frame * nseg + label) * SUMS;
-#pragma unroll
-    for (int j = 0; j < SUMS; ++j) {
-      const unsigned long long v = s_val[j * SLOTS + s];
-      if (v != 0) atomicAdd(o + j, v);
-    }
-  }
+  grid.sync();
+  centre_sums(o, regions, thread, threads);
 }
 
 // ---------------------------------------------------------------------------
@@ -344,39 +726,43 @@ int grid_for(long long items, int per_block) {
 
 }  // namespace
 
-// lab: (n, h, w) int32; mn, mx: (n, nseg, h) int32, filled with 2**30 and
-// -1 beforehand; labels outside 1..nseg-1 are skipped.
-extern "C" int yam_row_extremes(const void* lab, void* mn, void* mx, int n, int h, int w, int nseg, void* stream) {
-  if (n < 0 || h <= 0 || w <= 0 || nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(n) * h;
-  const long long tasks = rows * ((w + 31) / 32);
-  if (tasks > 0)
-    row_extremes_kernel<<<grid_for(tasks, EXT_THREADS / 32), EXT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(lab), static_cast<int*>(mn), static_cast<int*>(mx), rows, h, w, nseg);
-  return static_cast<int>(cudaGetLastError());
+// blocks: how many blocks of the label pass the current device holds at
+// once (what its cooperative launch allows).
+extern "C" int yam_region_scan_resident_blocks(int* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, region_scan_kernel, SCAN_THREADS, 0);
+  *blocks = per_sm * sms;
+  return static_cast<int>(err);
 }
 
-// lab: (n, h, w) int32; sr2, sc2: (n, nseg) int32, minr + maxr and
-// minc + maxc of each region; sums: (n, nseg, 9) int64, zeroed beforehand.
-extern "C" int yam_moment_sums(const void* lab, const void* sr2, const void* sc2, void* sums, int n, int h, int w,
-                               int nseg, void* stream) {
-  if (n < 0 || h <= 0 || w <= 0 || nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_x = (w + MT_COLS - 1) / MT_COLS;
-  const long long tiles = static_cast<long long>((h + MT_ROWS - 1) / MT_ROWS) * tiles_x;
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const long long hw = static_cast<long long>(h) * w;
-  for (int first = 0; first < n; first += MAX_FRAMES) {
-    const int frames = n - first < MAX_FRAMES ? n - first : MAX_FRAMES;
-    moment_sums_kernel<<<dim3(static_cast<unsigned>(tiles), frames), MT_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(lab) + first * hw, static_cast<const int*>(sr2) + static_cast<long long>(first) * nseg,
-        static_cast<const int*>(sc2) + static_cast<long long>(first) * nseg,
-        static_cast<unsigned long long*>(sums) + static_cast<long long>(first) * nseg * SUMS, h, w, nseg, tiles_x);
+// lab: (n, h, w) int32 (any base address); out: mn, mx (n, nseg, h) int32,
+// box (n, nseg, 4) int32 and sums (n, nseg, 9) int64, all filled here.
+// Labels outside 1..nseg-1 are skipped.  grid, chunks and span come from
+// ops/regionprops.py:scan_plan (chunks of span rows cover each frame, grid
+// at most yam_region_scan_resident_blocks).
+extern "C" int yam_region_scan(const void* lab, void* mn, void* mx, void* box, void* sums, int n, int h, int w,
+                               int nseg, int grid, int chunks, int span, void* stream) {
+  if (n < 1 || h <= 0 || w <= 0 || nseg < 1 || static_cast<long long>(n) * nseg > 0x7fffffffLL || grid < 1 ||
+      chunks < 1 || span < 1 || static_cast<long long>(chunks) * span < h ||
+      static_cast<long long>(chunks - 1) * span >= h)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* l = static_cast<const int*>(lab);
+  ScanOut o{static_cast<int*>(mn), static_cast<int*>(mx), static_cast<int*>(box),
+            static_cast<unsigned long long*>(sums), h, w, nseg};
+  void* args[] = {&l, &o, &n, &chunks, &span};
+  const cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(region_scan_kernel), dim3(grid),
+                                    dim3(SCAN_THREADS), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves its error behind for the next launch's check: take it
+    return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// mn, mx: (n, nseg, h) from yam_row_extremes; minr, maxr: (n, nseg) int32
+// mn, mx: (n, nseg, h) from yam_region_scan; minr, maxr: (n, nseg) int32
 // (maxr < minr for an empty region); scratch: (n, nseg, h) int2; hull:
 // (n, nseg) int64 out, 0 for region 0 and empty regions.
 extern "C" int yam_hull_areas(const void* mn, const void* mx, const void* minr, const void* maxr, void* scratch,

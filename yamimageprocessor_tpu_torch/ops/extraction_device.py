@@ -3,10 +3,11 @@
 
 The path: gray -> Otsu -> binary (:func:`binary`, ``binary_j``: the
 histogram256 kernel) -> compact raster-first labels (the CC kernel) ->
-per-region row extremes, moment and perimeter sums and hull pixel areas
-(:mod:`.regionprops`, kernels A-C) -> either the annotated image
-(:func:`region_properties_device_fn`, kernel D) or the per-region table
-(:func:`region_tables`, finished in float64 on the host).
+per-region row extremes, bboxes, moment and perimeter sums (one label
+pass, :func:`.regionprops.region_scan`) and hull pixel areas (kernel C)
+-> either the annotated image (:func:`region_properties_device_fn`,
+kernel D) or the per-region table (:func:`region_tables`, finished in
+float64 on the host).
 
 The reference's static capacity ladder (64/512/1024 regions), its
 saturation re-run, its host relabel past 1024 regions, its hull chain cap
@@ -70,13 +71,11 @@ def measure(labels: torch.Tensor, nseg: int):
     """(bbox, sums, (mn, mx)) of every region of ``labels``: the
     ``(N, nseg, 4)`` int32 inclusive ``minr, minc, maxr, maxc``, the
     ``(N, nseg, 9)`` int64 moment and perimeter sums, and the row extremes
-    the hull areas are computed from."""
+    the hull areas are computed from, all from one pass over the labels
+    (:func:`.regionprops.region_scan`)."""
 
-    mn, mx = RP.row_extremes(labels, nseg)
-    box = RP.bounding_boxes(mn, mx)
-    sr2 = (box[..., 0] + box[..., 2]).contiguous()
-    sc2 = (box[..., 1] + box[..., 3]).contiguous()
-    return box, RP.moment_sums(labels, sr2, sc2, nseg), (mn, mx)
+    box, sums, mn, mx = RP.region_scan(labels, nseg)
+    return box, sums, (mn, mx)
 
 
 def labeled_measurements(imgs: torch.Tensor):
@@ -194,7 +193,7 @@ def region_properties_device_fn(imgs: torch.Tensor, dyn) -> torch.Tensor:
 
 def region_pack(labels: torch.Tensor, nseg: int) -> torch.Tensor:
     """The device half of the table: ``(N, nseg, 14)`` int64 rows of the
-    inclusive bbox, the 9 sums of :func:`.regionprops.moment_sums` and the
+    inclusive bbox, the 9 sums of :func:`.regionprops.region_scan` and the
     hull pixel area, for labels whose largest is below ``nseg``."""
 
     box, sums, (mn, mx) = measure(labels, nseg)

@@ -2,7 +2,7 @@
 ``csrc/extraction.cu`` and their plain versions.
 
 Port of ``yamimageprocessor_tpu/ops/regionprops.py``: ``row_extremes_j``
-(``:196``), the moment sums of ``_measure_packed`` / ``_moment_sums_matmul``
+(``:196``) with the bbox it gives, the moment sums of ``_measure_packed`` / ``_moment_sums_matmul``
 (``:320-463``) with ``_perimeter_weights_j`` (``:500``), and
 ``hull_pixel_areas_j`` (``:574-812``); :class:`RegionMeasurements` keeps
 the reference's float64 formulas (``:34-80``).  The one-hot matmuls, the
@@ -15,14 +15,16 @@ at least ``R + 1`` (region 0 and labels outside ``1..nseg-1`` are left
 out).  Every result is an integer, so the kernels and the plain versions
 agree bit for bit whatever the order of the card's atomics:
 
-- :func:`row_extremes` (kernel A): the leftmost and rightmost column of
-  every (frame, region, row), :data:`BIG` and -1 where the region has no
-  pixel on the row;
-- :func:`moment_sums` (kernel B): per region the area, the first and
-  second moments of ``a = 2 r - (minr + maxr)`` and ``b = 2 c - (minc +
-  maxc)`` (twice the offsets from the bbox centre, the reference's moment
-  origin, so that they are integers), and the counts of skimage's three
-  perimeter categories (weights 1, sqrt(2) and (1 + sqrt(2)) / 2), int64;
+- :func:`region_scan` (one kernel, one read of the labels): the leftmost
+  and rightmost column of every (frame, region, row), :data:`BIG` and -1
+  where the region has no pixel on the row; each region's inclusive bbox;
+  and per region the area, the first and second moments of ``a = 2 r -
+  (minr + maxr)`` and ``b = 2 c - (minc + maxc)`` (twice the offsets from
+  the bbox centre, the reference's moment origin, so that they are
+  integers), and the counts of skimage's three perimeter categories
+  (weights 1, sqrt(2) and (1 + sqrt(2)) / 2), int64.  The kernel sums the
+  moments about the frame's origin and :func:`centre_sums` moves them to
+  the bbox centre;
 - :func:`hull_pixel_areas` (kernel C): the pixel count of each region's
   filled convex hull, equal to the reference's
   ``_hull_pixel_area(convex_hull_points(...))``, int64.
@@ -33,6 +35,8 @@ version.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,9 +49,12 @@ BIG = 1 << 30
 SQRT2 = float(np.sqrt(2.0))
 #: weights of the perimeter categories counted in columns N1, N2, N3
 PERIMETER_WEIGHTS = (1.0, SQRT2, (1.0 + SQRT2) / 2.0)
-#: columns of :func:`moment_sums`
+#: columns of the per-region sums (:func:`region_scan`)
 AREA, SUM_A, SUM_B, SUM_AA, SUM_BB, SUM_AB, N1, N2, N3 = range(9)
 SUMS = 9
+#: the label pass's schedule (csrc/extraction.cu): 4 warps a block, 256
+#: columns a warp (8 a lane), chunks of at least MIN_SPAN rows
+SCAN_WARPS, WARP_COLS, MIN_SPAN = 4, 256, 8
 
 
 @dataclass
@@ -111,7 +118,7 @@ def _region_index(labels: torch.Tensor, nseg: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# A: row extremes
+# the label pass: row extremes, bounding boxes, moment and perimeter sums
 
 
 def _empty_extremes(n: int, nseg: int, h: int, device):
@@ -137,26 +144,6 @@ def row_extremes_plain(labels: torch.Tensor, nseg: int):
     return mn, mx
 
 
-def row_extremes(labels: torch.Tensor, nseg: int):
-    """``(N, H, W)`` int32 labels -> ``(mn, mx)``, each ``(N, nseg, H)``
-    int32: the leftmost and rightmost column of each region on each row,
-    :data:`BIG` and -1 where it has no pixel there."""
-
-    if not _build.on_card("row_extremes", labels):
-        return row_extremes_plain(labels, nseg)
-    _check("row_extremes", labels, torch.int32, 3)
-    n, h, w = labels.shape
-    mn, mx = _empty_extremes(n, nseg, h, labels.device)
-    if labels.numel() == 0:
-        return mn, mx
-    _build.launch("yam_row_extremes", labels.device, labels.data_ptr(), mn.data_ptr(), mx.data_ptr(), n, h, w, nseg)
-    row_extremes.launches += 1
-    return mn, mx
-
-
-row_extremes.launches = 0
-
-
 def bounding_boxes(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
     """``(N, nseg, 4)`` int32 ``minr, minc, maxr, maxc`` (inclusive) from
     the row extremes; ``BIG, BIG, -1, -1`` for a region without pixels."""
@@ -166,10 +153,6 @@ def bounding_boxes(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
     minr = torch.where(has, rows, BIG).amin(-1)
     maxr = torch.where(has, rows, -1).amax(-1)
     return torch.stack([minr, mn.amin(-1), maxr, mx.amax(-1)], dim=-1).to(torch.int32)
-
-
-# ---------------------------------------------------------------------------
-# B: moment and perimeter sums
 
 
 def perimeter_classes(labels: torch.Tensor) -> torch.Tensor:
@@ -201,7 +184,8 @@ def perimeter_classes(labels: torch.Tensor) -> torch.Tensor:
 
 def moment_values(labels: torch.Tensor, sr2: torch.Tensor, sc2: torch.Tensor, nseg: int):
     """(slot, values): each pixel's region slot (:func:`_region_index`)
-    and its ``(N * H * W, 9)`` int64 row of :func:`moment_sums`' columns."""
+    and its ``(N * H * W, 9)`` int64 row of the sums' columns about the
+    ``(N, nseg)`` centres ``sr2 / 2``, ``sc2 / 2``."""
 
     n, h, w = labels.shape
     slot = _region_index(labels, nseg)
@@ -219,7 +203,10 @@ def moment_values(labels: torch.Tensor, sr2: torch.Tensor, sc2: torch.Tensor, ns
 
 
 def moment_sums_plain(labels: torch.Tensor, sr2: torch.Tensor, sc2: torch.Tensor, nseg: int) -> torch.Tensor:
-    """Plain version: every pixel's values, then ``index_add_`` by region."""
+    """The sums about the bbox centres given (``sr2``, ``sc2``: ``(N, nseg)``
+    ``minr + maxr`` and ``minc + maxc``), each pixel's values taken about
+    its centre then ``index_add_`` by region: what :func:`region_scan`'s
+    sums must equal."""
 
     n = labels.shape[0]
     slot, values = moment_values(labels, sr2, sc2, nseg)
@@ -228,31 +215,121 @@ def moment_sums_plain(labels: torch.Tensor, sr2: torch.Tensor, sc2: torch.Tensor
     return out[:-1].reshape(n, nseg, SUMS)
 
 
-def moment_sums(labels: torch.Tensor, sr2: torch.Tensor, sc2: torch.Tensor, nseg: int) -> torch.Tensor:
-    """``(N, nseg, 9)`` int64 per-region sums (columns :data:`AREA` ...
-    :data:`N3`) of ``(N, H, W)`` int32 labels; ``sr2`` and ``sc2`` are the
-    ``(N, nseg)`` int32 ``minr + maxr`` and ``minc + maxc`` of each region."""
+def origin_values(labels: torch.Tensor, nseg: int):
+    """(slot, values): each pixel's region slot (:func:`_region_index`)
+    and its ``(N * H * W, 9)`` int64 row ``1, r, c, r^2, c^2, r c`` and the
+    three perimeter categories: the sums :func:`region_scan` takes about
+    the frame's origin."""
 
-    if not _build.on_card("moment_sums", labels):
-        return moment_sums_plain(labels, sr2, sc2, nseg)
-    _check("moment_sums", labels, torch.int32, 3)
     n, h, w = labels.shape
-    for name, t in (("sr2", sr2), ("sc2", sc2)):
-        _check(f"moment_sums {name}", t, torch.int32, 2)
-        if t.shape != (n, nseg) or t.device != labels.device:
-            raise ValueError(f"moment_sums: {name} must be ({n}, {nseg}) on {labels.device}")
-    sums = torch.zeros((n, nseg, SUMS), dtype=torch.int64, device=labels.device)
-    if labels.numel() == 0:
-        return sums
-    _build.launch(
-        "yam_moment_sums", labels.device, labels.data_ptr(), sr2.data_ptr(), sc2.data_ptr(), sums.data_ptr(),
-        n, h, w, nseg,
+    r = torch.arange(h, device=labels.device).reshape(1, h, 1).expand(n, h, w)
+    c = torch.arange(w, device=labels.device).reshape(1, 1, w).expand(n, h, w)
+    cls = perimeter_classes(labels)
+    values = torch.stack(
+        [torch.ones_like(r), r, c, r * r, c * c, r * c, (cls == 1).long(), (cls == 2).long(), (cls == 3).long()],
+        dim=-1,
     )
-    moment_sums.launches += 1
-    return sums
+    return _region_index(labels, nseg).reshape(-1), values.reshape(-1, SUMS)
 
 
-moment_sums.launches = 0
+def centre_sums(raw: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """``(N, nseg, 9)`` int64 sums about the frame's origin (area, Sum r,
+    Sum c, Sum r^2, Sum c^2, Sum rc, the categories) -> the same about each
+    region's bbox centre, as :func:`moment_sums_plain` takes them.  With
+    ``s = minr + maxr`` and ``t = minc + maxc``: Sum a = 2 R1 - s A, Sum b =
+    2 C1 - t A, Sum a^2 = 4 R2 - 4 s R1 + s^2 A, Sum b^2 = 4 C2 - 4 t C1 +
+    t^2 A, Sum ab = 4 RC - 2 t R1 - 2 s C1 + s t A; exact integers (the
+    kernel's last phase, ``centre_sums``, in unsigned 64-bit arithmetic,
+    gives the same bits)."""
+
+    A, R1, C1, R2, C2, RC = raw[..., :6].unbind(-1)
+    s = (box[..., 0] + box[..., 2]).to(torch.int64)
+    t = (box[..., 1] + box[..., 3]).to(torch.int64)
+    moments = [
+        2 * R1 - s * A,
+        2 * C1 - t * A,
+        4 * R2 - 4 * s * R1 + s * s * A,
+        4 * C2 - 4 * t * C1 + t * t * A,
+        4 * RC - 2 * t * R1 - 2 * s * C1 + s * t * A,
+    ]
+    return torch.cat([A[..., None], torch.stack(moments, dim=-1), raw[..., 6:]], dim=-1)
+
+
+def region_scan_plain(labels: torch.Tensor, nseg: int):
+    """Plain version of :func:`region_scan`: :func:`row_extremes_plain`,
+    :func:`bounding_boxes`, ``index_add_`` of :func:`origin_values` by
+    region, then :func:`centre_sums`."""
+
+    n = labels.shape[0]
+    mn, mx = row_extremes_plain(labels, nseg)
+    box = bounding_boxes(mn, mx)
+    slot, values = origin_values(labels, nseg)
+    raw = torch.zeros((n * nseg + 1, SUMS), dtype=torch.int64, device=labels.device)
+    raw.index_add_(0, slot, values)
+    return box, centre_sums(raw[:-1].reshape(n, nseg, SUMS), box), mn, mx
+
+
+def scan_plan(n: int, h: int, w: int, blocks: int, *, warps: int = SCAN_WARPS, cols: int = WARP_COLS,
+              min_span: int = MIN_SPAN):
+    """(grid, chunks, span) of the label pass for ``blocks`` resident
+    blocks of ``warps`` warps: chunks of ``span`` rows cover each frame, a
+    warp takes a (frame, chunk, ``cols``-column strip) task, and the tasks
+    fill about ``blocks * warps`` warps once (chunks of at least
+    ``min_span`` rows, or the whole frame)."""
+
+    strips = -(-w // cols)
+    want = max(1, blocks * warps // max(1, n * strips))
+    span = min(h, max(min_span, -(-h // want)))
+    chunks = -(-h // span)
+    grid = max(1, min(blocks, -(-n * chunks * strips // warps)))
+    return grid, chunks, span
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: torch.device) -> int:
+    """Blocks of the label pass the card holds at once (its cooperative
+    launch takes no more)."""
+
+    blocks = ctypes.c_int(0)
+    _build.call("yam_region_scan_resident_blocks", device, ctypes.byref(blocks))
+    if blocks.value < 1:
+        raise RuntimeError(f"region_scan: no block fits on {device}")
+    return blocks.value
+
+
+def region_scan(labels: torch.Tensor, nseg: int):
+    """``(N, H, W)`` int32 labels -> ``(box, sums, mn, mx)``: the ``(N,
+    nseg, 4)`` int32 inclusive ``minr, minc, maxr, maxc`` (``BIG, BIG, -1,
+    -1`` for region 0 and a region without pixels), the ``(N, nseg, 9)``
+    int64 sums (columns :data:`AREA` ... :data:`N3`), and the ``(N, nseg,
+    H)`` int32 row extremes, :data:`BIG` and -1 where a region has no pixel
+    on a row; one read of the labels on the card."""
+
+    if not _build.on_card("region_scan", labels):
+        return region_scan_plain(labels, nseg)
+    if labels.dtype != torch.int32 or labels.ndim != 3 or not labels.is_contiguous():
+        raise ValueError(f"region_scan takes contiguous (N, H, W) int32 labels, got {tuple(labels.shape)} {labels.dtype}")
+    n, h, w = labels.shape
+    dev = labels.device
+    if labels.numel() == 0:
+        mn, mx = _empty_extremes(n, nseg, h, dev)
+        box = torch.tensor([BIG, BIG, -1, -1], dtype=torch.int32, device=dev).expand(n, nseg, 4).contiguous()
+        return box, torch.zeros((n, nseg, SUMS), dtype=torch.int64, device=dev), mn, mx
+    # every output is filled by the C function
+    mn = torch.empty((n, nseg, h), dtype=torch.int32, device=dev)
+    mx = torch.empty_like(mn)
+    box = torch.empty((n, nseg, 4), dtype=torch.int32, device=dev)
+    sums = torch.empty((n, nseg, SUMS), dtype=torch.int64, device=dev)
+    grid, chunks, span = scan_plan(n, h, w, _resident_blocks(dev))
+    _build.launch(
+        "yam_region_scan", dev, labels.data_ptr(), mn.data_ptr(), mx.data_ptr(), box.data_ptr(), sums.data_ptr(),
+        n, h, w, nseg, grid, chunks, span,
+    )
+    region_scan.launches += 1
+    return box, sums, mn, mx
+
+
+region_scan.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +399,7 @@ def hull_pixel_areas_plain(mn, mx, minr, maxr) -> torch.Tensor:
 def hull_pixel_areas(mn: torch.Tensor, mx: torch.Tensor, minr: torch.Tensor, maxr: torch.Tensor) -> torch.Tensor:
     """``(N, nseg)`` int64 pixel counts of each region's filled convex hull
     (0 for region 0 and empty regions), from the row extremes of
-    :func:`row_extremes` and the ``(N, nseg)`` int32 first and last rows:
+    :func:`region_scan` and the ``(N, nseg)`` int32 first and last rows:
     per row, ``floor(RX) - ceil(LX) + 1`` of the hull's right and left
     boundary at the row, summed over ``minr..maxr``."""
 
@@ -364,12 +441,15 @@ __all__ = [
     "SUM_B",
     "SUM_BB",
     "bounding_boxes",
+    "centre_sums",
     "hull_pixel_areas",
     "hull_pixel_areas_plain",
-    "moment_sums",
     "moment_sums_plain",
     "moment_values",
+    "origin_values",
     "perimeter_classes",
-    "row_extremes",
+    "region_scan",
+    "region_scan_plain",
     "row_extremes_plain",
+    "scan_plan",
 ]

@@ -6,6 +6,7 @@ and the region-properties extraction.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
+    python3 chip_smoke.py --extraction-times-of DIR   # the hull and annotation kernels of checkout DIR
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -83,16 +84,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    frame against its digest, every column against the port's CPU run on
    3 frames; the three extraction kernels (the label pass: row extremes,
    bboxes, moment and perimeter sums; hull areas; annotation) against
-   their plain versions, bit for bit, on each of those label sets and on
-   a 1024^2 checkerboard, all-background and all-foreground frame, gray
+   their plain versions, bit for bit, on each of those label sets, on a
+   4096^2 frame holding one disk 4001 rows tall (the hull's longest
+   chain), on two 4096^2 frames whose region's right or left outline is a
+   strictly convex lattice chain near ``hull_stack_capacity`` and on a
+   1024^2 checkerboard, all-background and all-foreground frame, gray
    and BGR, the label pass also against the parent's composition (row
-   extremes, their bbox, the sums about the bbox centre); each kernel's,
+   extremes, their bbox, the sums about the bbox centre); the annotation
+   also on boxes clipped at all four frame edges, one pixel wide, across
+   an earlier region's disk and with a disk across a corner (gray and BGR,
+   uint8, uint16, float32); each kernel's,
    its plain version's and (for the label pass: scatter_reduce_ amin and
    amax, then index_add_ of the per-pixel sums) the library calls'
    device time on the 32-frame batch and on one frame, beside its bound,
-   and the label pass's time and bound on each of the five label sets;
-   the data path's device time and back-to-back rate on 1, 8 and 32
-   frames, the annotation's, and the profiler's split of the 32-frame
+   the label pass's time and bound on each of the five label sets, the
+   hull's and the annotation's on all seven (with each set's tallest
+   region); the peak device memory of ``region_tables`` on the blobs
+   frame; the data path's device time and back-to-back rate on 1, 8 and
+   32 frames, the annotation's, and the profiler's split of the 32-frame
    batch.
 
 The kernel phase also holds the median kernel bit for bit against its
@@ -122,7 +131,9 @@ in checkout DIR (an older one, unpacked with ``git archive``) on the same
 inputs, prints SHA-256 digests of their outputs, an empty
 launch's time, and the kernels a call and the back-to-back time of the
 flagship and segmentation chains: run it on two checkouts in one call to
-compare them.  Nothing falls
+compare them.  ``--extraction-times-of DIR`` likewise times the hull and
+annotation kernels of checkout DIR on the seven extraction label sets,
+with digests of their outputs and the blobs frame's peak memory.  Nothing falls
 back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
@@ -197,6 +208,11 @@ BLOBS_SIDE = 2048  # 4x4 blobs on an 8-pixel pitch: 65536 regions
 EXTRACT_CPU_BATCH = 2  # frames of the 8-batch the port's CPU run also takes
 EXTRACT_REPS = 5  # back-to-back calls of the data path
 EXTRACT_KERNELS = ("region_scan", "hull_areas", "annotate")
+TALL_SIDE, TALL_RADIUS = 4096, 2000  # one disk 4001 rows tall: the hull's longest chain
+CHAIN_SIDE = 4096  # regions whose outline is a strictly convex lattice chain near hull_stack_capacity
+EDGE_SHAPE = (2, 300, 257)  # frames of the annotation's edge cases
+#: cases whose plain hull walks thousands of rows in Python: timed once a side
+SLOW_PLAIN_CASES = (f"tall disk {TALL_SIDE}^2", f"convex chains {CHAIN_SIDE}^2")
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -754,6 +770,42 @@ def times_of(root: str) -> None:
         "kernels_a_call": {name: split["kernels"] for name, split in profiles.items()},
         "back_to_back_ms": {name: split["back_to_back_ms"] for name, split in profiles.items()},
     }))
+
+
+def extraction_times_of(root: str) -> None:
+    """Time the hull and annotation kernels of the port in the checkout
+    ``root`` (an older one, unpacked with ``git archive``) on every
+    extraction label set of the extraction phase, and print the times with
+    a SHA-256 of every output (two checkouts whose digests agree computed
+    the same function), each set's tallest region, and the peak device
+    memory of ``region_tables`` on the blobs frame."""
+
+    sys.path.insert(0, root)
+    smi = phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    import yamimageprocessor_tpu_torch as port
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
+
+    blobs = blobs_frame()
+    sets = extraction_label_sets(dev, extraction_frame(), {n: [extraction_frame(seed=s) for s in range(n)]
+                                                             for n in EXTRACT_BATCHES},
+                                 extraction_frame(EXTRACT_WIDE_SIDE), blobs)
+    times, digests = {}, {}
+    for name, (labels, imgs) in sets.items():
+        case = measured_case(labels, imgs)
+        digests[f"hull_areas {name}"] = sha256(hull_of(RP, case))
+        digests[f"annotate {name}"] = sha256(XD.region_annotate(imgs, case["boxes"]))
+        times[name] = {"hull_areas": time_ms(lambda: hull_of(RP, case)),
+                       "annotate": time_ms(lambda: XD.region_annotate(imgs, case["boxes"])),
+                       "longest_rows": longest_rows(case)}
+        print(f"time on {name} (tallest {times[name]['longest_rows']} rows): hull_areas "
+              f"{times[name]['hull_areas']:.4f} ms, annotate {times[name]['annotate']:.4f} ms")
+    del case, sets
+    peak = blobs_peak_memory(blobs)
+    print(f"card: {smi}")
+    print(json.dumps({"package": port.__file__, "times": times, "digests": digests, "blobs_peak_memory": peak}))
 
 
 def phase_kernels(dev) -> dict:
@@ -1634,6 +1686,69 @@ def blobs_frame(side: int = BLOBS_SIDE) -> np.ndarray:
     return np.repeat(img[..., None], 3, axis=-1)
 
 
+def tall_disk_mask(side: int = TALL_SIDE, radius: int = TALL_RADIUS) -> np.ndarray:
+    """One frame holding one disk of ``radius``: the hull's longest chain."""
+
+    yy, xx = np.ogrid[:side, :side]
+    return ((yy - side // 2) ** 2 + (xx - side // 2) ** 2 <= radius * radius)[None]
+
+
+def convex_chain_masks(side: int = CHAIN_SIDE):
+    """(masks, vertices): two frames of one region each whose right (frame
+    0) or left (frame 1) outline is a strictly convex lattice chain of
+    ``vertices`` vertices, near ``hull_stack_capacity(side, side)``: the
+    primitive edge vectors (dt, dx) taken cheapest first by ``2 dt + |dx|``
+    while the rows and the columns last, in order of falling slope, each
+    row between two vertices at the floor of their chord."""
+
+    from math import gcd
+
+    cands = [(a, n - a if up else a - n) for n in range(1, 400) for a in range(1, n + 1)
+             for up in ((True, False) if a < n else (True,)) if gcd(a, n - a) == 1]
+    cands.sort(key=lambda v: (2 * v[0] + abs(v[1]), -v[1]))
+    rows, rise, fall, chosen = side - 1, side - 1, side - 1, []
+    for a, b in cands:
+        if a <= rows and (b <= rise if b >= 0 else -b <= fall):
+            chosen.append((a, b))
+            rows -= a
+            rise, fall = (rise - b, fall) if b >= 0 else (rise, fall + b)
+    chosen.sort(key=lambda v: -v[1] / v[0])
+    t, x = 0, (side - 1) - sum(b for _, b in chosen if b > 0)
+    edge = np.full(side, -1, np.int64)
+    edge[0] = x
+    for a, b in chosen:
+        ts = np.arange(t, t + a + 1)
+        edge[ts] = (x * a + (ts - t) * b) // a
+        t, x = t + a, x + b
+    right = np.arange(side)[None, :] <= edge[:, None]
+    return np.stack([right, right[:, ::-1]]), len(chosen) + 1
+
+
+def annotation_edge_boxes(n: int, h: int, w: int) -> torch.Tensor:
+    """(n, 8, 7) int32 annotation boxes (``annotation_boxes``' rows):
+    a box clipped at all four frame edges, a box one pixel wide, a later
+    region's outline across an earlier region's disk, a disk across the
+    frame's corner, an invalid box, then random boxes reaching past the
+    frame; frame k's boxes shifted by k."""
+
+    rng = np.random.default_rng(5)
+    rows = []
+    for k in range(n):
+        fixed = [
+            [0, 0, 0, 0, 0, 0, 0],  # region 0, never painted
+            [1, -1, -1, h, w, h // 2, w // 2],
+            [1, 5, 10 + k, 15, 11 + k, 9, 10 + k],
+            [1, 8, 3, 30, 12 + k, 25, 5],
+            [1, 0, w - 10, 2, w, k, w - 2],
+            [0, 3, 3, 9, 9, 5, 5],
+        ]
+        rand = [[1, *rng.integers(-4, h + 4, 1), *rng.integers(-4, w + 4, 1), *rng.integers(-4, h + 4, 1),
+                 *rng.integers(-4, w + 4, 1), *rng.integers(-4, h + 4, 1), *rng.integers(-4, w + 4, 1)]
+                for _ in range(2)]
+        rows.append(fixed + rand)
+    return torch.tensor(rows, dtype=torch.int32)
+
+
 def table_digest(tables) -> str:
     """SHA-256 of the exact columns (area, bbox, solidity over regions
     1..n; int64, int64, float64) of the port's tables, as
@@ -1658,6 +1773,31 @@ def same_tables(name: str, got, want) -> None:
             raise AssertionError(f"{name} frame {k}: solidity differs")
 
 
+def hull_of(RP, case: dict) -> torch.Tensor:
+    """The hull kernel's wrapper on a case (a checkout whose wrapper takes
+    no width: without it)."""
+
+    import inspect
+
+    args = (case["mn"], case["mx"], case["lo"], case["hi"])
+    if "width" in inspect.signature(RP.hull_pixel_areas).parameters:
+        return RP.hull_pixel_areas(*args, width=case["labels"].shape[2])
+    return RP.hull_pixel_areas(*args)
+
+
+def measured_case(labels: torch.Tensor, imgs: torch.Tensor) -> dict:
+    """The label pass's outputs on ``labels`` and the annotation boxes:
+    the hull's and the annotation's inputs."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
+
+    nseg = XD.region_count_bound(labels)
+    box, sums, mn, mx = RP.region_scan(labels, nseg)
+    return {"labels": labels, "nseg": nseg, "mn": mn, "mx": mx, "box": box, "lo": box[..., 0].contiguous(),
+            "hi": box[..., 2].contiguous(), "sums": sums, "boxes": XD.annotation_boxes(box, sums), "imgs": imgs}
+
+
 def extraction_kernels_vs_plain(name: str, labels: torch.Tensor, imgs: torch.Tensor) -> dict:
     """The label pass, the hull and the annotation (on ``imgs``) against
     their plain versions on one batch of labels, bit for bit; the label
@@ -1668,8 +1808,8 @@ def extraction_kernels_vs_plain(name: str, labels: torch.Tensor, imgs: torch.Ten
     from yamimageprocessor_tpu_torch.ops import extraction_device as XD
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
 
-    nseg = XD.region_count_bound(labels)
-    box, sums, mn, mx = RP.region_scan(labels, nseg)
+    case = measured_case(labels, imgs)
+    nseg, box, sums, mn, mx = case["nseg"], case["box"], case["sums"], case["mn"], case["mx"]
     pbox, psums, pmn, pmx = RP.region_scan_plain(labels, nseg)
     err = {"region_scan": max(exact(f"region_scan {name} {k}", a, b) for k, a, b in
                               (("box", box, pbox), ("sums", sums, psums), ("mn", mn, pmn), ("mx", mx, pmx)))}
@@ -1679,14 +1819,31 @@ def extraction_kernels_vs_plain(name: str, labels: torch.Tensor, imgs: torch.Ten
     for k, a, b in (("box", box, obox), ("sums", sums, RP.moment_sums_plain(labels, sr2, sc2, nseg)),
                     ("mn", mn, omn), ("mx", mx, omx)):
         exact(f"region_scan {name} {k} vs the parent's composition", a, b)
-    lo, hi = box[..., 0].contiguous(), box[..., 2].contiguous()
-    err["hull_areas"] = exact(f"hull_areas {name}", RP.hull_pixel_areas(mn, mx, lo, hi),
-                              RP.hull_pixel_areas_plain(mn, mx, lo, hi))
-    boxes = XD.annotation_boxes(box, sums)
+    lo, hi, boxes = case["lo"], case["hi"], case["boxes"]
+    err["hull_areas"] = exact(f"hull_areas {name}", hull_of(RP, case), RP.hull_pixel_areas_plain(mn, mx, lo, hi))
     err["annotate"] = exact(f"annotate {name}", XD.region_annotate(imgs, boxes), XD.region_annotate_plain(imgs, boxes))
     torch.cuda.synchronize()
-    return {"labels": labels, "nseg": nseg, "mn": mn, "mx": mx, "box": box, "lo": lo, "hi": hi, "sums": sums,
-            "boxes": boxes, "imgs": imgs, "err": err}
+    case["err"] = err
+    return case
+
+
+def annotation_edge_cases(dev) -> int:
+    """The annotation kernel against its plain version on
+    :func:`annotation_edge_boxes`, gray and BGR, uint8, uint16 and
+    float32; returns the max abs error (0)."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+
+    n, h, w = EDGE_SHAPE
+    boxes = annotation_edge_boxes(n, h, w).to(dev)
+    rng = np.random.default_rng(6)
+    err = 0
+    for shape in ((n, h, w), (n, h, w, 3)):
+        for dtype in (torch.uint8, torch.uint16, torch.float32):
+            imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int32)).to(dtype).to(dev)
+            err = max(err, exact(f"annotate edge boxes {tuple(shape)} {dtype}", XD.region_annotate(imgs, boxes),
+                                 XD.region_annotate_plain(imgs, boxes)))
+    return err
 
 
 def region_scan_bound(labels: torch.Tensor, nseg: int):
@@ -1700,23 +1857,19 @@ def region_scan_bound(labels: torch.Tensor, nseg: int):
     return bound_ms(4 * n * h * w + 2 * 4 * g * h + 4 * 4 * g + 8 * RP.SUMS * g)
 
 
-def extraction_kernel_times(case: dict) -> dict:
+def extraction_kernel_times(case: dict, hull_annotate: dict) -> dict:
     """Each kernel's, its plain version's and the library calls' device
-    ms on one case, and each kernel's bound."""
+    ms on one case (the hull's and the annotation's from
+    :func:`hull_annotate_times`), and each kernel's bound."""
 
-    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
 
-    lab, nseg, mn, mx = case["labels"], case["nseg"], case["mn"], case["mx"]
-    lo, hi, boxes, imgs = case["lo"], case["hi"], case["boxes"], case["imgs"]
+    lab, nseg = case["labels"], case["nseg"]
     n, h, w = lab.shape
     times = {
         "region_scan": paired_ms(lambda: RP.region_scan(lab, nseg), lambda: RP.region_scan_plain(lab, nseg),
                                  plain_runs=3),
-        "hull_areas": paired_ms(lambda: RP.hull_pixel_areas(mn, mx, lo, hi),
-                                lambda: RP.hull_pixel_areas_plain(mn, mx, lo, hi), plain_runs=3),
-        "annotate": paired_ms(lambda: XD.region_annotate(imgs, boxes), lambda: XD.region_annotate_plain(imgs, boxes),
-                              plain_runs=5),
+        **{k: (v["ms"], v["plain_ms"]) for k, v in hull_annotate.items()},
     }
     # the PyTorch calls that compute the label pass's function, given its
     # index and values: scatter_reduce_ amin and amax for the extremes,
@@ -1736,17 +1889,56 @@ def extraction_kernel_times(case: dict) -> dict:
         "annotate": None,
     }
     del vslot, values, slot, at, cols
-    px, g = n * h * w, n * nseg
-    heights = float((hi - lo + 1).clamp_min(0)[:, 1:].sum())
-    channels = 1 if imgs.ndim == 3 else imgs.shape[-1]
-    bounds = {
-        "region_scan": region_scan_bound(lab, nseg),
+    bounds = {"region_scan": region_scan_bound(lab, nseg), **hull_annotate_bounds(case)}
+    return {"times": times, "library": library, "bounds": bounds}
+
+
+def hull_annotate_bounds(case: dict) -> dict:
+    """The hull's and the annotation's bounds on a case."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+
+    n, h, w = case["labels"].shape
+    g = n * case["nseg"]
+    heights = float((case["hi"] - case["lo"] + 1).clamp_min(0)[:, 1:].sum())
+    imgs = case["imgs"]
+    return {
         # each region's rows of mn and mx, its first and last row in; the area out
         "hull_areas": bound_ms(2 * 4 * heights + 2 * 4 * g + 8 * g),
         # the image and the boxes in, the annotated image out
-        "annotate": bound_ms(2 * channels * px + 4 * XD.ANNOTATION_BOX * g),
+        "annotate": bound_ms(2 * imgs.numel() * imgs.element_size() + 4 * XD.ANNOTATION_BOX * g),
     }
-    return {"times": times, "library": library, "bounds": bounds}
+
+
+def longest_rows(case: dict) -> int:
+    """Rows of the case's tallest region: the hull's longest chain."""
+
+    return int((case["hi"] - case["lo"] + 1).clamp_min(0)[:, 1:].max()) if case["nseg"] > 1 else 0
+
+
+def hull_annotate_times(name: str, case: dict, plain_runs: int) -> dict:
+    """The hull's and the annotation's kernel and plain ms on a case
+    (plain, kernel, kernel, plain), beside their bounds and the tallest
+    region's rows; printed."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import regionprops as RP
+
+    mn, mx, lo, hi, boxes, imgs = (case[k] for k in ("mn", "mx", "lo", "hi", "boxes", "imgs"))
+    times = {
+        "hull_areas": paired_ms(lambda: hull_of(RP, case), lambda: RP.hull_pixel_areas_plain(mn, mx, lo, hi),
+                                plain_runs=plain_runs),
+        "annotate": paired_ms(lambda: XD.region_annotate(imgs, boxes), lambda: XD.region_annotate_plain(imgs, boxes),
+                              plain_runs=plain_runs),
+    }
+    bounds = hull_annotate_bounds(case)
+    out = {k: {"ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0]} for k in times}
+    out["hull_areas"]["longest_rows"] = longest_rows(case)
+    print(f"time on {name} ({case['nseg'] - 1} regions max, tallest {longest_rows(case)} rows): hull_areas kernel "
+          f"{times['hull_areas'][0]:.4f} ms, plain {times['hull_areas'][1]:.4f}, bound "
+          f"{bounds['hull_areas'][0]:.6f}; annotate kernel {times['annotate'][0]:.4f}, plain "
+          f"{times['annotate'][1]:.4f}, bound {bounds['annotate'][0]:.4f}")
+    return out
 
 
 def wall_ms(fn, calls: int = EXTRACT_REPS) -> float:
@@ -1835,9 +2027,6 @@ def phase_extraction(dev) -> dict:
           f"statistics == the port's CPU run")
 
     # kernels A-D against their plain versions
-    def labels_of(frames):
-        return XD.region_labels(torch.from_numpy(np.stack(frames)).to(dev))
-
     yy, xx = np.mgrid[:EXTRACT_SIDE, :EXTRACT_SIDE]
     noise = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, EXTRACT_SIDE, EXTRACT_SIDE, 3),
                                                                dtype=np.uint8)).to(dev)
@@ -1847,11 +2036,11 @@ def phase_extraction(dev) -> dict:
         "all foreground": np.ones_like(yy, bool),
     }
     cases = {}
-    for name, frames in ((f"scene {EXTRACT_SIDE}^2", [frame]), *((f"batch {n}", b) for n, b in batches.items()),
-                         (f"scene {EXTRACT_WIDE_SIDE}^2", [wide]), (f"blobs {BLOBS_SIDE}^2", [blobs])):
-        imgs = torch.from_numpy(np.stack(frames)).to(dev)
-        cases[name] = extraction_kernels_vs_plain(name, labels_of(frames), imgs)
+    for name, (labels, imgs) in extraction_label_sets(dev, frame, batches, wide, blobs).items():
+        cases[name] = extraction_kernels_vs_plain(name, labels, imgs)
     errors = {k: max(c["err"][k] for c in cases.values()) for k in EXTRACT_KERNELS}
+    errors["annotate"] = max(errors["annotate"], annotation_edge_cases(dev))
+    print(f"hull: hull_stack_capacity({CHAIN_SIDE}, {CHAIN_SIDE}) = {RP.hull_stack_capacity(CHAIN_SIDE, CHAIN_SIDE)}")
     scene = cases[f"scene {EXTRACT_SIDE}^2"]
     for dtype in (torch.float32, torch.uint16):  # the annotation copies a pixel's bytes whatever the dtype
         imgs = scene["imgs"].to(torch.int32).mul(7).to(dtype)
@@ -1865,7 +2054,9 @@ def phase_extraction(dev) -> dict:
             errors = {k: max(errors[k], err[k]) for k in EXTRACT_KERNELS}
     print(f"kernels: region_scan, hull_areas and annotate bit-exact on {', '.join(cases)}, and on a "
           f"{EXTRACT_SIDE}^2 checkerboard, all-background and all-foreground frame (gray and BGR); annotate also on "
-          "float32 and uint16 copies of the scene; region_scan also == the parent's composition")
+          "float32 and uint16 copies of the scene and on boxes clipped at every frame edge, one pixel wide, across "
+          "an earlier disk and a disk across a corner (gray and BGR, uint8, uint16, float32); region_scan also "
+          "== the parent's composition")
     # the label pass on each of the five label sets
     scan_times = {}
     for name, case in cases.items():
@@ -1875,9 +2066,12 @@ def phase_extraction(dev) -> dict:
         print(f"time region_scan on {name} ({nseg - 1} regions max): kernel {scan_times[name]['ms']:.4f} ms, "
               f"bound {scan_times[name]['bound_ms']:.4f}")
 
-    main_case = f"batch {EXTRACT_BATCHES[-1]}"
-    timed = extraction_kernel_times(cases[main_case])
-    one_frame = extraction_kernel_times(cases[f"scene {EXTRACT_SIDE}^2"])
+    # the hull and the annotation on every label set
+    case_times = {name: hull_annotate_times(name, case, plain_runs=1 if name in SLOW_PLAIN_CASES else 3)
+                  for name, case in cases.items()}
+    main_case, one_case = f"batch {EXTRACT_BATCHES[-1]}", f"scene {EXTRACT_SIDE}^2"
+    timed = extraction_kernel_times(cases[main_case], case_times[main_case])
+    one_frame = extraction_kernel_times(cases[one_case], case_times[one_case])
     for k in EXTRACT_KERNELS:
         print(f"time {k} on {main_case}: kernel {timed['times'][k][0]:.4f} ms, plain {timed['times'][k][1]:.4f}, "
               f"library {timed['library'][k]}, bound {timed['bounds'][k][0]:.4f} ({timed['bounds'][k][1]}); "
@@ -1940,9 +2134,54 @@ def phase_extraction(dev) -> dict:
     nseg32 = XD.region_count_bound(XD.region_labels(x32))
     print_profile("extraction", chain_profile(lambda: XD.region_pack(XD.region_labels(x32), nseg32),
                                               _EXTRACTION_GROUPS))
+    del cases
+    peak = blobs_peak_memory(blobs)
     torch.cuda.empty_cache()
     return {"launches": launches, "timed": timed, "one_frame": one_frame, "main_case": main_case,
-            "rates": rates, "err": errors, "scan_times": scan_times}
+            "rates": rates, "err": errors, "scan_times": scan_times, "case_times": case_times, "peak": peak}
+
+
+def blobs_peak_memory(blobs: np.ndarray) -> dict:
+    """Peak device memory of ``region_tables([blobs])`` (the memo
+    cleared): bytes allocated at the peak, and above what was allocated
+    before the call; printed."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+
+    XD.clear_table_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    XD.region_tables([blobs])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    XD.clear_table_cache()
+    print(f"peak device memory of region_tables([blobs {BLOBS_SIDE}^2]): {peak} bytes, {peak - before} above "
+          f"the {before} allocated before")
+    return {"peak_bytes": peak, "above_bytes": peak - before}
+
+
+def extraction_label_sets(dev, frame, batches, wide, blobs) -> dict:
+    """name -> (labels, imgs) of every extraction case: the bench's scene,
+    its batches, the 4096^2 scene and the blobs (labels from the Otsu
+    path), the tall disk and the convex chains (labels of the masks; imgs
+    the masks as BGR frames)."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops.labeling import label
+
+    sets = {}
+    for name, frames in ((f"scene {EXTRACT_SIDE}^2", [frame]), *((f"batch {n}", b) for n, b in batches.items()),
+                         (f"scene {EXTRACT_WIDE_SIDE}^2", [wide]), (f"blobs {BLOBS_SIDE}^2", [blobs])):
+        imgs = torch.from_numpy(np.stack(frames)).to(dev)
+        sets[name] = (XD.region_labels(imgs), imgs)
+    chains, vertices = convex_chain_masks()
+    print(f"hull: the convex chains have {vertices} vertices")
+    for name, masks in ((f"tall disk {TALL_SIDE}^2", tall_disk_mask()), (f"convex chains {CHAIN_SIDE}^2", chains)):
+        m = torch.from_numpy(np.ascontiguousarray(masks)).to(dev)
+        sets[name] = (label(m), (m.to(torch.uint8) * 220)[..., None].expand(*m.shape, 3).contiguous())
+    return sets
 
 
 _EXTRACTION_GROUPS = {
@@ -1956,6 +2195,9 @@ _EXTRACTION_GROUPS = {
 def main() -> None:
     if sys.argv[1:2] == ["--times-of"]:
         times_of(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--extraction-times-of"]:
+        extraction_times_of(sys.argv[2])
         return
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2011,11 +2253,13 @@ def main() -> None:
          "fill, pass, centring); by_input: the five label sets"),
         ("hull_areas", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
          "yamimageprocessor_tpu/ops/regionprops.py:574 hull_pixel_areas_j (XLA, not a pallas_call)",
-         f"none: PyTorch has no convex hull; ms: the {ext['main_case']} labels"),
+         f"none: PyTorch has no convex hull; ms: the {ext['main_case']} labels; by_input: every label set, "
+         "with its tallest region's rows"),
         ("annotate", "yamimageprocessor_tpu_torch/csrc/extraction.cu",
          "yamimageprocessor_tpu/ops/extraction_device.py:90 region_annotate_j (XLA, not a pallas_call)",
          f"none: no PyTorch call paints outlines and disks; ms: the {ext['main_case']} BGR frames "
-         "(a memset and 2 CUDA launches)"),
+         "(3 CUDA launches: the copy with the keys zeroed where painted, the paint, the colours); by_input: "
+         "every label set"),
     ]
     for name in EXTRACT_KERNELS:
         kern["err"][name] = ext["err"][name]
@@ -2063,6 +2307,10 @@ def main() -> None:
         if name in EXTRACT_KERNELS:
             entry["one_frame_ms"] = ext["one_frame"]["times"][name][0]
             entry["one_frame_bound_ms"] = ext["one_frame"]["bounds"][name][0]
+        if name in ("hull_areas", "annotate"):
+            entry["by_input"] = {case: times[name] for case, times in ext["case_times"].items()}
+        if name == "hull_areas":
+            entry["blobs_peak_memory"] = ext["peak"]
         if name == "region_scan":
             entry["one_frame_plain_ms"] = ext["one_frame"]["times"][name][1]
             entry["one_frame_library_ms"] = ext["one_frame"]["library"][name]

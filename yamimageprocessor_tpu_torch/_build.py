@@ -67,7 +67,7 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_clahe_blend_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_region_scan_resident_blocks": (ctypes.POINTER(_I),),
     "yam_region_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "yam_hull_areas": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "yam_hull_areas": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "yam_annotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 

@@ -60,24 +60,50 @@
 //     atomics.  Categories are computed only for border pixels, their
 //     neighbours read from the ring.  Every value is an integer, so the
 //     atomics' order changes no bit.
-// hull_areas_kernel (C)  a warp a (frame, region).  The region's rows
-//     minr..maxr of mx (then of -mn) come in 32 at a time; lane 0 runs
-//     Andrew's monotone chain over them with exact int64 cross products,
-//     the stack in global scratch (its top two in registers); then the
-//     lanes share the rows of each hull edge and add floor(X(t)) as an
-//     exact integer floor division.  width(t) = floor(RX) + floor(-LX) + 1.
-//     No vertex cap, no coordinate limit below 2^31.  Bound: the serial
-//     chain (latency), not bytes: one lane walks every row of its region.
-// annotate_paint_kernel / annotate_colour_kernel (D)  a block a valid
-//     (frame, region) writes paint keys into an int32 plane with atomicMax:
-//     2L on its two nested bbox outlines (clipped as region_annotate_j's
-//     border_mask clips them), 2L + 1 on its radius-3 disk; then one
-//     elementwise pass copies a pixel's bytes from the green colour for an
-//     even key, the red one for an odd key (BGR (0,255,0) and (0,0,255),
-//     gray 85 for both, in the frame's dtype, from the wrapper), and from
-//     the input where the key is 0.  The largest key is the reference's
-//     last painter (later region over earlier, disk over border): O(sum of
-//     outlines), not O(H*W*R).
+// hull_areas_kernel (C)  a warp a side of a (frame, region) (the rows'
+//     mx, then -mn; the two warps of a region run side by side in one
+//     block): the sum over the region's rows of floor(X(t)), X the upper
+//     envelope; width(t) = floor(RX) + floor(-LX) + 1.  Exact integers, no
+//     vertex cap, no scratch in device memory.  Bound: the serial
+//     monotone chain (latency, one dependent step a row), not bytes (a
+//     region's rows of mn and mx are read once).  Design: a side of at
+//     most 32 rows stays in registers (hull_side_word: a lane a row, the
+//     chain a bitmask that every lane runs alike by shuffles).  For a
+//     taller one the lanes split the chain (hull_side).  Each lane owns consecutive 32-row words of the region's
+//     rows, staged by coalesced loads through a 32 x 33 tile in shared
+//     memory, and runs the chain over them, one pop or push a step, its top
+//     vertices in registers and all of them as bits in shared memory (a
+//     pop refills the registers ahead of need by a bit scan); five rounds
+//     of bridge merges (a two-finger walk that clears the bits it passes)
+//     join the lanes' chains, so a 4001-row region walks about 128 rows a
+//     lane, not 4001.  The vertices then go into a stack in shared memory
+//     (over the tile) sized by ops/regionprops.py:hull_stack_capacity (a
+//     strictly convex lattice chain: 590 vertices at 4096^2), each word
+//     gets its rank, and a lane a row finds its row's edge as its rank
+//     among the vertices (a popcount) and adds the edge's exact floor.
+// annotate_copy_kernel / annotate_paint_kernel / annotate_colour_kernel (D)
+//     the reference's last painter (later region over earlier, disk over
+//     outline) wins: O(outlines + disks) beside one copy of the image, not
+//     O(H*W*R).  Bound: the image read and written once (bytes).  Design:
+//     one launch copies the image's bytes (16-byte loads and stores, 4 in
+//     flight, the ragged tail a byte at a time) and, in its other blocks,
+//     zeroes the int32 key plane (allocated, never cleared) at exactly the
+//     pixels the paint will touch; then the paint, atomicMax of 2L on the
+//     two nested bbox outlines (clipped as region_annotate_j's border_mask
+//     clips them) and 2L + 1 on the radius-3 disk; then the colour pass
+//     walks the same pixels and writes the green (even key) or red (odd)
+//     pixel where the plane holds the walker's own key.  All three walk
+//     one generator, so no pixel outside the outlines and disks is read or
+//     written in the plane.  The paint and the colour pass go out by
+//     programmatic dependent launch: their blocks start while the launch
+//     before them runs and wait (griddepcontrol.wait) before touching the
+//     planes, which hides a launch's latency on one frame.  What sets the
+//     sparse launches' time is their
+//     scattered 32-byte transactions, not bytes: the outlines' columns
+//     are walked four pixels a row, so neighbouring threads share a row's
+//     sectors, and a pixel's colour goes out in stores of one width.  A
+//     region gets `span` threads, a power of two from 8 (a blobs frame's
+//     65536 small regions) to 16384 (one large region over 16 blocks).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -90,7 +116,6 @@ namespace cg = cooperative_groups;
 
 constexpr int BIG = 1 << 30;  // mn of a row without the region
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int GRID_CAP = 132 * 64;
 
 // ---------------------------------------------------------------------------
 // The label pass: row extremes, bounding boxes and moment and perimeter sums
@@ -592,136 +617,486 @@ __global__ void __launch_bounds__(SCAN_THREADS, 4)
 // C: filled convex-hull pixel counts
 
 constexpr int HULL_WARPS = 4;
+constexpr int TILE_PITCH = 33;                // a warp's 32 x 32 row tile, padded against bank conflicts
+constexpr int TILE_BYTES = 32 * TILE_PITCH * 4;
 
 __device__ __forceinline__ long long floor_div(long long num, long long den) {  // den > 0
   const long long q = num / den;
   return (num % den != 0 && num < 0) ? q - 1 : q;
 }
 
-// Sum over rows t in [r0, r1] of floor(X(t)), X the upper envelope (in x)
-// of the points (t, x(t)) of the rows the region has: x = mx[t], or
-// x = -mn[t] for the left side (floor(-LX) = -ceil(LX)).  Per lane; the
-// caller adds the lanes.
-__device__ long long envelope_floor_sum(const int* __restrict__ row, bool left_side, int r0, int r1,
-                                        int2* __restrict__ stack, int lane) {
-  int size = 0;
-  int t0 = 0, x0 = 0, t1 = 0, x1 = 0;  // lane 0: the stack's second and top entries
-  for (int base = r0; base <= r1; base += 32) {
-    const int t = base + lane;
-    const int v = t <= r1 ? row[t] : (left_side ? BIG : -1);
-    const bool has = left_side ? v < BIG : v >= 0;
-    const int x = left_side ? -v : v;
-    const unsigned rows_with = __ballot_sync(FULL, has);
-    for (int j = 0; j < 32; ++j) {
-      const int xj = __shfl_sync(FULL, x, j);
-      if (lane != 0 || !((rows_with >> j) & 1u)) continue;
-      const int tj = base + j;
-      // pop the top while it lies on or below the chord from the second to (tj, xj)
-      while (size >= 2 && static_cast<long long>(t1 - t0) * (xj - x0) -
-                                  static_cast<long long>(x1 - x0) * (tj - t0) >= 0) {
+// floor(X(t)) on the edge from (ta, xa) to (tb, xb), ta <= t < tb: 32-bit
+// where the numerator fits (any frame up to 32768 a side)
+__device__ __forceinline__ long long edge_floor(int ta, int xa, int tb, int xb, int t) {
+  const long long dt = tb - ta, num = xa * dt + static_cast<long long>(t - ta) * (xb - xa);
+  if (num >= INT32_MIN && num <= INT32_MAX) {
+    const int n = static_cast<int>(num), d = static_cast<int>(dt), q = n / d;
+    return (n % d != 0 && n < 0) ? q - 1 : q;
+  }
+  return floor_div(num, dt);
+}
+
+__device__ __forceinline__ long long cross(int ta, int xa, int tb, int xb, int tc, int xc) {
+  return static_cast<long long>(tb - ta) * (xc - xa) - static_cast<long long>(xb - xa) * (tc - ta);
+}
+
+// A warp's shared memory: the row tile while the lanes' chains are built,
+// then (over it) the hull's vertices; a bit a row of the region (set: a
+// vertex of a chain); the vertices before each word of bits.
+struct HullShared {
+  int* tile;       // 32 x TILE_PITCH
+  int2* stack;     // cap entries (t, x)
+  unsigned* bits;  // (h + 31) / 32
+  int* rank;       // (h + 31) / 32
+  int cap;
+};
+
+// x of row t: mx[t], or -mn[t] on the left side
+__device__ __forceinline__ int side_x(const int* __restrict__ row, bool left, int t) {
+  const int v = __ldg(row + t);
+  return left ? -v : v;
+}
+
+// The vertex before position p (one exists); cur: word q's bits, not yet stored.
+__device__ __forceinline__ int prev_vertex(const unsigned* bits, unsigned cur, int q, int p) {
+  int wq = p >> 5;
+  unsigned m = (wq == q ? cur : bits[wq]) & ((1u << (p & 31)) - 1);
+  while (m == 0) m = bits[--wq];
+  return (wq << 5) + 31 - __clz(m);
+}
+
+// The vertex after position p (one exists).
+__device__ __forceinline__ int next_vertex(const unsigned* bits, int p) {
+  int wq = p >> 5;
+  unsigned m = bits[wq] & ~((2u << (p & 31)) - 1);
+  while (m == 0) m = bits[++wq];
+  return (wq << 5) + __ffs(m) - 1;
+}
+
+// A lane chain's top vertices in registers, [0] the top: a push shifts
+// them down, a pop up, and a refill reads the vertex below the deepest.
+struct Top {
+  int p[4], x[4];
+  int depth;  // how many are held
+  __device__ __forceinline__ void push(int pn, int xn) {
+#pragma unroll
+    for (int k = 3; k > 0; --k) p[k] = p[k - 1], x[k] = x[k - 1];
+    p[0] = pn;
+    x[0] = xn;
+    depth = min(depth + 1, 4);
+  }
+  __device__ __forceinline__ void pop() {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p[k] = p[k + 1], x[k] = x[k + 1];
+    --depth;
+  }
+  __device__ __forceinline__ int deepest() const {
+    return depth == 1 ? p[0] : (depth == 2 ? p[1] : p[2]);
+  }
+  __device__ __forceinline__ void refill(int pn, int xn) {  // depth < 3
+#pragma unroll
+    for (int k = 1; k < 3; ++k)
+      if (depth == k) p[k] = pn, x[k] = xn;
+    ++depth;
+  }
+};
+
+// One side of a region, warp-wide: the sum over its rows of floor(X(t)),
+// X the upper envelope (in x) of the points (t, x(t)) of the rows r0 ..
+// r0 + rows - 1 the region has, x = mx[t] or -mn[t] (floor(-LX) =
+// -ceil(LX)).  Per lane; the caller adds the lanes.  Positions p = t - r0.
+//  1. Each lane owns `per` consecutive 32-row words and runs the monotone
+//     chain (collinear points popped) over their rows, the rows staged in
+//     the tile 32 words at a time by coalesced loads, the chain's top
+//     three or four in registers and all of it as set bits (a pop refills
+//     the registers ahead of need: the vertex below by a bit scan, its x
+//     from the tile or, in an earlier word, from L1).
+//  2. Five rounds of bridge merges: the leader of 2, 4, ... lanes joins
+//     the left chain's and the right chain's vertices by the two-finger
+//     walk (drop the left's last vertex while it is not a strict turn
+//     towards the right's current one, then the right's first, until
+//     neither moves), clearing the bits it walks over.
+//  3. The vertices into the stack in row order (a popcount scan over the
+//     words) and each word's rank.
+//  4. A lane a row of each word: the row's edge is its rank among the
+//     vertices (a popcount of the word below it), its floor the edge's
+//     exact floor; the last vertex's row its own x.
+__device__ long long hull_side(const int* __restrict__ row, bool left, int r0, int rows, const HullShared& s,
+                               int lane) {
+  const int words = (rows + 31) >> 5;
+  const int per = (words + 31) >> 5;  // words a lane
+  const int active = (words + per - 1) / per;
+  const int q0 = min(lane * per, words), q1 = min(q0 + per, words);
+  int size = 0, first = -1;
+  Top top;  // the chain's top vertices
+  top.p[0] = 0;
+  top.depth = 0;
+  for (int c = 0; c < per; ++c) {
+    int v[32];  // every load in flight before the first store
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const int p = ((l * per + c) << 5) + lane;
+      v[l] = l < active && p < rows ? __ldg(row + r0 + p) : (left ? BIG : -1);
+    }
+    __syncwarp();  // the tile's last rows are read
+#pragma unroll
+    for (int l = 0; l < 32; ++l)
+      if (l < active) s.tile[l * TILE_PITCH + lane] = v[l];
+    __syncwarp();
+    const int q = q0 + c;
+    if (q >= q1) continue;
+    const int* mine = s.tile + lane * TILE_PITCH;
+    // one step a pop or a push: the lanes' chains pop at different rows,
+    // and a step costs the warp what its slowest lane does
+    unsigned cur = 0;
+    const int rows_here = min(32, rows - (q << 5));
+    for (int b = 0; b < rows_here;) {
+      const int t = mine[b];
+      const bool has = left ? t < BIG : t >= 0;
+      const int p = (q << 5) + b, x = left ? -t : t;
+      if (has && size >= 2 && cross(top.p[1], top.x[1], top.p[0], top.x[0], p, x) >= 0) {
+        // the top lies on or below the chord from the second to (p, x): pop it
+        const int gone = top.p[0];
+        if ((gone >> 5) == q)
+          cur &= ~(1u << (gone & 31));
+        else
+          s.bits[gone >> 5] &= ~(1u << (gone & 31));
         --size;
-        t1 = t0;
-        x1 = x0;
-        if (size >= 2) {
-          const int2 e = stack[size - 2];
-          t0 = e.x;
-          x0 = e.y;
+        top.pop();
+        if (top.depth < 3 && size > top.depth) {  // refill below the deepest, ahead of need
+          const int below = prev_vertex(s.bits, cur, q, top.deepest());
+          const int u = (below >> 5) == q ? mine[below & 31] : __ldg(row + r0 + below);
+          top.refill(below, left ? -u : u);
+        }
+      } else {
+        if (has) {
+          cur |= 1u << b;
+          if (size == 0) first = p;
+          top.push(p, x);
+          ++size;
+        }
+        ++b;
+      }
+    }
+    s.bits[q] = cur;
+  }
+  __syncwarp();
+  int last = top.p[0];  // the lane's chain: first .. last (first < 0: no row)
+  for (int step = 1; step < active; step <<= 1) {
+    const int rfirst = __shfl_down_sync(FULL, first, step), rlast = __shfl_down_sync(FULL, last, step);
+    if ((lane & (2 * step - 1)) == 0 && rfirst >= 0) {
+      if (first < 0) {
+        first = rfirst;
+      } else {
+        int i = last, j = rfirst;
+        int xi = side_x(row, left, r0 + i), xj = side_x(row, left, r0 + j);
+        for (bool moved = true; moved;) {
+          moved = false;
+          while (i != first) {
+            const int p = prev_vertex(s.bits, 0u, -1, i), xp = side_x(row, left, r0 + p);
+            if (cross(p, xp, i, xi, j, xj) < 0) break;
+            s.bits[i >> 5] &= ~(1u << (i & 31));
+            i = p;
+            xi = xp;
+            moved = true;
+          }
+          while (j != rlast) {
+            const int n = next_vertex(s.bits, j), xn = side_x(row, left, r0 + n);
+            if (cross(i, xi, j, xj, n, xn) < 0) break;
+            s.bits[j >> 5] &= ~(1u << (j & 31));
+            j = n;
+            xj = xn;
+            moved = true;
+          }
         }
       }
-      stack[size++] = make_int2(tj, xj);
-      t0 = t1;
-      x0 = x1;
-      t1 = tj;
-      x1 = xj;
+      last = rlast;
     }
+    __syncwarp();
   }
-  size = __shfl_sync(FULL, size, 0);
+  // the vertices in row order, and each word's rank
+  int size_all = 0;
+  for (int base = 0; base < words; base += 32) {
+    const int q = base + lane;
+    const unsigned m = q < words ? s.bits[q] : 0u;
+    const int n = __popc(m);
+    int incl = n;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += o;
+    }
+    int k = size_all + incl - n;
+    if (q < words) s.rank[q] = k;
+    for (unsigned rest = m; rest; rest &= rest - 1, ++k) {
+      const int t = r0 + (q << 5) + __ffs(rest) - 1;
+      if (k < s.cap) s.stack[k] = make_int2(t, side_x(row, left, t));
+    }
+    size_all += __shfl_sync(FULL, incl, 31);
+  }
   __syncwarp();
   long long acc = 0;
-  for (int k = 0; k + 1 < size; ++k) {
-    const int2 a = stack[k], b = stack[k + 1];
-    const long long dt = b.x - a.x, dx = b.y - a.y;
-    for (int t = a.x + lane; t < b.x; t += 32) acc += floor_div(a.y * dt + (t - a.x) * dx, dt);
+  if (size_all == 0) return acc;
+  const int count = min(size_all, s.cap);
+  const int lo = s.stack[0].x - r0, hi = s.stack[count - 1].x - r0;
+#pragma unroll 4
+  for (int q = lo >> 5; q <= (hi >> 5); ++q) {
+    const int p = (q << 5) + lane;
+    if (p < lo || p > hi) continue;
+    const int k = s.rank[q] + __popc(s.bits[q] & ((2u << lane) - 1)) - 1;  // the last vertex at or above row p
+    const int2 a = s.stack[k];
+    if (k == count - 1) {
+      acc += a.y;
+    } else {
+      const int2 b = s.stack[k + 1];
+      acc += edge_floor(a.x, a.y, b.x, b.y, r0 + p);
+    }
   }
-  if (lane == 0 && size > 0) acc += stack[size - 1].y;  // the last vertex's row
-  __syncwarp();
+  __syncwarp();  // every lane has read the stack and the bits before the next side
   return acc;
 }
 
+// One side of a region of at most 32 rows, in registers: a lane a row.
+// Every lane runs the same chain over the rows (their x by shuffles, the
+// stack as a bitmask with its top two in registers: no lane diverges),
+// then each lane adds its row's floor, the ends of its edge found by a bit
+// scan of the final chain and their x by shuffles.
+__device__ long long hull_side_word(const int* __restrict__ row, bool left, int r0, int rows, int lane) {
+  const int v = lane < rows ? __ldg(row + r0 + lane) : (left ? BIG : -1);
+  const int x = left ? -v : v;
+  const unsigned with = __ballot_sync(FULL, left ? v < BIG : v >= 0);
+  unsigned chain = 0;
+  int size = 0, p0 = 0, x0 = 0, p1 = 0, x1 = 0;  // the second and the top
+  for (unsigned rest = with; rest; rest &= rest - 1) {
+    const int p = __ffs(rest) - 1, xp = __shfl_sync(FULL, x, p);
+    while (size >= 2 && cross(p0, x0, p1, x1, p, xp) >= 0) {
+      chain &= ~(1u << p1);
+      --size;
+      p1 = p0;
+      x1 = x0;
+      if (size >= 2) {
+        p0 = 31 - __clz(chain & ((1u << p1) - 1));
+        x0 = __shfl_sync(FULL, x, p0);
+      }
+    }
+    chain |= 1u << p;
+    p0 = p1;
+    x0 = x1;
+    p1 = p;
+    x1 = xp;
+    ++size;
+  }
+  const unsigned upto = chain & ((2u << lane) - 1), beyond = chain & ~((2u << lane) - 1);
+  const int a = upto ? 31 - __clz(upto) : 0, b = beyond ? __ffs(beyond) - 1 : a;
+  const int xa = __shfl_sync(FULL, x, a), xb = __shfl_sync(FULL, x, b);
+  if (!upto) return 0;                      // above the first vertex, or no chain
+  if (!beyond) return lane == a ? xa : 0;  // the last vertex's row, or past it
+  return edge_floor(a, xa, b, xb, lane);
+}
+
+// The bytes of a warp's shared memory: the tile or the stack, then bits and rank.
+__host__ __device__ __forceinline__ long long hull_warp_bytes(int h, int cap) {
+  const long long area = static_cast<long long>(cap) * 8 > TILE_BYTES ? static_cast<long long>(cap) * 8 : TILE_BYTES;
+  return area + 8LL * ((h + 31) / 32);
+}
+
+// A warp a side of a (frame, region): warps 2k (right side, mx) and 2k + 1
+// (left side, -mn) of a block take region 2 * block + k, so the two
+// chains run side by side; the left warp hands its sum over by shared
+// memory.
 __global__ void __launch_bounds__(HULL_WARPS * 32)
     hull_areas_kernel(const int* __restrict__ mn, const int* __restrict__ mx, const int* __restrict__ minr,
-                      const int* __restrict__ maxr, int2* __restrict__ scratch, long long* __restrict__ hull,
-                      long long regions, int h, int nseg) {
-  const long long g = blockIdx.x * static_cast<long long>(HULL_WARPS) + threadIdx.x / 32;
-  if (g >= regions) return;
-  const int lane = threadIdx.x & 31;
-  const int r0 = minr[g], r1 = maxr[g];
-  if (g % nseg == 0 || r1 < r0) {
-    if (lane == 0) hull[g] = 0;
-    return;
+                      const int* __restrict__ maxr, long long* __restrict__ hull, long long regions, int h,
+                      int nseg, int cap) {
+  extern __shared__ __align__(16) unsigned char s_hull[];
+  __shared__ long long s_left[HULL_WARPS / 2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const bool left = warp & 1;
+  const long long g = blockIdx.x * static_cast<long long>(HULL_WARPS / 2) + warp / 2;
+  const int r0 = g < regions ? minr[g] : 0, r1 = g < regions ? maxr[g] : -1;
+  const bool live = g < regions && g % nseg != 0 && r1 >= r0;
+  long long acc = 0;
+  if (live) {
+    unsigned char* mine = s_hull + warp * hull_warp_bytes(h, cap);
+    const long long area = hull_warp_bytes(h, cap) - 8LL * ((h + 31) / 32);
+    HullShared s;
+    s.tile = reinterpret_cast<int*>(mine);
+    s.stack = reinterpret_cast<int2*>(mine);
+    s.bits = reinterpret_cast<unsigned*>(mine + area);
+    s.rank = reinterpret_cast<int*>(mine + area + 4LL * ((h + 31) / 32));
+    s.cap = cap;
+    const int* row = (left ? mn : mx) + g * h;
+    const int rows = r1 - r0 + 1;
+    acc = warp_sum<long long>(rows <= 32 ? hull_side_word(row, left, r0, rows, lane)
+                                         : hull_side(row, left, r0, rows, s, lane));
   }
-  const long long base = g * h;
-  long long acc = envelope_floor_sum(mx + base, false, r0, r1, scratch + base, lane);
-  acc += envelope_floor_sum(mn + base, true, r0, r1, scratch + base, lane);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(FULL, acc, off);
-  if (lane == 0) hull[g] = acc + (r1 - r0 + 1);
+  if (left && lane == 0) s_left[warp / 2] = acc;
+  __syncthreads();
+  if (!left && lane == 0 && g < regions) hull[g] = live ? acc + s_left[warp / 2] + (r1 - r0 + 1) : 0;
 }
 
 // ---------------------------------------------------------------------------
 // D: annotation
 
-constexpr int PAINT_THREADS = 128;
+constexpr int ANNOTATE_THREADS = 128;  // a block: 128 / span regions, or one region of span threads
+constexpr int COPY_BLOCKS = 132 * 16;  // blocks of the image copy at most
 constexpr int BOX = 7;  // valid, minr, minc, maxr + 1, maxc + 1, floor(centroid r), floor(centroid c)
+constexpr int MAX_PIXEL_BYTES = 64;
+constexpr int MAX_SPAN = 16384;  // threads a region at most: 16 blocks of 1024
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-__global__ void __launch_bounds__(PAINT_THREADS)
-    annotate_paint_kernel(const int* __restrict__ boxes, int* __restrict__ keys, int h, int w, int nseg) {
-  const long long g = blockIdx.x;
-  const int label = static_cast<int>(g % nseg);
-  const int* box = boxes + g * BOX;
-  if (label == 0 || box[0] == 0) return;
-  int* k = keys + (g / nseg) * h * static_cast<long long>(w);
+// f(p, key) for every pixel p (its index in the frame) of one region's
+// paint, its span threads taking turns (i: the thread's index among
+// them): key 2L on its two nested bbox outlines (clipped as
+// region_annotate_j's border_mask clips them), 2L + 1 on its radius-3
+// disk.  A pixel where outlines meet comes more than once.  The zeroing,
+// the paint and the colour pass all walk these pixels, so the three pixel
+// sets are one.
+template <typename F>
+__device__ __forceinline__ void for_each_painted(const int* box, int label, int h, int w, int i, int span, F f) {
   const int border = 2 * label;
   const int y0 = box[1], x0 = box[2], y1 = box[3], x1 = box[4];
+  // the outlines' rows ya and yb (off 0: y0, y1; off -1: y0 + 1, y1 - 1), each over its columns
   for (int off = -1; off <= 0; ++off) {
     const int xa = x0 - off, ya = y0 - off, xb = x1 + off, yb = y1 + off;
     const int cxa = clampi(min(xa, xb), 0, w - 1), cxb = clampi(max(xa, xb), 0, w - 1);
-    const int cya = clampi(min(ya, yb), 0, h - 1), cyb = clampi(max(ya, yb), 0, h - 1);
-    for (int c = cxa + threadIdx.x; c <= cxb; c += PAINT_THREADS) {
-      if (ya >= 0 && ya < h) atomicMax(k + static_cast<long long>(ya) * w + c, border);
-      if (yb >= 0 && yb < h) atomicMax(k + static_cast<long long>(yb) * w + c, border);
-    }
-    for (int r = cya + threadIdx.x; r <= cyb; r += PAINT_THREADS) {
-      if (xa >= 0 && xa < w) atomicMax(k + static_cast<long long>(r) * w + xa, border);
-      if (xb >= 0 && xb < w) atomicMax(k + static_cast<long long>(r) * w + xb, border);
+    for (int c = cxa + i; c <= cxb; c += span) {
+      if (ya >= 0 && ya < h) f(static_cast<long long>(ya) * w + c, border);
+      if (yb >= 0 && yb < h) f(static_cast<long long>(yb) * w + c, border);
     }
   }
-  if (threadIdx.x < 49) {
-    const int dy = static_cast<int>(threadIdx.x) / 7 - 3, dx = static_cast<int>(threadIdx.x) % 7 - 3;
+  // the outlines' columns xa and xb over their rows, four pixels a row (x0,
+  // x0 + 1, x1 - 1, x1: off 0, -1, -1, 0), so neighbouring threads take
+  // neighbouring pixels of a row and share its sectors
+  const int ra0 = clampi(min(y0, y1), 0, h - 1), rb0 = clampi(max(y0, y1), 0, h - 1);
+  const int ra1 = clampi(min(y0 + 1, y1 - 1), 0, h - 1), rb1 = clampi(max(y0 + 1, y1 - 1), 0, h - 1);
+  const int lo = min(ra0, ra1), items = 4 * (max(rb0, rb1) - lo + 1);
+  for (int k = i; k < items; k += span) {
+    const int r = lo + (k >> 2), j = k & 3;
+    const bool outer = j == 0 || j == 3;
+    const int c = j == 0 ? x0 : (j == 1 ? x0 + 1 : (j == 2 ? x1 - 1 : x1));
+    if (r >= (outer ? ra0 : ra1) && r <= (outer ? rb0 : rb1) && c >= 0 && c < w)
+      f(static_cast<long long>(r) * w + c, border);
+  }
+  for (int k = i; k < 49; k += span) {
+    const int dy = k / 7 - 3, dx = k % 7 - 3;
     const int y = box[5] + dy, x = box[6] + dx;
-    if (dy * dy + dx * dx <= 9 && y >= 0 && y < h && x >= 0 && x < w)
-      atomicMax(k + static_cast<long long>(y) * w + x, border + 1);
+    if (dy * dy + dx * dx <= 9 && y >= 0 && y < h && x >= 0 && x < w) f(static_cast<long long>(y) * w + x, border + 1);
   }
 }
 
-// colours: the green pixel's bytes, then the red one's
-__global__ void annotate_colour_kernel(const uint8_t* __restrict__ img, const int* __restrict__ keys,
-                                       const uint8_t* __restrict__ colours, uint8_t* __restrict__ out,
-                                       long long pixels, int pixel_bytes) {
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < pixels;
-       p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int key = keys[p];
-    const uint8_t* src = key == 0 ? img + p * pixel_bytes : colours + (key & 1) * pixel_bytes;
-    uint8_t* o = out + p * pixel_bytes;
-    for (int i = 0; i < pixel_bytes; ++i) o[i] = src[i];
+// A pixel's n bytes from src (shared memory) to dst, in stores of one
+// width for every pixel (4 bytes where n is a multiple of 4, else 2, else
+// 1: out is 16-byte aligned, so every pixel is), so the lanes that write
+// neighbouring pixels of a row run the same stores and share sectors.
+__device__ __forceinline__ void put_pixel(uint8_t* dst, const uint8_t* src, int n) {
+  if (n % 4 == 0) {
+    for (int b = 0; b < n; b += 4)
+      *reinterpret_cast<uint32_t*>(dst + b) = *reinterpret_cast<const uint32_t*>(src + b);
+  } else if (n % 2 == 0) {
+    for (int b = 0; b < n; b += 2)
+      *reinterpret_cast<uint16_t*>(dst + b) = *reinterpret_cast<const uint16_t*>(src + b);
+  } else {
+    for (int b = 0; b < n; ++b) dst[b] = src[b];
   }
 }
 
-int grid_for(long long items, int per_block) {
-  const long long blocks = (items + per_block - 1) / per_block;
-  return static_cast<int>(blocks < GRID_CAP ? (blocks > 0 ? blocks : 1) : GRID_CAP);
+struct Annotation {
+  const int* boxes;  // (n * nseg, BOX)
+  int* keys;         // (n, h, w), read and written only at painted pixels
+  long long regions;
+  int h, w, nseg;
+  int span;  // threads a region: a power of two, 8 .. MAX_SPAN, over span / blockDim.x blocks past 1024
+};
+
+// The (frame, region) of this thread's span in block `block`, or -1 for
+// none (region 0, an empty region, past the end); the frame's key plane in
+// *plane, the thread's index in its span in *i.
+__device__ __forceinline__ long long span_region(const Annotation& a, long long block, int** plane, int* i) {
+  long long g;
+  if (a.span <= static_cast<int>(blockDim.x)) {
+    g = block * (blockDim.x / a.span) + threadIdx.x / a.span;
+    *i = threadIdx.x % a.span;
+  } else {
+    const int blocks = a.span / blockDim.x;
+    g = block / blocks;
+    *i = static_cast<int>(block % blocks) * blockDim.x + threadIdx.x;
+  }
+  if (g >= a.regions || g % a.nseg == 0 || a.boxes[g * BOX] == 0) return -1;
+  *plane = a.keys + (g / a.nseg) * a.h * static_cast<long long>(a.w);
+  return g;
+}
+
+// Blocks 0 .. copy_blocks - 1 copy the image's bytes to out (16 bytes a
+// load and a store where both are aligned, 4 loads in flight, the ragged
+// tail a byte at a time); the others zero the key plane at the pixels
+// their regions paint.
+__global__ void annotate_copy_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, long long bytes,
+                                     int copy_blocks, Annotation a) {
+  asm volatile("griddepcontrol.launch_dependents;");  // the paint's blocks may start and wait for this grid
+  if (static_cast<int>(blockIdx.x) < copy_blocks) {
+    const long long thread = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+    const long long threads = static_cast<long long>(copy_blocks) * blockDim.x;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(img) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+    const long long vectors = aligned ? bytes / 16 : 0;
+    const uint4* src = reinterpret_cast<const uint4*>(img);
+    uint4* dst = reinterpret_cast<uint4*>(out);
+    long long v = thread;
+    for (; v + 3 * threads < vectors; v += 4 * threads) {
+      const uint4 v0 = src[v], v1 = src[v + threads], v2 = src[v + 2 * threads], v3 = src[v + 3 * threads];
+      dst[v] = v0;
+      dst[v + threads] = v1;
+      dst[v + 2 * threads] = v2;
+      dst[v + 3 * threads] = v3;
+    }
+    for (; v < vectors; v += threads) dst[v] = src[v];
+    for (long long b = vectors * 16 + thread; b < bytes; b += threads) out[b] = img[b];
+    return;
+  }
+  int* plane = nullptr;
+  int i = 0;
+  const long long g = span_region(a, blockIdx.x - copy_blocks, &plane, &i);
+  if (g < 0) return;
+  for_each_painted(a.boxes + g * BOX, static_cast<int>(g % a.nseg), a.h, a.w, i, a.span,
+                   [plane](long long p, int) { plane[p] = 0; });
+}
+
+// The paint: atomicMax of each pixel's key, so the largest key is the
+// reference's last painter (a later region over an earlier one, the disk
+// over the outlines).
+__global__ void annotate_paint_kernel(Annotation a) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  int* plane = nullptr;
+  int i = 0;
+  const long long g = span_region(a, blockIdx.x, &plane, &i);
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the copy and the zeros are done and visible
+  if (g < 0) return;
+  for_each_painted(a.boxes + g * BOX, static_cast<int>(g % a.nseg), a.h, a.w, i, a.span,
+                   [plane](long long p, int key) { atomicMax(plane + p, key); });
+}
+
+// The colours: where a pixel's key is the walker's own, its bytes become
+// the green pixel's (even key) or the red one's (odd), staged in shared
+// memory.  The writers of one pixel all
+// hold its largest key, so they write the same bytes.
+__global__ void annotate_colour_kernel(Annotation a, const uint8_t* __restrict__ colours, uint8_t* __restrict__ out,
+                                       int pixel_bytes) {
+  __shared__ __align__(4) uint8_t s_colours[2 * MAX_PIXEL_BYTES];
+  if (threadIdx.x < 2 * pixel_bytes) s_colours[threadIdx.x] = colours[threadIdx.x];
+  __syncthreads();
+  int* plane = nullptr;
+  int i = 0;
+  const long long g = span_region(a, blockIdx.x, &plane, &i);
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the paint (after the copy) is done and visible
+  if (g < 0) return;
+  const int bytes = pixel_bytes;
+  const uint8_t* pair = s_colours;
+  uint8_t* frame = out + (g / a.nseg) * a.h * static_cast<long long>(a.w) * bytes;
+  for_each_painted(a.boxes + g * BOX, static_cast<int>(g % a.nseg), a.h, a.w, i, a.span,
+                   [plane, frame, bytes, pair](long long p, int key) {
+                     if (__ldg(plane + p) == key) put_pixel(frame + p * bytes, pair + (key & 1) * bytes, bytes);
+                   });
 }
 
 }  // namespace
@@ -763,41 +1138,86 @@ extern "C" int yam_region_scan(const void* lab, void* mn, void* mx, void* box, v
 }
 
 // mn, mx: (n, nseg, h) from yam_region_scan; minr, maxr: (n, nseg) int32
-// (maxr < minr for an empty region); scratch: (n, nseg, h) int2; hull:
-// (n, nseg) int64 out, 0 for region 0 and empty regions.
-extern "C" int yam_hull_areas(const void* mn, const void* mx, const void* minr, const void* maxr, void* scratch,
-                              void* hull, int n, int h, int nseg, void* stream) {
-  if (n < 0 || h <= 0 || nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
+// (maxr < minr for an empty region); hull: (n, nseg) int64 out, 0 for
+// region 0 and empty regions.  cap: the hull vertices a warp's stack
+// holds, at least ops/regionprops.py:hull_stack_capacity of the frames
+// (HULL_WARPS x hull_warp_bytes(h, cap) bytes of shared memory a block).
+extern "C" int yam_hull_areas(const void* mn, const void* mx, const void* minr, const void* maxr, void* hull, int n,
+                              int h, int nseg, int cap, void* stream) {
+  if (n < 0 || h <= 0 || nseg < 1 || cap < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long regions = static_cast<long long>(n) * nseg;
-  const long long blocks = (regions + HULL_WARPS - 1) / HULL_WARPS;
+  const long long blocks = (regions + HULL_WARPS / 2 - 1) / (HULL_WARPS / 2);
+  const size_t shared = static_cast<size_t>(HULL_WARPS * hull_warp_bytes(h, cap));
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks > 0)
-    hull_areas_kernel<<<static_cast<unsigned>(blocks), HULL_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(mn), static_cast<const int*>(mx), static_cast<const int*>(minr),
-        static_cast<const int*>(maxr), static_cast<int2*>(scratch), static_cast<long long*>(hull), regions, h, nseg);
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  if (shared > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(hull_areas_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // a refused attribute leaves its error behind for the next launch's check: take it
+      return static_cast<int>(err);
+    }
+  }
+  hull_areas_kernel<<<static_cast<unsigned>(blocks), HULL_WARPS * 32, shared, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(mn), static_cast<const int*>(mx), static_cast<const int*>(minr),
+      static_cast<const int*>(maxr), static_cast<long long*>(hull), regions, h, nseg, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 // img: (n, h, w) pixels of pixel_bytes bytes each (any dtype, any
 // channels); boxes: (n, nseg, 7) int32 (valid, minr, minc, maxr + 1,
 // maxc + 1, floor of the centroid's row and column); keys: (n, h, w) int32
-// scratch; colours: the green and the red pixel, 2 * pixel_bytes bytes;
-// out: like img.
+// scratch, any contents (only painted pixels are written and read);
+// colours: the green and the red pixel, 2 * pixel_bytes bytes; out: like
+// img, 16-byte aligned.  Three launches: the copy (and the keys zeroed
+// where painted), the paint, the colours.  A region's pixels are walked
+// by `span` threads: the power of two from 8 to MAX_SPAN (256 where there
+// are 32 regions or more) that puts about a quarter of the threads the
+// card holds at once (2048 an SM) on the regions, so a batch of many small
+// regions and a frame of one large region both spread over the card.
 extern "C" int yam_annotate(const void* img, const void* boxes, void* keys, void* out, const void* colours, int n,
                             int h, int w, int pixel_bytes, int nseg, void* stream) {
-  if (n < 0 || h <= 0 || w <= 0 || nseg < 1 || pixel_bytes < 1 || pixel_bytes > 64)
+  if (n < 0 || h <= 0 || w <= 0 || nseg < 1 || pixel_bytes < 1 || pixel_bytes > MAX_PIXEL_BYTES)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long regions = static_cast<long long>(n) * nseg;
-  const long long pixels = static_cast<long long>(n) * h * w;
-  if (regions > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pixels == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(keys, 0, pixels * sizeof(int), s);
+  const long long bytes = static_cast<long long>(n) * h * w * pixel_bytes;
+  if (bytes == 0) return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  annotate_paint_kernel<<<static_cast<unsigned>(regions), PAINT_THREADS, 0, s>>>(static_cast<const int*>(boxes),
-                                                                                 static_cast<int*>(keys), h, w, nseg);
-  annotate_colour_kernel<<<grid_for(pixels, 256), 256, 0, s>>>(
-      static_cast<const uint8_t*>(img), static_cast<const int*>(keys), static_cast<const uint8_t*>(colours),
-      static_cast<uint8_t*>(out), pixels, pixel_bytes);
+  const int most = regions < 32 ? MAX_SPAN : 256;
+  int span = 8;
+  while (span < most && static_cast<long long>(span) * 2 * regions <= 512LL * sms) span *= 2;
+  const int threads = span < ANNOTATE_THREADS ? ANNOTATE_THREADS : (span < 1024 ? span : 1024);
+  const long long region_blocks =
+      span <= threads ? (regions + threads / span - 1) / (threads / span) : regions * (span / threads);
+  const long long want = (bytes / 16 + 4LL * threads - 1) / (4LL * threads);
+  const int copy_blocks = static_cast<int>(want < 1 ? 1 : (want < COPY_BLOCKS ? want : COPY_BLOCKS));
+  if (copy_blocks + region_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Annotation a{static_cast<const int*>(boxes), static_cast<int*>(keys), regions, h, w, nseg, span};
+  annotate_copy_kernel<<<static_cast<unsigned>(copy_blocks + region_blocks), threads, 0, s>>>(
+      static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), bytes, copy_blocks, a);
+  // the paint and the colours by programmatic dependent launch: their
+  // blocks start while the grid before them runs, load their boxes, and
+  // wait (griddepcontrol.wait) for it to finish before touching the planes
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(region_blocks));
+  config.blockDim = dim3(threads);
+  config.stream = s;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, annotate_paint_kernel, a);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&config, annotate_colour_kernel, a, static_cast<const uint8_t*>(colours),
+                             static_cast<uint8_t*>(out), pixel_bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves its error behind for the next launch's check: take it
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -153,7 +153,17 @@ def region_annotate(imgs: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     centroid disk in red (gray 85 for both on a 2-D item), painted over a
     batch ``(N, H, W)`` or ``(N, H, W, 3)`` of items of any dtype in the
     reference's order (``region_annotate_j``); ``boxes`` from
-    :func:`annotation_boxes`."""
+    :func:`annotation_boxes`.
+
+    On the card (kernel D, for ``region_annotate_j``,
+    ``yamimageprocessor_tpu/ops/extraction_device.py:90``) the bound is the
+    image read and written once.  Three launches: the image's bytes copied
+    with 16-byte loads and stores and, in the same launch, the int32 key
+    plane (``torch.empty``: nothing is cleared between calls) zeroed only
+    at the pixels the paint touches; the paint, the largest key by
+    ``atomicMax`` (the reference's last painter); the colour pass, a pixel
+    written where the plane holds the walker's own key.  No launch reads or
+    writes the plane elsewhere."""
 
     if not _build.on_card("region_annotate", imgs):
         return region_annotate_plain(imgs, boxes)
@@ -197,7 +207,7 @@ def region_pack(labels: torch.Tensor, nseg: int) -> torch.Tensor:
     hull pixel area, for labels whose largest is below ``nseg``."""
 
     box, sums, (mn, mx) = measure(labels, nseg)
-    hull = RP.hull_pixel_areas(mn, mx, box[..., 0].contiguous(), box[..., 2].contiguous())
+    hull = RP.hull_pixel_areas(mn, mx, box[..., 0].contiguous(), box[..., 2].contiguous(), labels.shape[2])
     return torch.cat([box.to(torch.int64), sums, hull[..., None]], dim=-1)
 
 

@@ -27,7 +27,8 @@ agree bit for bit whatever the order of the card's atomics:
   the bbox centre;
 - :func:`hull_pixel_areas` (kernel C): the pixel count of each region's
   filled convex hull, equal to the reference's
-  ``_hull_pixel_area(convex_hull_points(...))``, int64.
+  ``_hull_pixel_area(convex_hull_points(...))``, int64; the chain's stack
+  lives in shared memory, sized by :func:`hull_stack_capacity`.
 
 For a CUDA tensor each wrapper launches its kernel (counted in
 ``<wrapper>.launches``) or raises; for a CPU tensor it runs the plain
@@ -38,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,6 +57,10 @@ SUMS = 9
 #: the label pass's schedule (csrc/extraction.cu): 4 warps a block, 256
 #: columns a warp (8 a lane), chunks of at least MIN_SPAN rows
 SCAN_WARPS, WARP_COLS, MIN_SPAN = 4, 256, 8
+#: the hull kernel's warps a block (csrc/extraction.cu: HULL_WARPS), and
+#: the shared memory a block may take on an H100 (227 KB)
+HULL_WARPS, HULL_SHARED_LIMIT = 4, 232448
+HULL_TILE_BYTES = 32 * 33 * 4
 
 
 @dataclass
@@ -396,12 +402,83 @@ def hull_pixel_areas_plain(mn, mx, minr, maxr) -> torch.Tensor:
     return torch.where(live, (right + left + hi - lo + 1).reshape(n, nseg), 0)
 
 
-def hull_pixel_areas(mn: torch.Tensor, mx: torch.Tensor, minr: torch.Tensor, maxr: torch.Tensor) -> torch.Tensor:
+def _totient(n: int) -> int:
+    result, m, p = n, n, 2
+    while p * p <= m:
+        if m % p == 0:
+            while m % p == 0:
+                m //= p
+            result -= result // p
+        p += 1
+    return result - result // m if m > 1 else result
+
+
+@functools.lru_cache(maxsize=None)
+def hull_stack_capacity(h: int, w: int) -> int:
+    """An upper bound on the vertices of a strictly convex lattice chain
+    with one point per row inside an ``h x w`` frame: the most entries the
+    monotone chain's stack holds for any region of such a frame.
+
+    The chain pops collinear points, so its stack is always such a chain:
+    points ``(t, x)`` at increasing rows whose edge vectors ``(dt, dx)``
+    (``dt >= 1``) turn strictly one way, so no two edges share a direction.
+    Each edge is a positive multiple of a distinct primitive vector ``(a,
+    b)`` (``a >= 1``, ``gcd(a, |b|) = 1``), so its L1 norm ``dt + |dx|`` is
+    at least that vector's.  The rows climb at most ``h - 1``; x rises and
+    then falls (or the reverse) inside ``0 .. w - 1``, so ``sum |dx| <= 2 (w
+    - 1)``, and the edges' norms sum to at most ``B = (h - 1) + 2 (w - 1)``.
+    The primitive vectors of norm 1 are ``(1, 0)``, those of norm ``n >= 2``
+    are ``(a, +-(n - a))`` with ``gcd(a, n) = 1``, ``2 phi(n)`` of them.  So
+    the edges number at most the count of the cheapest primitive vectors,
+    taken in order of norm, whose norms sum to at most B; the vertices one
+    more, and never more than ``h`` (one a row).  It grows as ``B^(2/3)``:
+    234 at 1024^2, 590 at 4096^2 (4.7 KB of 8-byte entries)."""
+
+    budget = (h - 1) + 2 * (w - 1)
+    edges, norm = 0, 1
+    while budget >= norm:
+        vectors = 1 if norm == 1 else 2 * _totient(norm)
+        take = min(vectors, budget // norm)
+        edges += take
+        budget -= take * norm
+        norm += 1
+    return max(1, min(edges + 1, h))
+
+
+def hull_shared_bytes(h: int, w: Optional[int]) -> int:
+    """Shared memory a block of the hull kernel takes
+    (``csrc/extraction.cu:hull_warp_bytes``): for each of its
+    :data:`HULL_WARPS` warps, a 32 x 33 int row tile or, over it, a stack of
+    :func:`hull_stack_capacity` 8-byte vertices (one a row where the width
+    is not given), whichever is larger, then a bit and a rank word for every
+    32 rows of the frame."""
+
+    cap = h if w is None else hull_stack_capacity(h, w)
+    return HULL_WARPS * (max(HULL_TILE_BYTES, 8 * cap) + 8 * (-(-h // 32)))
+
+
+def hull_pixel_areas(mn: torch.Tensor, mx: torch.Tensor, minr: torch.Tensor, maxr: torch.Tensor,
+                     width: Optional[int] = None) -> torch.Tensor:
     """``(N, nseg)`` int64 pixel counts of each region's filled convex hull
     (0 for region 0 and empty regions), from the row extremes of
     :func:`region_scan` and the ``(N, nseg)`` int32 first and last rows:
     per row, ``floor(RX) - ceil(LX) + 1`` of the hull's right and left
-    boundary at the row, summed over ``minr..maxr``."""
+    boundary at the row, summed over ``minr..maxr``.  ``width``: the
+    frames' width, which sizes the chain's stack in shared memory
+    (:func:`hull_stack_capacity`); without it a stack holds a vertex a
+    row.  A frame whose stacks do not fit in a block's shared memory
+    (:data:`HULL_SHARED_LIMIT`: square frames up to 87168 a side, or 7043
+    rows without the width) raises ``ValueError``.
+
+    On the card (``hull_areas_kernel``, for ``hull_pixel_areas_j``,
+    ``yamimageprocessor_tpu/ops/regionprops.py:574``) a warp takes a side
+    of a region; what bounds it is the monotone chain, one dependent step
+    a row, not the bytes.  A side of at most 32 rows stays in registers, a
+    lane a row; for a taller one the lanes split the rows (32-row words
+    each), run the chain over them with the vertices as bits in shared
+    memory, and join their chains by five rounds of bridge merges; the
+    vertices go into the stack, and a lane a row finds its edge by its rank
+    among them.  Nothing is kept in device memory between the steps."""
 
     if not _build.on_card("hull_pixel_areas", mx):
         return hull_pixel_areas_plain(mn, mx, minr, maxr)
@@ -410,14 +487,18 @@ def hull_pixel_areas(mn: torch.Tensor, mx: torch.Tensor, minr: torch.Tensor, max
         _check(f"hull_pixel_areas {name}", t, torch.int32, nd)
         if t.shape[:2] != (n, nseg) or t.device != mx.device:
             raise ValueError(f"hull_pixel_areas: {name} does not match mx {tuple(mx.shape)} on {mx.device}")
-    hull = torch.zeros((n, nseg), dtype=torch.int64, device=mx.device)
+    shared = hull_shared_bytes(h, width)
+    if shared > HULL_SHARED_LIMIT:
+        raise ValueError(
+            f"hull_pixel_areas: frames of {h} x {width} need {shared} bytes of stacks a block, over the "
+            f"{HULL_SHARED_LIMIT} a block holds"
+        )
+    hull = torch.empty((n, nseg), dtype=torch.int64, device=mx.device)
     if mx.numel() == 0:
-        return hull
-    # the monotone chain's stack: (row, x) a row of each region
-    scratch = torch.empty((n, nseg, h, 2), dtype=torch.int32, device=mx.device)
+        return hull.zero_()
     _build.launch(
         "yam_hull_areas", mx.device, mn.data_ptr(), mx.data_ptr(), minr.data_ptr(), maxr.data_ptr(),
-        scratch.data_ptr(), hull.data_ptr(), n, h, nseg,
+        hull.data_ptr(), n, h, nseg, shared // (HULL_WARPS * 8),
     )
     hull_pixel_areas.launches += 1
     return hull
@@ -442,8 +523,12 @@ __all__ = [
     "SUM_BB",
     "bounding_boxes",
     "centre_sums",
+    "HULL_SHARED_LIMIT",
+    "HULL_WARPS",
     "hull_pixel_areas",
     "hull_pixel_areas_plain",
+    "hull_shared_bytes",
+    "hull_stack_capacity",
     "moment_sums_plain",
     "moment_values",
     "origin_values",

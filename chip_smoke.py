@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its six
+"""Build and check the torch port on one CUDA card, then drive its seven
 main paths once each: the flagship preprocess chain, the segmentation
-chain, the batched CLAHE chain, the denoise chain, the bilateral filter
-and the region-properties extraction.
+chain, the batched CLAHE chain, the denoise chain, the bilateral filter,
+the region-properties extraction and the texture features.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
@@ -102,7 +102,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
    region); the peak device memory of ``region_tables`` on the blobs
    frame; the data path's device time and back-to-back rate on 1, 8 and
    32 frames, the annotation's, and the profiler's split of the 32-frame
-   batch.
+   batch;
+10. texture: the LBP, Gabor (ksize 21) and HOG (9 bins, 8x8 cells, 3x3
+   blocks) chains, one step each at their defaults, through the pipeline
+   manager on the extraction phase's 32 BGR 1024^2 scenes (seeds 0..31),
+   and the five texture data_fns (LBP, Haralick, Gabor, HOG, fractal
+   dimension) on the first 8, in one run with the counts set to 0: the
+   chains' outputs against SHA-256 digests of the JAX package's and the
+   port's CPU run on frame 0, the tables' exact columns against the JAX
+   package's CPU data path and every column against the port's CPU run;
+   the four kernels against their plain versions, bit for bit (GLCM at
+   distances 1 and 64 and angles 0 to pi on 8 scenes and a flat frame,
+   LBP at (8, 1), (16, 2), (24, 8) in both arithmetics, the dense filter
+   at ksizes 3 and 21 and at 101 on a 512^2 frame in both orders, HOG at
+   (9, 8) and (32, 2) and on a 2048^2 frame); each kernel's, its plain
+   version's and (GLCM: ``torch.bincount``; the filter: ``conv2d`` in
+   float32) the library call's device time beside its bound, the tables'
+   host-clock ms a frame and each chain's device and back-to-back time.
 
 The kernel phase also holds the median kernel bit for bit against its
 plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
@@ -213,6 +229,31 @@ CHAIN_SIDE = 4096  # regions whose outline is a strictly convex lattice chain ne
 EDGE_SHAPE = (2, 300, 257)  # frames of the annotation's edge cases
 #: cases whose plain hull walks thousands of rows in Python: timed once a side
 SLOW_PLAIN_CASES = (f"tall disk {TALL_SIDE}^2", f"convex chains {CHAIN_SIDE}^2")
+TEXTURE_FRAMES = 32  # the extraction phase's 32-frame batch: BGR 1024^2 dense scenes, seeds 0..31
+TEXTURE_TABLE_FRAMES = 8  # frames the five texture data_fns run on
+TEXTURE_CHAINS = ("LBP", "Gabor", "HOG")  # one step each, default parameters (Gabor ksize 21, HOG 9 bins, 8x8, 3x3)
+TEXTURE_KERNELS = ("glcm_counts", "lbp_codes", "filter2d", "hog_cells")
+GLCM_ANGLES = (0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4, np.pi)
+GLCM_DISTANCES = (1, 64)
+LBP_CASES = ((8, 1.0), (16, 2.0), (24, 8.0))
+FILTER_KSIZES = (3, 21, 101)  # 101 on a FILTER_SMALL_SIDE^2 frame
+FILTER_SMALL_SIDE = 512
+HOG_CASES = ((9, 8), (32, 2))  # (orientations, cell side); (9, 8) also on a HOG_WIDE_SIDE^2 frame
+HOG_WIDE_SIDE = 2048
+# (cell side, orientations) of every other way XLA sums a cell (ops/hogf.py:cell_order), each on a crop
+# 8 cells wide: 4 and 8 lanes with pairs, 8 lanes with a tail, windows summed in order and in pairs, the
+# peeled window column, the scalar loops
+HOG_ORDER_CASES = ((17, 9), (20, 9), (23, 32), (31, 9), (40, 8), (40, 9), (63, 32), (9, 1), (2, 2))
+TEXTURE_DTYPE_FRAMES = 4  # scenes of the float32 and uint16 kernel cases
+# float32 operations of a HOG pixel's formulas, a division or square root
+# counted as one: gradients 2, hypot 6, atan2f about 33 (the reduction's
+# division and the 11-term polynomial), degrees, remainder, bin 4, the
+# cell's add 1 (a floor: the divisions and the root take several
+# instructions each on the card)
+HOG_OPS_PER_PIXEL = 46
+# an LBP sample's float32 instructions in the chain's arithmetic: 4
+# differences, a multiply, 3 fused multiply-adds
+LBP_OPS_PER_SAMPLE = 8
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -242,6 +283,11 @@ DIGESTS = {
     "extract_batch32_input": "7d29de7e4cafffb16cd4918e73793db6d8b1cc2df8a77967e40e5c53b0302a7f",
     "extract_batch32_table": "19eddff2236005a42fdfcb5a13c576815c113b67cb529abc449eb507506e11b9",
     "extract_annotated_1024": "cab962cc22fd9eb9a243fd3ae2a36326dc86843e628e772aff1773aed4dcece0",
+    "texture_input": "7d29de7e4cafffb16cd4918e73793db6d8b1cc2df8a77967e40e5c53b0302a7f",
+    "texture_lbp_output": "6c9b77ee47b2af1693f27af6484105a2d506fe9915b8ce0dbae38b3b903ac02b",
+    "texture_gabor_output": "c2d18dac888ae80f58d65b15423bed37c978922c48f8a93f879018e6d11167fb",
+    "texture_hog_output": "dc7b12aa0fccbe6e9229679bf4dc74571642b1f6318ab70d389b7795482215bb",
+    "texture_tables": "2a9401277d78a80b352400db83afdb263bae2663897e033e55ce7841701596ce",
 }
 
 
@@ -1394,7 +1440,10 @@ def _counters():
     from yamimageprocessor_tpu_torch.ops.sepconv_cuda import sep_filter_u8
     from yamimageprocessor_tpu_torch.ops.watershed import flood
     from yamimageprocessor_tpu_torch.ops import extraction_device as XD
+    from yamimageprocessor_tpu_torch.ops import hogf as HG
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
+    from yamimageprocessor_tpu_torch.ops import texture as TX
+    from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8
 
     return {
         "sepconv": sep_filter_u8,
@@ -1410,6 +1459,10 @@ def _counters():
         "region_scan": RP.region_scan,
         "hull_areas": RP.hull_pixel_areas,
         "annotate": XD.region_annotate,
+        "glcm_counts": TX.glcm_counts,
+        "lbp_codes": TX.lbp_codes,
+        "filter2d": filter2d_u8,
+        "hog_cells": HG.hog_cells,
     }
 
 
@@ -2141,6 +2194,252 @@ def phase_extraction(dev) -> dict:
             "rates": rates, "err": errors, "scan_times": scan_times, "case_times": case_times, "peak": peak}
 
 
+def texture_table_digest(tables) -> str:
+    """SHA-256 of what the texture tables were computed from, frame by
+    frame, as ``scripts/torch_port_digests.py:texture_table_digest`` hashes
+    the JAX package's: the GLCM's pair counts at (1, 0) and the fractal
+    dimension's box counts (the ``inputs`` the driven data_fns read back
+    from the card), LBP's bin counts and Gabor's mean (their columns).  The
+    float64 formulas after the counts (``glcm_props``, ``np.polyfit``) run on
+    the host and are held against the port's CPU run instead: they may round
+    otherwise on another host's numpy and LAPACK."""
+
+    h = hashlib.sha256()
+    for table in tables:
+        for values, dtype in (
+            (table["haralick"].inputs["counts"], np.int64),
+            (table["fractal"].inputs["counts"], np.int64),
+            (table["lbp"]["count"], np.int64),
+            (table["gabor"]["mean"], np.float64),
+        ):
+            h.update(np.ascontiguousarray(values, dtype=dtype).tobytes())
+    return h.hexdigest()
+
+
+def phase_texture(dev) -> dict:
+    """The texture features: the LBP, Gabor and HOG chains through the
+    pipeline manager on the 32 BGR 1024^2 scenes and the five data_fns on
+    the first 8, against the JAX package's digests and the port's CPU run;
+    the four kernels against their plain versions; their times, bounds and
+    PyTorch yardsticks."""
+
+    from yamimageprocessor_tpu_torch.ops import hogf as HG
+    from yamimageprocessor_tpu_torch.ops import texture as TX
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+    from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8, filter2d_u8_plain
+    from yamimageprocessor_tpu_torch.ops.registry import get_impl
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.ops.tables import gabor_kernel
+    from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    frames = np.stack([extraction_frame(seed=s) for s in range(TEXTURE_FRAMES)])
+    check_digest("texture_input", frames)
+    steps = {n: [PipelineStep(name=n, stage=Stage.ANALYSIS)] for n in TEXTURE_CHAINS}
+    managers = {n: PipelineManager(steps[n], device=dev) for n in TEXTURE_CHAINS}
+    data_fns = {k: get_impl(f"extraction.{k}").data_fn for k in ("lbp", "haralick", "gabor", "hog", "fractal")}
+    run = drive(
+        "texture",
+        TEXTURE_KERNELS + ("lut_apply", "histogram256"),
+        lambda: (
+            {n: m.apply(frames) for n, m in managers.items()},
+            [{k: fn(f) for k, fn in data_fns.items()} for f in frames[:TEXTURE_TABLE_FRAMES]],
+        ),
+    )
+    outs, tables = run["out"]
+    for n in TEXTURE_CHAINS:
+        check_digest(f"texture_{n.lower()}_output", outs[n])
+    got = texture_table_digest(tables)
+    if got != DIGESTS["texture_tables"]:
+        raise AssertionError(f"texture_tables: {got}, the JAX package's is {DIGESTS['texture_tables']}")
+    for n in TEXTURE_CHAINS:
+        cpu = PipelineManager(steps[n], device="cpu").apply(frames[0])
+        exact(f"texture {n} cuda vs cpu (frame 0)", torch.from_numpy(outs[n][0]), torch.from_numpy(cpu))
+    for k, fn in data_fns.items():
+        cpu, card = fn(frames[0], device="cpu"), tables[0][k]
+        if list(cpu) != list(card) or any(np.asarray(cpu[c]).tobytes() != np.asarray(card[c]).tobytes() for c in cpu):
+            raise AssertionError(f"texture {k}_data on cuda differs from the CPU run")
+    tables_ms = {}
+    for k, fn in data_fns.items():
+        start = time.perf_counter()
+        for f in frames[:TEXTURE_TABLE_FRAMES]:
+            fn(f)
+        torch.cuda.synchronize()
+        tables_ms[k] = (time.perf_counter() - start) * 1e3 / TEXTURE_TABLE_FRAMES
+    print(f"texture: {TEXTURE_CHAINS} chains on {frames.shape} == the JAX package's digests == the port's CPU run on "
+          f"frame 0; the 5 data_fns on {TEXTURE_TABLE_FRAMES} frames: their exact inputs (GLCM and box counts, "
+          f"LBP's bins, Gabor's mean) == the JAX package's digest, every column == the port's CPU run on frame 0; "
+          f"host-clock ms a frame {json.dumps(tables_ms)}")
+
+    # the kernels against their plain versions
+    gray = bgr_to_gray(torch.from_numpy(frames).to(dev)).contiguous()
+    flat = torch.full((1, EXTRACT_SIDE, EXTRACT_SIDE), 77, dtype=torch.uint8, device=dev)
+    err = {k: 0 for k in TEXTURE_KERNELS}
+    for d in GLCM_DISTANCES:
+        for a in GLCM_ANGLES:
+            dx, dy = TX.glcm_offset(d, a)
+            for name, batch in (("scenes", gray[:TEXTURE_TABLE_FRAMES]), ("flat", flat)):
+                err["glcm_counts"] = max(err["glcm_counts"], exact(
+                    f"glcm_counts {name} d{d} ({dx},{dy})", TX.glcm_counts(batch, dx, dy),
+                    TX.glcm_counts_plain(batch, dx, dy)))
+    for p, r in LBP_CASES:
+        for golden in (False, True):
+            err["lbp_codes"] = max(err["lbp_codes"], exact(
+                f"lbp_codes P{p} R{r} golden={golden}", TX.lbp_codes(gray, p, r, golden=golden),
+                (TX.lbp_codes_f64_plain if golden else TX.lbp_codes_f32_plain)(gray, p, r)))
+    taps = {k: torch.from_numpy(gabor_kernel(k, 5.0, 0.0, 10.0, 0.5, 0.0)).to(dev) for k in FILTER_KSIZES}
+    small = gray[:1, :FILTER_SMALL_SIDE, :FILTER_SMALL_SIDE].contiguous()
+    for k in FILTER_KSIZES:
+        batch = small if k == FILTER_KSIZES[-1] else gray
+        for xla_order in (True, False):
+            err["filter2d"] = max(err["filter2d"], exact(
+                f"filter2d ksize {k} xla_order={xla_order}", filter2d_u8(batch, taps[k], xla_order=xla_order),
+                filter2d_u8_plain(batch, taps[k], xla_order=xla_order)))
+    wide = bgr_to_gray(torch.from_numpy(extraction_frame(HOG_WIDE_SIDE))[None].to(dev)).contiguous()
+    for (nb, side), batch in ((HOG_CASES[0], gray), (HOG_CASES[1], gray), (HOG_CASES[0], wide)):
+        err["hog_cells"] = max(err["hog_cells"], exact(
+            f"hog_cells {nb} bins, {side}x{side} on {tuple(batch.shape)}", HG.hog_cells(batch, nb, side),
+            HG.hog_cells_plain(batch, nb, side)))
+    for side, nb in HOG_ORDER_CASES:
+        crop = gray[:2, : 3 * side, : 8 * side].contiguous()
+        err["hog_cells"] = max(err["hog_cells"], exact(
+            f"hog_cells {nb} bins, {side}x{side} ({HG.cell_order(side, nb)}) on {tuple(crop.shape)}",
+            HG.hog_cells(crop, nb, side), HG.hog_cells_plain(crop, nb, side)))
+    # float32 (fractional values) and uint16 frames launch the same kernels
+    scenes = gray[:TEXTURE_DTYPE_FRAMES].to(torch.float32)
+    others = {
+        "float32": (scenes * 0.731 + torch.rand(scenes.shape, generator=torch.Generator(dev).manual_seed(0),
+                                                 device=dev) * 3.0).contiguous(),
+        "uint16": (scenes.to(torch.int32) * 251 + 17).to(torch.uint16).contiguous(),
+    }
+    for name, batch in others.items():
+        for p, r in LBP_CASES[:2]:
+            for golden in (False, True):
+                err["lbp_codes"] = max(err["lbp_codes"], exact(
+                    f"lbp_codes {name} P{p} R{r} golden={golden}", TX.lbp_codes(batch, p, r, golden=golden),
+                    (TX.lbp_codes_f64_plain if golden else TX.lbp_codes_f32_plain)(batch, p, r)))
+        for k in FILTER_KSIZES[:-1]:
+            for xla_order in (True, False):
+                err["filter2d"] = max(err["filter2d"], exact(
+                    f"filter2d {name} ksize {k} xla_order={xla_order}",
+                    filter2d_u8(batch, taps[k], xla_order=xla_order),
+                    filter2d_u8_plain(batch, taps[k], xla_order=xla_order)))
+        for nb, side in HOG_CASES:
+            err["hog_cells"] = max(err["hog_cells"], exact(
+                f"hog_cells {name} {nb} bins, {side}x{side}", HG.hog_cells(batch, nb, side),
+                HG.hog_cells_plain(batch, nb, side)))
+    print(f"kernels: glcm_counts bit-exact at distances {GLCM_DISTANCES} and angles 0..pi on 8 scenes and a flat "
+          f"frame; lbp_codes at {LBP_CASES} in both arithmetics on the 32 scenes; filter2d at ksizes "
+          f"{FILTER_KSIZES[:-1]} on the 32 scenes and {FILTER_KSIZES[-1]} on {FILTER_SMALL_SIDE}^2, both orders; "
+          f"hog_cells at {HOG_CASES} on the 32 scenes and {HOG_CASES[0]} on {HOG_WIDE_SIDE}^2, and at (side, bins) "
+          f"{HOG_ORDER_CASES} on 8-cell-wide crops; lbp_codes at {LBP_CASES[:2]}, filter2d at ksizes "
+          f"{FILTER_KSIZES[:-1]} and hog_cells at {HOG_CASES} on {TEXTURE_DTYPE_FRAMES} float32 and uint16 scenes")
+
+    # times at the main paths' shapes: GLCM one frame (haralick_data), the
+    # other three the 32-frame chains
+    px = float(gray.numel())
+    one = gray[:1]
+    times = {
+        "glcm_counts": paired_ms(lambda: TX.glcm_counts(one, 1, 0), lambda: TX.glcm_counts_plain(one, 1, 0)),
+        "lbp_codes": paired_ms(lambda: TX.lbp_codes(gray, 8, 1.0), lambda: TX.lbp_codes_f32_plain(gray, 8, 1.0),
+                               plain_runs=3),
+        "filter2d": paired_ms(lambda: filter2d_u8(gray, taps[21], xla_order=True),
+                              lambda: filter2d_u8_plain(gray, taps[21], xla_order=True), plain_runs=1),
+        "hog_cells": paired_ms(lambda: HG.hog_cells(gray, 9, 8), lambda: HG.hog_cells_plain(gray, 9, 8),
+                               plain_runs=3),
+    }
+    cells = (EXTRACT_SIDE // 8) ** 2 * TEXTURE_FRAMES
+    bounds = {
+        "glcm_counts": bound_ms(float(one.numel()) + 65536 * 4),
+        "lbp_codes": bound_ms(2 * px, f32_inst=LBP_OPS_PER_SAMPLE * 8 * px),
+        "filter2d": bound_ms(2 * px, f32_inst=21 * 21 * px),
+        "hog_cells": bound_ms(px + cells * 9 * 4, f32_inst=HOG_OPS_PER_PIXEL * px),
+    }
+    small_px = float(small.numel())
+    wide_cells = (HOG_WIDE_SIDE // 8) ** 2
+    by_input = {
+        "glcm_counts": {
+            "flat 1024^2": {"ms": time_ms(lambda: TX.glcm_counts(flat, 1, 0)),
+                            "bound_ms": bound_ms(float(flat.numel()) + 65536 * 4)[0]},
+            "distance 64": {"ms": time_ms(lambda: TX.glcm_counts(one, 64, 0))},
+            "8 scenes": {"ms": time_ms(lambda: TX.glcm_counts(gray[:8], 1, 0)),
+                         "bound_ms": bound_ms(8 * float(one.numel()) + 8 * 65536 * 4)[0]},
+        },
+        "lbp_codes": {
+            f"P{p} R{r}{' golden' if golden else ''}": {
+                "ms": time_ms(lambda: TX.lbp_codes(gray, p, r, golden=golden)),
+                "bound_ms": bound_ms(2 * px, f32_inst=LBP_OPS_PER_SAMPLE * p * px)[0]}
+            for p, r in LBP_CASES for golden in (False, True) if (p, golden) != (8, False)
+        },
+        "filter2d": {
+            "ksize 3": {"ms": time_ms(lambda: filter2d_u8(gray, taps[3], xla_order=True)),
+                        "bound_ms": bound_ms(2 * px, f32_inst=9 * px)[0]},
+            "ksize 21 numpy order": {"ms": time_ms(lambda: filter2d_u8(gray, taps[21], xla_order=False)),
+                                     "bound_ms": bound_ms(2 * px, f32_inst=2 * 441 * px)[0]},
+            f"ksize 101 on {FILTER_SMALL_SIDE}^2": {
+                "ms": time_ms(lambda: filter2d_u8(small, taps[101], xla_order=True), runs=5),
+                "bound_ms": bound_ms(2 * small_px, f32_inst=101 * 101 * small_px)[0]},
+        },
+        "hog_cells": {
+            "32 bins 2x2": {"ms": time_ms(lambda: HG.hog_cells(gray, 32, 2)),
+                            "bound_ms": bound_ms(px + px / 4 * 32 * 4, f32_inst=HOG_OPS_PER_PIXEL * px)[0]},
+            f"{HOG_WIDE_SIDE}^2": {"ms": time_ms(lambda: HG.hog_cells(wide, 9, 8)),
+                                   "bound_ms": bound_ms(float(wide.numel()) + wide_cells * 9 * 4,
+                                                        f32_inst=HOG_OPS_PER_PIXEL * float(wide.numel()))[0]},
+        },
+    }
+    for name, batch in others.items():  # the float32 and uint16 scenes: the bytes in grow, the work does not
+        n_px, size = float(batch.numel()), batch.element_size()
+        label = f"{name} {TEXTURE_DTYPE_FRAMES} scenes"
+        by_input["lbp_codes"][f"P8 R1.0 {label}"] = {
+            "ms": time_ms(lambda: TX.lbp_codes(batch, 8, 1.0)),
+            "bound_ms": bound_ms((size + 1) * n_px, f32_inst=LBP_OPS_PER_SAMPLE * 8 * n_px)[0]}
+        by_input["filter2d"][f"ksize 21 {label}"] = {
+            "ms": time_ms(lambda: filter2d_u8(batch, taps[21], xla_order=True)),
+            "bound_ms": bound_ms((size + 1) * n_px, f32_inst=21 * 21 * n_px)[0]}
+        by_input["hog_cells"][label] = {
+            "ms": time_ms(lambda: HG.hog_cells(batch, 9, 8)),
+            "bound_ms": bound_ms(size * n_px + n_px / 64 * 9 * 4, f32_inst=HOG_OPS_PER_PIXEL * n_px)[0]}
+    del scenes, others
+    # one PyTorch call each, where one computes the same function: bincount
+    # of the pair index (formed beforehand), conv2d in float32 (TF32 off;
+    # zero padding, the frames as float beforehand)
+    src, dst = one[0, :, :-1].to(torch.int64), one[0, :, 1:].to(torch.int64)
+    pairs = (src * 256 + dst).reshape(-1)
+    x = gray.to(torch.float32)[:, None]
+    weight = taps[21][None, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library = {
+            "glcm_counts": time_ms(lambda: torch.bincount(pairs, minlength=65536)),
+            "filter2d": time_ms(lambda: torch.nn.functional.conv2d(x, weight, padding=10), runs=5),
+            "lbp_codes": None,
+            "hog_cells": None,
+        }
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for k in TEXTURE_KERNELS:
+        print(f"time {k}: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f}, library {library[k]}, "
+              f"bound {bounds[k][0]:.4f} ({bounds[k][1]}); by input {json.dumps(by_input[k])}")
+
+    # the chains: device time and back to back on the 32 scenes
+    x8 = torch.from_numpy(frames).to(dev)
+    chains = {}
+    for n in TEXTURE_CHAINS:
+        fn, dyn = get_compiled_chain(steps[n], frames.shape, np.uint8, batch=TEXTURE_FRAMES, device=dev).pure_callable()
+        chains[n] = {"device_ms": time_ms(lambda: fn(x8, dyn), runs=5),
+                     "back_to_back_ms": back_to_back_ms(lambda: fn(x8, dyn), calls=5)}
+        print(f"texture chain {n} on {frames.shape}: device {chains[n]['device_ms']:.4f} ms, back to back "
+              f"{chains[n]['back_to_back_ms']:.4f} ms "
+              f"({TEXTURE_FRAMES * EXTRACT_SIDE * EXTRACT_SIDE / 1e6 / (chains[n]['back_to_back_ms'] / 1e3):.1f} MPix/s)")
+    del gray, x, x8
+    torch.cuda.empty_cache()
+    return {"launches": {k: run["launches"][k] for k in TEXTURE_KERNELS}, "err": err, "times": times,
+            "bounds": bounds, "library": library, "by_input": by_input, "tables_ms": tables_ms, "chains": chains}
+
+
 def blobs_peak_memory(blobs: np.ndarray) -> dict:
     """Peak device memory of ``region_tables([blobs])`` (the memo
     cleared): bytes allocated at the peak, and above what was allocated
@@ -2211,6 +2510,8 @@ def main() -> None:
     ext = phase_extraction(dev)
     for name, count in ext["launches"].items():
         launches[name] = launches.get(name, 0) + count
+    tex = phase_texture(dev)
+    launches.update(tex["launches"])
     loaded = sorted(
         k for k in sys.modules
         if k == "jax" or k.startswith("jax.") or k == "yamimageprocessor_tpu" or k.startswith("yamimageprocessor_tpu.")
@@ -2261,6 +2562,26 @@ def main() -> None:
          "(3 CUDA launches: the copy with the keys zeroed where painted, the paint, the colours); by_input: "
          "every label set"),
     ]
+    rows += [
+        ("glcm_counts", "yamimageprocessor_tpu_torch/csrc/texture.cu",
+         "yamimageprocessor_tpu/ops/texture.py:143 glcm_j's scatter-add (XLA, not a pallas_call)",
+         "torch.bincount of the (src * 256 + dst) pair index of one 1024^2 frame, formed beforehand; ms: one "
+         "frame at (dx, dy) = (1, 0) (haralick_data's default); by_input: a flat frame, distance 64, 8 scenes"),
+        ("lbp_codes", "yamimageprocessor_tpu_torch/csrc/texture.cu",
+         "yamimageprocessor_tpu/ops/texture.py:70 lbp_j and :40 lbp_np (XLA and numpy, not a pallas_call)",
+         "none: PyTorch has no LBP; ms: P 8, R 1 in the chain's float32 arithmetic on the 32 scenes; by_input: "
+         "the other (P, R) and the float64 data-path arithmetic"),
+        ("filter2d", "yamimageprocessor_tpu_torch/csrc/filter2d.cu",
+         "yamimageprocessor_tpu/ops/filters.py:179 filter2d_j and :55 filter2d_np (XLA and numpy, not a pallas_call)",
+         "torch.nn.functional.conv2d in float32 with TF32 off on the scenes as float32 (zero padding, not "
+         "bit-exact: the yardstick only); ms: ksize 21 (Gabor's default) in XLA's order on the 32 scenes"),
+        ("hog_cells", "yamimageprocessor_tpu_torch/csrc/hog.cu",
+         "yamimageprocessor_tpu/ops/hogf.py:89-110 hog_features_j's cell histograms (XLA, not a pallas_call)",
+         "none: PyTorch has no HOG; ms: 9 bins, 8x8 cells on the 32 scenes; by_input: 32 bins 2x2, a 2048^2 frame"),
+    ]
+    for name in TEXTURE_KERNELS:
+        for key in ("err", "times", "bounds", "library"):
+            kern[key][name] = tex[key][name]
     for name in EXTRACT_KERNELS:
         kern["err"][name] = ext["err"][name]
         kern["times"][name] = ext["timed"]["times"][name]
@@ -2315,12 +2636,15 @@ def main() -> None:
             entry["one_frame_plain_ms"] = ext["one_frame"]["times"][name][1]
             entry["one_frame_library_ms"] = ext["one_frame"]["library"][name]
             entry["by_input"] = ext["scan_times"]
+        if name in TEXTURE_KERNELS:
+            entry["by_input"] = tex["by_input"][name]
         if name == "flood":
             entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]
             entry["swept_bound_ms"] = kern["flood_swept_bound_ms"]
         entries.append(entry)
     print(f"extraction rates: {json.dumps(ext['rates'])}")
+    print(f"texture chains: {json.dumps(tex['chains'])}; tables host ms a frame: {json.dumps(tex['tables_ms'])}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(

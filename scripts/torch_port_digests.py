@@ -27,8 +27,14 @@ region tables on a CPU (``region_properties_data``'s host path: ``label_np``,
 ``bench._dense_scene(1024)``, its batches of seeds 0-7 and 0-31 as
 ``bench.py:_extra_extraction`` builds them, ``_dense_scene(4096)``, and a
 2048^2 frame of 4x4 blobs on an 8-pixel pitch, 65536 regions), with the
-1024^2 frame's annotated image.  ``chip_smoke.py`` keeps these as
-constants.  Takes about 3 min and a few GB of memory on an 8-core CPU.
+1024^2 frame's annotated image; and the texture chains (LBP, Gabor at
+ksize 21 and HOG at their default parameters, each one step batched over
+the 32 BGR 1024^2 scenes of seeds 0-31) with the exact columns of the
+texture tables' exact inputs on the first 8 of them (the GLCM's pair
+counts, the fractal dimension's box counts, LBP's bin counts and Gabor's
+mean from the CPU data path).  ``chip_smoke.py``
+keeps these as constants.  Takes about 4 min and a few GB of memory on an
+8-core CPU; ``--texture`` prints only the texture digests (about 1 min).
 """
 from __future__ import annotations
 
@@ -107,6 +113,56 @@ def extraction_digests(result: dict) -> None:
     result["extract_annotated_1024"] = digest(EX.region_properties_extraction(frame))
 
 
+TEXTURE_FRAMES = 32
+TEXTURE_TABLE_FRAMES = 8
+TEXTURE_CHAINS = ("LBP", "Gabor", "HOG")
+
+
+def texture_table_digest(frames) -> str:
+    """SHA-256 of what the texture tables are computed from, frame by frame,
+    as the JAX package's CPU data path gives it: the GLCM's pair counts at
+    distance 1, angle 0 (Haralick's default), the fractal dimension's box
+    counts, LBP's bin counts (int64) and Gabor's mean (float64: an exact
+    level sum over the pixel count).  Only exact integers and one division:
+    the float64 formulas after them (``glcm_props``, ``np.polyfit``) may
+    round otherwise on another host's numpy and LAPACK."""
+
+    from yamimageprocessor_tpu.ops import color as C
+    from yamimageprocessor_tpu.ops import extraction as EX
+    from yamimageprocessor_tpu.ops import hogf as H
+    from yamimageprocessor_tpu.ops import texture as TX
+
+    h = hashlib.sha256()
+    for frame in frames:
+        glcm = TX.glcm_np(C.bgr_to_gray_np(frame), 1, 0.0, symmetric=False, normed=False)
+        for values, dtype in (
+            (glcm, np.int64),
+            (H.fractal_box_counts(EX._binary(frame, maxval=1))[1], np.int64),
+            (EX.lbp_data(frame)["count"].to_numpy(), np.int64),
+            (EX.gabor_data(frame)["mean"].to_numpy(), np.float64),
+        ):
+            h.update(np.ascontiguousarray(values, dtype=dtype).tobytes())
+    return h.hexdigest()
+
+
+def texture_digests(result: dict) -> None:
+    from bench import _dense_scene
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    frames = np.stack(
+        [np.repeat(_dense_scene(EXTRACT_SIDE, seed=s)[..., None], 3, axis=-1) for s in range(TEXTURE_FRAMES)]
+    )
+    result["texture_input"] = digest(frames)
+    for name in TEXTURE_CHAINS:
+        steps = [PipelineStep(name=name, stage=Stage.ANALYSIS)]
+        out = np.asarray(get_compiled_chain(steps, frames.shape, np.uint8, batch=len(frames)).run_final(frames, steps))
+        result[f"texture_{name.lower()}_output"] = digest(out)
+        result[f"texture_{name.lower()}_output_shape"] = list(out.shape)
+    result["texture_tables"] = texture_table_digest(frames[:TEXTURE_TABLE_FRAMES])
+
+
 def clahe_steps():
     """The CLAHE chain of ``bench.py:_extra_batched_clahe``: Gaussian 5x5
     -> CLAHE (clip 2.0, grid 4) -> the mean of R and G."""
@@ -165,6 +221,12 @@ def main() -> None:
     from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
 
     start = time.perf_counter()
+    if sys.argv[1:] == ["--texture"]:
+        result = {"backend": jax.default_backend()}
+        texture_digests(result)
+        result["seconds"] = round(time.perf_counter() - start, 1)
+        print(json.dumps(result))
+        return
     scene = _dense_scene(SEG_SIDE, seed=3)
     chain = get_compiled_chain(segmentation_steps(), scene.shape, scene.dtype)
     seg = np.asarray(chain.run_final(scene))
@@ -209,6 +271,7 @@ def main() -> None:
         result[f"{name}_output"] = digest(out)
         result[f"{name}_output_shape"] = list(out.shape)
     extraction_digests(result)
+    texture_digests(result)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

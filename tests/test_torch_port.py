@@ -25,8 +25,9 @@ PORTED = sorted(op.identifier for op in ALL_OPS)
 def test_the_port_has_the_eleven_ops_of_its_two_chains():
     """The eleven ops of the flagship and segmentation chains, the two the
     CLAHE chain adds, the rest of preprocessing (all ten preprocessing ops
-    of the reference), the region-properties extraction, Hu moments and
-    histogram statistics."""
+    of the reference), the region-properties extraction, Hu moments,
+    histogram statistics and the texture features (LBP, Haralick, Gabor,
+    HOG, fractal dimension): 25 of the reference's 41 ids."""
 
     assert PORTED == sorted(
         [
@@ -50,6 +51,11 @@ def test_the_port_has_the_eleven_ops_of_its_two_chains():
             "extraction.region_properties",
             "extraction.hu_moments",
             "extraction.histogram",
+            "extraction.lbp",
+            "extraction.haralick",
+            "extraction.gabor",
+            "extraction.hog",
+            "extraction.fractal",
         ]
     )
 
@@ -120,6 +126,16 @@ _SPLIT_CASES = [
     ("extraction.region_properties", {}),
     ("extraction.hu_moments", {}),
     ("extraction.histogram", {}),
+    ("extraction.lbp", {}),
+    ("extraction.lbp", {"P": "16", "R": 2.5}),
+    ("extraction.lbp", {"P": 24, "R": "8"}),
+    ("extraction.haralick", {"distance": 3, "angle": 0.7}),
+    ("extraction.gabor", {}),
+    ("extraction.gabor", {"ksize": "5", "sigma": 2, "theta": 0.7, "lambd": 4.5, "gamma": 1.25, "psi": -0.3}),
+    ("extraction.gabor", {"ksize": 101, "sigma": 30.0}),
+    ("extraction.hog", {}),
+    ("extraction.hog", {"orientations": "12", "pixels_per_cell": [4, 4], "cells_per_block": (2, 2)}),
+    ("extraction.fractal", {"min_box_size": 4}),
 ]
 
 
@@ -160,6 +176,62 @@ def test_bilateral_tables_and_window_match_jax(ksize):
         ours, ref = T.bilateral_color_weights(75.0, channels), JK.bilateral_color_weights(75.0, channels)
         assert ours.dtype == ref.dtype and (ours == ref).all()
     assert window_offsets(ksize) == tuple((int(j), int(i)) for j, i in dyn_offsets_for(ksize))
+
+
+@pytest.mark.parametrize("ksize, sigma, theta, lambd, gamma, psi", [
+    (21, 5.0, 0.0, 10.0, 0.5, 0.0), (3, 1.0, 0.3, 2.0, 1.0, 0.5), (101, 40.0, 6.2832, 100.0, 10.0, -6.2832),
+    (0, 2.0, 1.2, 5.0, 0.7, 0.1), (5, 0.1, 3.1, 0.1, 0.01, 1.0),
+])
+def test_gabor_kernel_matches_jax(ksize, sigma, theta, lambd, gamma, psi):
+    ours, ref = T.gabor_kernel(ksize, sigma, theta, lambd, gamma, psi), JK.gabor_kernel(ksize, sigma, theta, lambd, gamma, psi)
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape and ours.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("p, r", [(8, 1.0), (16, 2.0), (24, 8.0), (4, 0.5), (12, 1.5), (7, 3.3), (24, 1.0)])
+def test_lbp_offsets_match_jax(p, r):
+    from yamimageprocessor_tpu.ops.texture import _lbp_offsets
+
+    from yamimageprocessor_tpu_torch.ops.texture import lbp_offsets
+
+    ours, ref = lbp_offsets(p, r), _lbp_offsets(p, r)
+    assert ours.dtype == ref.dtype and ours.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("side", [2, 3, 8, 16, 64])
+def test_hog_stamps_match_jax(side):
+    from yamimageprocessor_tpu.ops.hogf import _stamp_masks
+
+    from yamimageprocessor_tpu_torch.ops.hogf import stamp_masks
+
+    for orientations in (1, 9, 32):
+        ours, ref = stamp_masks((side, side), orientations), _stamp_masks((side, side), orientations)
+        assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("identifier", ["extraction.lbp", "extraction.gabor", "extraction.hog"])
+def test_texture_displays_are_uint8_gray(identifier):
+    """LBP, Gabor and HOG turn an ``(H, W[, C])`` item of any dtype into a
+    uint8 ``(H, W)`` display, as the reference's device functions do."""
+
+    impl = get_impl(identifier)
+    for item, dtype in (((40, 60), np.uint8), ((40, 60, 3), np.uint8), ((40, 60, 4), np.float32), ((9, 7), np.uint16)):
+        assert impl.out_item(item, np.dtype(dtype), **impl.split({})[0]) == (item[:2], np.dtype(np.uint8))
+
+
+def test_text_annotated_texture_ops_refuse_a_chain():
+    """Haralick and the fractal dimension annotate with host text in the
+    reference: the port has their tables only, and a chain naming them
+    raises (as for Hu moments and histogram statistics)."""
+
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    for identifier, name in (("extraction.haralick", "Haralick"), ("extraction.fractal", "Fractal")):
+        impl = get_impl(identifier)
+        assert impl.device_fn is None and impl.data_fn is not None
+        step = PipelineStep(name=name, stage=Stage.ANALYSIS)
+        assert step.op_id == identifier
+        with pytest.raises(NotImplementedError, match="data_fn"):
+            PipelineManager([step], device="cpu").apply(np.zeros((8, 8, 3), np.uint8))
 
 
 def test_gamma_tables_and_structuring_elements_match_jax():

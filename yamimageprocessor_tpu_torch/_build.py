@@ -47,6 +47,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 #: argtypes of every exported C function
 SIGNATURES: Dict[str, Tuple] = {
     "yam_sepconv_u8_max_channels": (_I, _I, ctypes.POINTER(_I)),
@@ -69,6 +70,10 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_region_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_hull_areas": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "yam_annotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "yam_filter2d_u8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yam_glcm_counts": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "yam_lbp_codes": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yam_hog_cells": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -174,6 +179,21 @@ def on_card(name: str, tensor) -> bool:
     if tensor.device.type == "cpu":
         return False
     raise ValueError(f"{name} takes CPU or CUDA tensors, got {tensor.device}")
+
+
+#: the frame element types the texture kernels (LBP, the dense filter, HOG)
+#: are instantiated for, in the order of the ``kind`` code they take
+FRAME_KINDS = ("uint8", "uint16", "float32")
+
+
+def frame_kind(name: str, tensor) -> int:
+    """The ``kind`` code of ``tensor``'s element type for a kernel
+    instantiated for :data:`FRAME_KINDS`; raises for any other type."""
+
+    kind = str(tensor.dtype).removeprefix("torch.")
+    if kind not in FRAME_KINDS:
+        raise ValueError(f"{name} takes {', '.join(FRAME_KINDS)} frames on the card, got {tensor.dtype}")
+    return FRAME_KINDS.index(kind)
 
 
 def call(name: str, device, *args) -> None:

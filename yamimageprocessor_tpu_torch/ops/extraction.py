@@ -2,15 +2,29 @@
 ``yamimageprocessor_tpu/ops/extraction.py``).
 
 Ported: ``extraction.region_properties`` (``extraction.py:41-113``),
-``extraction.hu_moments`` (``:117-150``) and ``extraction.histogram``
-(``:400-435``).  A ``data_fn`` returns the reference DataFrame's columns
-in its order and with its values as a dict of numpy arrays, since the
-port does not use pandas.  Region properties' ``device_fn`` is the
-annotated image (:func:`.extraction_device.region_properties_device_fn`).
-The other two annotate with host-drawn text in the reference (cv2's
-font), which is not ported: they have a ``data_fn`` and no
+``extraction.hu_moments`` (``:117-150``), ``extraction.lbp`` (``:151-180``),
+``extraction.haralick`` (``:185-227``), ``extraction.gabor``
+(``:232-279``), ``extraction.hog`` (``:350-395``), ``extraction.histogram``
+(``:400-435``) and ``extraction.fractal`` (``:437-468``).  A ``data_fn``
+returns the reference DataFrame's columns in its order and with its values
+as a dict of numpy arrays, since the port does not use pandas.  Region
+properties', LBP's, Gabor's and HOG's ``device_fn`` is the image the
+reference's chain produces (the annotation; the uint8 displays of the
+codes, the Gabor response and the HOG render).  Hu moments, Haralick,
+histogram and fractal annotate with host-drawn text in the reference
+(cv2's font), which is not ported: they have a ``data_fn`` and no
 ``device_fn``, and a chain that names them raises.  Each output depends
 on the whole frame (the reference marks them ``global_stats``).
+
+The texture tables follow the reference's CPU data path, whose functions
+are numpy's (``lbp_np``, ``glcm_np``, ``gabor_np``, ``hog_features_np``,
+``fractal_box_counts``): the kernels' exact integers (pair counts, code and
+level histograms, box counts) are finished with the reference's float64
+formulas on the host, so Haralick's and the fractal dimension's columns
+(on the same host's numpy and LAPACK), LBP's counts and Gabor's mean are
+the reference's bits; HOG's features come
+from the float32 cell histograms of the chain (``hog_data``'s tolerance is
+stated in ``tests/test_torch_hog.py``).
 
 Hu moments: the raw moments of the Otsu mask up to order 3 are integer
 sums (int64 a row on the device, exact Python integers over the rows on
@@ -27,10 +41,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from yamimageprocessor_tpu_torch.ops import hogf as HG
+from yamimageprocessor_tpu_torch.ops import texture as TX
 from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
 from yamimageprocessor_tpu_torch.ops.extraction_device import binary, region_properties_device_fn, region_table
-from yamimageprocessor_tpu_torch.ops.lutops import histogram256_batch
+from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8
+from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
 from yamimageprocessor_tpu_torch.ops.registry import register_op
+from yamimageprocessor_tpu_torch.ops.tables import gabor_kernel
 
 #: the reference DataFrame's columns, in its order
 REGION_COLUMNS = (
@@ -176,9 +194,208 @@ def histogram_data(image: np.ndarray, *, device="cuda") -> Dict[str, np.ndarray]
 register_op("extraction.histogram", device_fn=None, data_fn=histogram_data)
 
 
+# ---------------------------------------------------------------------------
+# texture features: LBP, Haralick / GLCM, Gabor, HOG, fractal dimension
+
+
+class Table(dict):
+    """A table's columns (the reference DataFrame's, in its order) and, in
+    ``inputs``, the exact integers the host finished them from."""
+
+    def __init__(self, columns, **inputs):
+        super().__init__(columns)
+        self.inputs = inputs
+
+
+def _gray_frames(image, device) -> torch.Tensor:
+    """One frame (gray or BGR) as a contiguous ``(1, H, W)`` gray batch on
+    ``device``."""
+
+    return bgr_to_gray(_frames(image).to(device)).contiguous()
+
+
+def _display_item(item_shape, dtype, **static):
+    """LBP, Gabor and HOG turn an ``(H, W[, C])`` item into a uint8 ``(H, W)``
+    display."""
+
+    return tuple(item_shape[:2]), np.dtype(np.uint8)
+
+
+def lbp_device(imgs: torch.Tensor, dyn, *, P: int = 8, R: float = 1.0) -> torch.Tensor:
+    """Batch -> uint8 display of the uniform LBP codes (``lbp_device``): the
+    codes (float32 arithmetic), then a table a frame from its code range."""
+
+    codes = TX.lbp_codes(bgr_to_gray(imgs).contiguous(), int(P), float(R))
+    return apply_lut(codes, TX.lbp_display_tables(codes))
+
+
+def lbp_data(image: np.ndarray, P: int = 8, R: float = 1.0, *, device="cuda") -> Dict[str, np.ndarray]:
+    """Columns ``bin`` and ``count``: the 256-bin histogram of the LBP
+    display (the codes in ``lbp_np``'s float64 arithmetic, ``lbp_display``'s
+    levels), from the codes' counts."""
+
+    codes = TX.lbp_codes(_gray_frames(image, device), int(P), float(R), golden=True)
+    hist = histogram256_batch(codes)[0].cpu().numpy().astype(np.int64)
+    levels = TX.lbp_display_levels(hist, int(P))
+    counts = np.histogram(levels, bins=256, range=(0, 255), weights=hist[: int(P) + 2])[0].astype(np.int64)
+    return {"bin": np.linspace(0, 255, 257)[:-1], "count": counts}
+
+
+register_op(
+    "extraction.lbp",
+    device_fn=lbp_device,
+    data_fn=lbp_data,
+    split=lambda p: ({"P": int(p.get("P", 8)), "R": float(p.get("R", 1.0))}, {}),
+    halo=lambda p: int(np.ceil(float(p.get("R", 1.0)))) + 1,
+    out_item=_display_item,
+)
+
+
+def haralick_data(image: np.ndarray, distance: int = 1, angle: float = 0.0, *, device="cuda") -> Dict[str, np.ndarray]:
+    """Columns ``contrast``, ``correlation``, ``energy``, ``homogeneity``,
+    one row: ``glcm_props`` of the symmetric, normalized GLCM at the offset
+    of ``distance`` and ``angle``; ``inputs["counts"]`` holds the pair
+    counts."""
+
+    dx, dy = TX.glcm_offset(int(distance), float(angle))
+    counts = TX.glcm_counts(_gray_frames(image, device), dx, dy)[0].cpu().numpy()
+    return Table({k: np.array([v], dtype=np.float64) for k, v in TX.haralick_props(counts).items()}, counts=counts)
+
+
+def _all_static(params):
+    """The reference's default split: every parameter static."""
+
+    return dict(params), {}
+
+
+register_op("extraction.haralick", device_fn=None, data_fn=haralick_data, split=_all_static)
+
+
+def gabor_device(imgs: torch.Tensor, dyn) -> torch.Tensor:
+    """Batch -> the Gabor response stretched to 0..255 (``gabor_device``):
+    the dense filter in XLA's order, rounded to uint8, then a table a frame
+    from its range."""
+
+    filtered = filter2d_u8(bgr_to_gray(imgs).contiguous(), dyn["kernel"].contiguous(), xla_order=True)
+    return apply_lut(filtered, TX.gabor_display_tables(filtered))
+
+
+def _gabor_split(p):
+    kernel = gabor_kernel(
+        int(p.get("ksize", 21)),
+        float(p.get("sigma", 5.0)),
+        float(p.get("theta", 0.0)),
+        float(p.get("lambd", 10.0)),
+        float(p.get("gamma", 0.5)),
+        float(p.get("psi", 0.0)),
+    )
+    return ({}, {"kernel": kernel})
+
+
+def gabor_data(
+    image: np.ndarray,
+    ksize: int = 21,
+    sigma: float = 5.0,
+    theta: float = 0.0,
+    lambd: float = 10.0,
+    gamma: float = 0.5,
+    psi: float = 0.0,
+    *,
+    device="cuda",
+) -> Dict[str, np.ndarray]:
+    """Columns ``mean`` and ``std`` of ``gabor_np``'s output, one row: the
+    filter in numpy's order, then the stretch of its levels on the host;
+    the mean is the exact level sum over the pixel count, the std comes
+    from the level counts."""
+
+    taps = torch.from_numpy(gabor_kernel(int(ksize), sigma, theta, lambd, gamma, psi)).to(device)
+    filtered = filter2d_u8(_gray_frames(image, device), taps, xla_order=False)
+    hist = histogram256_batch(filtered)[0].cpu().numpy()
+    mean, std = TX.level_mean_std(hist, TX.gabor_data_levels(hist))
+    return {"mean": np.array([mean]), "std": np.array([std])}
+
+
+register_op(
+    "extraction.gabor",
+    device_fn=gabor_device,
+    data_fn=gabor_data,
+    split=_gabor_split,
+    halo=lambda p: int(p.get("ksize", 21)) // 2,
+    out_item=_display_item,
+)
+
+
+def _cell_side(pixels_per_cell) -> int:
+    rows, cols = (int(v) for v in pixels_per_cell)
+    if rows != cols:
+        raise ValueError(f"HOG in the port takes square cells (the schema's settings give them), got {rows}x{cols}")
+    return rows
+
+
+def hog_device(
+    imgs: torch.Tensor, dyn, *, orientations: int = 9, pixels_per_cell=(8, 8), cells_per_block=(3, 3)
+) -> torch.Tensor:
+    """Batch -> the uint8 display of the HOG line render (``hog_device_fn``):
+    cell histograms, the stamps' render, the min-max display."""
+
+    side = _cell_side(pixels_per_cell)
+    gray = bgr_to_gray(imgs).contiguous()
+    hist = HG.hog_cells(gray, int(orientations), side)
+    return HG.hog_display(HG.hog_visualize(hist, tuple(gray.shape[-2:]), side))
+
+
+def hog_data(
+    image: np.ndarray, orientations: int = 9, pixels_per_cell=(8, 8), cells_per_block=(3, 3), *, device="cuda"
+) -> Dict[int, np.ndarray]:
+    """One row of the L2-Hys block features, a column each (named ``0``,
+    ``1``, ... as the reference's DataFrame names them), from the chain's
+    float32 cell histograms, normalised in float64 on the host."""
+
+    hist = HG.hog_cells(_gray_frames(image, device), int(orientations), _cell_side(pixels_per_cell))
+    features = HG.hog_block_features(hist[0].cpu().numpy(), tuple(int(v) for v in cells_per_block))
+    return dict(enumerate(features.reshape(-1, 1)))
+
+
+register_op(
+    "extraction.hog",
+    device_fn=hog_device,
+    data_fn=hog_data,
+    split=lambda p: (
+        {
+            "orientations": int(p.get("orientations", 9)),
+            "pixels_per_cell": tuple(p.get("pixels_per_cell", (8, 8))),
+            "cells_per_block": tuple(p.get("cells_per_block", (3, 3))),
+        },
+        {},
+    ),
+    out_item=_display_item,
+)
+
+
+def fractal_data(image: np.ndarray, min_box_size: int = 2, *, device="cuda") -> Dict[str, np.ndarray]:
+    """Column ``fractal_dimension``, one row: the box counts of the Otsu
+    mask (exact integers, ``inputs["counts"]``) fitted by ``np.polyfit``."""
+
+    mask = binary(_frames(image).to(device), maxval=1)[0]
+    sizes, counts = HG.box_counts(mask, int(min_box_size))
+    return Table({"fractal_dimension": np.array([HG.fractal_dimension(sizes, counts)])}, counts=counts)
+
+
+register_op("extraction.fractal", device_fn=None, data_fn=fractal_data, split=_all_static)
+
+
 __all__ = [
     "REGION_COLUMNS",
+    "Table",
+    "fractal_data",
+    "gabor_data",
+    "gabor_device",
+    "haralick_data",
     "histogram_data",
+    "hog_data",
+    "hog_device",
+    "lbp_data",
+    "lbp_device",
     "histogram_stats",
     "hu_from_row_moments",
     "hu_moments_data",

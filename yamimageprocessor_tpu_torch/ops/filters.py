@@ -12,6 +12,12 @@ uint8) and after :func:`to_uint8` (the uint8 Gaussian, the plain version
 of ``csrc/sepconv.cu``).  :func:`sep_filter` rounds each product and sum
 apart (no ``addcmul``, no convolution, nothing that fuses or reorders the
 adds): the twin of the reference's numpy ``sep_filter_np``.
+
+The dense 2-D correlation (``filter2d_j``, used by Gabor) has the same two
+orders: :func:`filter2d_fma` is XLA's (``fma(k0, x0, k1 * x1)``, then
+``fma(k_t, x_t, acc)`` over the taps in raster order), :func:`filter2d_plain`
+numpy's ``filter2d_np`` (``acc + round(k_t * x_t)`` from zero).  Both are
+the plain versions of ``csrc/filter2d.cu``.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ def sep_filter(img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) ->
     h, w = img.shape[-2], img.shape[-1]
     rows = reflect101_index(h, ky // 2, img.device)
     cols = reflect101_index(w, kx // 2, img.device)
-    work = img.index_select(-2, rows).index_select(-1, cols).to(torch.float32)
+    work = img.to(torch.float32).index_select(-2, rows).index_select(-1, cols)  # exact: any frame type
     acc = taps_x[0] * work[..., 0:w]
     for t in range(1, kx):
         acc = acc + taps_x[t] * work[..., t : t + w]
@@ -87,9 +93,42 @@ def sep_filter_fma(img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor
     h, w = img.shape[-2], img.shape[-1]
     rows = reflect101_index(h, ky // 2, img.device)
     cols = reflect101_index(w, kx // 2, img.device)
-    work = img.index_select(-2, rows).index_select(-1, cols).to(torch.float32)
+    work = img.to(torch.float32).index_select(-2, rows).index_select(-1, cols)  # exact: any frame type
     acc = _fma_chain(taps_x, [work[..., t : t + w] for t in range(kx)])
     return _fma_chain(taps_y, [acc[..., t : t + h, :] for t in range(ky)])
+
+
+def _dense_terms(img: torch.Tensor, kernel: torch.Tensor):
+    """The ``(kh * kw)`` shifted float32 views of ``img`` (``(..., H, W)``,
+    reflect-101 padded) that the taps of ``kernel`` multiply, in raster
+    order."""
+
+    kh, kw = int(kernel.shape[0]), int(kernel.shape[1])
+    h, w = img.shape[-2], img.shape[-1]
+    rows = reflect101_index(h, kh // 2, img.device)
+    cols = reflect101_index(w, kw // 2, img.device)
+    work = img.to(torch.float32).index_select(-2, rows).index_select(-1, cols)  # exact: any frame type
+    return [work[..., j : j + h, i : i + w] for j in range(kh) for i in range(kw)]
+
+
+def filter2d_fma(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Dense correlation over the last two axes in XLA CPU's contracted
+    order (``filter2d_j`` as the JAX package's chain runs it); ``kernel``
+    is a 2-D float32 tensor of odd sides.  Returns float32."""
+
+    return _fma_chain(kernel.reshape(-1).to(torch.float32), _dense_terms(img, kernel))
+
+
+def filter2d_plain(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Dense correlation with each product and sum rounded apart, from a
+    zero sum (numpy's ``filter2d_np``).  Returns float32."""
+
+    taps = kernel.reshape(-1).to(torch.float32)
+    terms = _dense_terms(img, kernel)
+    acc = torch.zeros_like(terms[0])
+    for t, term in enumerate(terms):
+        acc = acc + taps[t] * term
+    return acc
 
 
 def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -110,4 +149,13 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x).clamp_(0, 255).to(torch.uint8)
 
 
-__all__ = ["convert", "fma32", "reflect101_index", "sep_filter", "sep_filter_fma", "to_uint8"]
+__all__ = [
+    "convert",
+    "filter2d_fma",
+    "filter2d_plain",
+    "fma32",
+    "reflect101_index",
+    "sep_filter",
+    "sep_filter_fma",
+    "to_uint8",
+]

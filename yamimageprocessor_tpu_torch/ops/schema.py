@@ -62,6 +62,11 @@ ALL_OPS: Tuple[OpSchema, ...] = (
     OpSchema("extraction.region_properties", Stage.ANALYSIS, "Region Properties", "Region Properties"),
     OpSchema("extraction.hu_moments", Stage.ANALYSIS, "Hu Moments", "Hu Moments"),
     OpSchema("extraction.histogram", Stage.ANALYSIS, "Histogram", "Histogram"),
+    OpSchema("extraction.lbp", Stage.ANALYSIS, "LBP", "LBP"),
+    OpSchema("extraction.haralick", Stage.ANALYSIS, "Haralick", "Haralick"),
+    OpSchema("extraction.gabor", Stage.ANALYSIS, "Gabor", "Gabor"),
+    OpSchema("extraction.hog", Stage.ANALYSIS, "HOG", "HOG"),
+    OpSchema("extraction.fractal", Stage.ANALYSIS, "Fractal", "Fractal"),
 )
 
 _BY_ID: Dict[str, OpSchema] = {op.identifier: op for op in ALL_OPS}

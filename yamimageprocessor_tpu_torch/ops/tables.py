@@ -107,8 +107,32 @@ def bilateral_color_weights(sigma_color: float, channels: int) -> np.ndarray:
     return np.exp(coeff * k * k)
 
 
+def gabor_kernel(ksize: int, sigma: float, theta: float, lambd: float, gamma: float, psi: float) -> np.ndarray:
+    """Real Gabor kernel matching ``cv2.getGaborKernel`` (CV_32F): float64
+    math, both axes flipped as cv2 stores ``kernel.at(ymax - y, xmax - x)``,
+    then float32."""
+
+    sigma_x = sigma
+    sigma_y = sigma / gamma
+    c, s = np.cos(theta), np.sin(theta)
+    if ksize > 0:
+        xmax = ymax = ksize // 2
+    else:
+        xmax = int(np.ceil(max(abs(3 * sigma_x * c), abs(3 * sigma_y * s))))
+        ymax = int(np.ceil(max(abs(3 * sigma_x * s), abs(3 * sigma_y * c))))
+    y, x = np.mgrid[-ymax : ymax + 1, -xmax : xmax + 1].astype(np.float64)
+    xr = x * c + y * s
+    yr = -x * s + y * c
+    ex = -0.5 / (sigma_x * sigma_x)
+    ey = -0.5 / (sigma_y * sigma_y)
+    cscale = 2.0 * np.pi / lambd
+    kernel = np.exp(ex * xr * xr + ey * yr * yr) * np.cos(cscale * xr + psi)
+    return kernel[::-1, ::-1].astype(np.float32)
+
+
 __all__ = [
     "bilateral_color_weights",
+    "gabor_kernel",
     "bilateral_space_weights",
     "gamma_lut",
     "gaussian_ksize_for_sigma",

@@ -7,6 +7,7 @@ the region-properties extraction and the texture features.
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
     python3 chip_smoke.py --extraction-times-of DIR   # the hull and annotation kernels of checkout DIR
+    python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter and LBP kernels, three tables: DIRs and this
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -115,10 +116,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
    distances 1 and 64 and angles 0 to pi on 8 scenes and a flat frame,
    LBP at (8, 1), (16, 2), (24, 8) in both arithmetics, the dense filter
    at ksizes 3 and 21 and at 101 on a 512^2 frame in both orders, HOG at
-   (9, 8) and (32, 2) and on a 2048^2 frame); each kernel's, its plain
+   (9, 8) and (32, 2) and on a 2048^2 frame), and the filter and LBP on
+   edge frames (one pixel, one row, one column, widths that are no
+   multiple of the filter's strip or block, frames smaller than the kernel
+   or than R) of the three frame types, the filter also at ksizes 111 and
+   151 (taps in shared memory, then read through the cache); each kernel's, its plain
    version's and (GLCM: ``torch.bincount``; the filter: ``conv2d`` in
    float32) the library call's device time beside its bound, the tables'
-   host-clock ms a frame and each chain's device and back-to-back time.
+   host-clock ms a frame (and the Hu moments table's) and each chain's
+   device and back-to-back time.
 
 The kernel phase also holds the median kernel bit for bit against its
 plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
@@ -149,8 +155,14 @@ launch's time, and the kernels a call and the back-to-back time of the
 flagship and segmentation chains: run it on two checkouts in one call to
 compare them.  ``--extraction-times-of DIR`` likewise times the hull and
 annotation kernels of checkout DIR on the seven extraction label sets,
-with digests of their outputs and the blobs frame's peak memory.  Nothing falls
-back to the CPU: without a card the script exits nonzero.
+with digests of their outputs and the blobs frame's peak memory.
+``--texture-times-of DIR [DIR ...]`` times the dense filter and the LBP
+codes of each checkout DIR and of this one on the texture phase's inputs,
+in turns (the DIRs, this, this, the DIRs backwards, each in a process of
+its own), and fails unless their outputs' digests agree; it also times the
+HOG, Gabor and Hu-moments tables (host ms a frame, not compared: an
+older checkout's float64 columns need not be the reference's bits).
+Nothing falls back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
 
@@ -196,6 +208,7 @@ SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, an FMA two operations
 F32_INST_PER_S = 33.4e12  # H100 SXM FP32 instructions (an add, a multiply or an FMA): 128 lanes an SM x 132 x 1.98 GHz
+F64_INST_PER_S = 16.7e12  # H100 SXM FP64 instructions outside the tensor cores: 64 lanes an SM x 132 x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12  # H100 SXM int32: 64 lanes an SM x 132 SMs x 1.98 GHz
 SHARED_WAVEFRONTS_PER_S = 261e9  # one 128-byte shared-memory wavefront a clock an SM: 132 x 1.98 GHz
 #: packed 16x2 min and max ops a pixel (two pixels an op, PTX min/max
@@ -231,6 +244,7 @@ EDGE_SHAPE = (2, 300, 257)  # frames of the annotation's edge cases
 SLOW_PLAIN_CASES = (f"tall disk {TALL_SIDE}^2", f"convex chains {CHAIN_SIDE}^2")
 TEXTURE_FRAMES = 32  # the extraction phase's 32-frame batch: BGR 1024^2 dense scenes, seeds 0..31
 TEXTURE_TABLE_FRAMES = 8  # frames the five texture data_fns run on
+TEXTURE_TIMED_TABLE_FRAMES = 2  # frames --texture-times-of times each table on
 TEXTURE_CHAINS = ("LBP", "Gabor", "HOG")  # one step each, default parameters (Gabor ksize 21, HOG 9 bins, 8x8, 3x3)
 TEXTURE_KERNELS = ("glcm_counts", "lbp_codes", "filter2d", "hog_cells")
 GLCM_ANGLES = (0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4, np.pi)
@@ -251,9 +265,18 @@ TEXTURE_DTYPE_FRAMES = 4  # scenes of the float32 and uint16 kernel cases
 # cell's add 1 (a floor: the divisions and the root take several
 # instructions each on the card)
 HOG_OPS_PER_PIXEL = 46
-# an LBP sample's float32 instructions in the chain's arithmetic: 4
-# differences, a multiply, 3 fused multiply-adds
-LBP_OPS_PER_SAMPLE = 8
+# edge frames of the filter and LBP kernels: one pixel, one row, one
+# column, widths that are no multiple of the filter's 8-column strip or
+# 128-column block, frames smaller than the kernel (ksize 21 and 101 on 3^2
+# and 5 x 7) or than R (8 on 3^2)
+TEXTURE_EDGE_SHAPES = ((1, 1, 1), (2, 1, 37), (2, 41, 1), (1, 5, 7), (1, 3, 3), (2, 67, 131), (1, 33, 129),
+                       (1, 17, 1000), (3, 40, 13))
+FILTER_EDGE_KERNELS = ((1, 1), (3, 3), (5, 5), (21, 21), (23, 23), (1, 5), (5, 1), (3, 21), (101, 101))
+LBP_EDGE_CASES = ((8, 1.0), (16, 2.0), (24, 8.0), (4, 0.5), (7, 3.3), (32, 2.0))
+# kernels beyond the schema's 101: one block an SM (111), the largest whose tile fits (131); 133 is refused
+FILTER_WIDE_KSIZES = (111, 131)
+FILTER_REFUSED_KSIZE = 133
+FILTER_WIDE_SHAPE = (1, 300, 260)
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
 DIGESTS = {
@@ -496,16 +519,18 @@ def bilateral_tables(ksize: int, dev):
 
 
 def bound_ms(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0, *, f32_inst: float = 0.0,
-             minmax: float = 0.0, minmax_rate: float = INT32_OPS_PER_S, wavefronts: float = 0.0):
+             minmax: float = 0.0, minmax_rate: float = INT32_OPS_PER_S, wavefronts: float = 0.0,
+             f64_inst: float = 0.0):
     """(least time in ms, what bounds it) on an H100 SXM: the bytes at the
     memory rate, and on their own pipes float32 operations (an FMA two) or
-    FP32 instructions (an FMA one), int32 operations, packed min and max
-    operations at ``minmax_rate`` (measured by :func:`minmax_rate`) and
-    shared-memory wavefronts, whichever is longest."""
+    FP32 instructions (an FMA one), FP64 instructions, int32 operations,
+    packed min and max operations at ``minmax_rate`` (measured by
+    :func:`minmax_rate`) and shared-memory wavefronts, whichever is
+    longest."""
 
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(f32_ops / F32_OPS_PER_S, f32_inst / F32_INST_PER_S, int_ops / INT32_OPS_PER_S,
-                minmax / minmax_rate, wavefronts / SHARED_WAVEFRONTS_PER_S)
+                minmax / minmax_rate, wavefronts / SHARED_WAVEFRONTS_PER_S, f64_inst / F64_INST_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -852,6 +877,96 @@ def extraction_times_of(root: str) -> None:
     peak = blobs_peak_memory(blobs)
     print(f"card: {smi}")
     print(json.dumps({"package": port.__file__, "times": times, "digests": digests, "blobs_peak_memory": peak}))
+
+
+def texture_times_one(root: str) -> None:
+    """Time the dense filter and the LBP codes of the port in the checkout
+    ``root`` on the texture phase's 32 gray scenes (and 4 as float32), and
+    its HOG, Gabor and Hu-moments tables on :data:`TEXTURE_TIMED_TABLE_FRAMES`
+    scenes (host clock), and print one JSON line: each kernel case's device
+    ms and the SHA-256 of its output, each table's host ms a frame."""
+
+    sys.path.insert(0, root)
+    dev = torch.device("cuda", 0)
+    phase_build()
+    import yamimageprocessor_tpu_torch as port
+    from yamimageprocessor_tpu_torch.ops import texture as TX
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+    from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8
+    from yamimageprocessor_tpu_torch.ops.registry import get_impl
+    from yamimageprocessor_tpu_torch.ops.tables import gabor_kernel
+
+    frames = np.stack([extraction_frame(seed=s) for s in range(TEXTURE_FRAMES)])
+    gray = bgr_to_gray(torch.from_numpy(frames).to(dev)).contiguous()
+    small = gray[:1, :FILTER_SMALL_SIDE, :FILTER_SMALL_SIDE].contiguous()
+    floats = (gray[:TEXTURE_DTYPE_FRAMES].to(torch.float32) * 0.731).contiguous()
+    taps = {k: torch.from_numpy(gabor_kernel(k, 5.0, 0.0, 10.0, 0.5, 0.0)).to(dev) for k in FILTER_KSIZES}
+    cases = {
+        "filter2d ksize 21": lambda: filter2d_u8(gray, taps[21], xla_order=True),
+        "filter2d ksize 21 numpy order": lambda: filter2d_u8(gray, taps[21], xla_order=False),
+        "filter2d ksize 3": lambda: filter2d_u8(gray, taps[3], xla_order=True),
+        f"filter2d ksize 101 on {FILTER_SMALL_SIDE}^2": lambda: filter2d_u8(small, taps[101], xla_order=True),
+        f"filter2d ksize 101 on {TEXTURE_DTYPE_FRAMES} scenes": lambda: filter2d_u8(
+            gray[:TEXTURE_DTYPE_FRAMES], taps[101], xla_order=True),
+        f"filter2d ksize 21 float32 {TEXTURE_DTYPE_FRAMES} scenes": lambda: filter2d_u8(floats, taps[21], xla_order=True),
+    }
+    for p, r in LBP_CASES:
+        for golden in (False, True):
+            cases[f"lbp_codes P{p} R{r}{' golden' if golden else ''}"] = (
+                lambda p=p, r=r, golden=golden: TX.lbp_codes(gray, p, r, golden=golden))
+    cases[f"lbp_codes P8 R1.0 float32 {TEXTURE_DTYPE_FRAMES} scenes"] = lambda: TX.lbp_codes(floats, 8, 1.0)
+    times, digests = {}, {}
+    for name, fn in cases.items():
+        digests[name] = sha256(fn())
+        times[name] = time_ms(fn)
+    tables_ms = {}
+    for op in ("hog", "gabor", "hu_moments"):
+        fn = get_impl(f"extraction.{op}").data_fn
+        fn(frames[0])  # warm-up: the first call builds what it needs
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for f in frames[:TEXTURE_TIMED_TABLE_FRAMES]:
+            fn(f)
+        torch.cuda.synchronize()
+        tables_ms[op] = (time.perf_counter() - start) * 1e3 / TEXTURE_TIMED_TABLE_FRAMES
+    print(json.dumps({"package": port.__file__, "times": times, "digests": digests, "tables_ms": tables_ms}))
+
+
+def texture_times_of(roots) -> None:
+    """Time the dense filter and the LBP codes, and three tables, of the
+    checkouts ``roots`` (older ones, unpacked with ``git archive``) and of
+    this one on the same inputs, in turns (the roots, this, this, the roots
+    backwards; each a process of its own), check that each kernel case's
+    output digests agree, and print the mean of each checkout's two runs."""
+
+    import os
+
+    smi = phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = list(roots) + [here, here] + list(reversed(roots))
+    runs = []
+    for tree in order:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--texture-times-one", tree],
+                             capture_output=True, text=True, check=True, timeout=1200)
+        print(out.stdout.strip())
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    for name, digest in runs[0]["digests"].items():
+        if any(run["digests"][name] != digest for run in runs[1:]):
+            raise AssertionError(f"texture times: {name} differs between {order} ")
+    trees = list(roots) + [here]
+
+    def mean_of(tree, key, name):
+        values = [run[key][name] for t, run in zip(order, runs) if t == tree]
+        return sum(values) / len(values)
+
+    summary = {key: {name: {tree: mean_of(tree, key, name) for tree in trees} for name in runs[0][key]}
+               for key in ("times", "tables_ms")}
+    for key, unit in (("times", "device ms"), ("tables_ms", "host ms a frame")):
+        for name, row in summary[key].items():
+            print(f"time {name} ({unit}): " + ", ".join(f"{tree} {v:.4f}" for tree, v in row.items())
+                  + f" (runs {', '.join(f'{run[key][name]:.4f}' for run in runs)})")
+    print(f"card: {smi}")
+    print(json.dumps({"order": order, **summary}))
 
 
 def phase_kernels(dev) -> dict:
@@ -2216,6 +2331,117 @@ def texture_table_digest(tables) -> str:
     return h.hexdigest()
 
 
+def lbp_least_ops(p: int, r: float) -> int:
+    """Least float32 instructions of a pixel's codes in the chain's
+    arithmetic, ``fma(w0, d0, w1 * d1)``, ``fma(w2, d2, .)``, ``fma(w3, d3,
+    .)`` a sample: a term whose weight is exactly 0, or whose corner is the
+    centre (a difference of 0), changes nothing and is dropped; a sample
+    left with one term of weight 1 is its corner's comparison with the
+    centre and needs no instruction; any other sample needs one a term (a
+    multiply, then FMAs), and each distinct corner those read one
+    difference.  The comparisons (which may run on the integer pipe) and
+    the code's popcounts are not counted.  At (8, 1): 8 differences and 3
+    a diagonal sample, 20."""
+
+    from yamimageprocessor_tpu_torch.ops import texture as TX
+
+    corners, weights = TX.lbp_chain_params(p, r)
+    ops, needed = 0, set()
+    for (y0, x0), w in zip(corners.tolist(), weights.tolist()):
+        terms = [((y0 + k // 2, x0 + k % 2), w[k]) for k in range(4) if w[k] != 0 and (y0 + k // 2, x0 + k % 2) != (0, 0)]
+        if len(terms) == 1 and terms[0][1] == 1.0 or not terms:
+            continue
+        ops += len(terms)
+        needed.update(corner for corner, _ in terms)
+    return len(needed) + ops
+
+
+def lbp_f64_least_ops(p: int, r: float, n: int, h: int, w: int) -> int:
+    """Least float64 instructions of ``n`` frames' codes in the data path's
+    arithmetic, ``v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx + ...``
+    compared with the centre, on ``h x w`` frames: the fractions and their
+    complements once a row and a column of each sample (a position add, a
+    floor, a subtraction, a complement: 4 each); a pixel's term with a
+    factor exactly 0 is dropped, a factor exactly 1 needs no multiply,
+    the terms left need one add fewer than their count.  The fractions are
+    this frame size's own (``(y + pad) + dr`` rounds by row)."""
+
+    from yamimageprocessor_tpu_torch.ops import texture as TX
+
+    pad = TX.lbp_pad(r)
+    per_pixel = 0
+    for dr, dc in TX.lbp_offsets(p, r).tolist():
+        ry, cx = (np.arange(h, dtype=np.float64) + pad) + dr, (np.arange(w, dtype=np.float64) + pad) + dc
+        fy, fx = ry - np.floor(ry), cx - np.floor(cx)
+        terms = np.zeros((h, w), np.int64)
+        mults = np.zeros((h, w), np.int64)
+        for a in (1 - fy, fy):
+            for b in (1 - fx, fx):
+                live = (a != 0)[:, None] & (b != 0)[None, :]
+                terms += live
+                mults += live * ((a != 1).astype(np.int64)[:, None] + (b != 1).astype(np.int64)[None, :])
+        per_pixel += int(mults.sum() + np.maximum(terms - 1, 0).sum())
+    return n * per_pixel + 4 * p * (h + w)
+
+
+def texture_edge_checks(dev, err: dict) -> None:
+    """The filter and LBP kernels against their plain versions on the
+    edge frames (:data:`TEXTURE_EDGE_SHAPES`), every kernel shape of
+    :data:`FILTER_EDGE_KERNELS` in both orders and every case of
+    :data:`LBP_EDGE_CASES` in both arithmetics, on uint8, uint16 and
+    float32 frames (ksize 101 on uint8 only); then the filter's wide
+    kernels (one block an SM, the largest whose tile fits) and one it
+    refuses."""
+
+    from yamimageprocessor_tpu_torch.ops import texture as TX
+    from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8, filter2d_u8_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def frames(shape, dtype):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.int32).to(dtype)
+        if dtype == torch.uint16:
+            return torch.randint(0, 4000, shape, generator=gen, device=dev, dtype=torch.int32).to(dtype)
+        return torch.rand(shape, generator=gen, device=dev) * 300 - 20
+
+    for dtype in (torch.uint8, torch.uint16, torch.float32):
+        for shape in TEXTURE_EDGE_SHAPES:
+            batch = frames(shape, dtype).contiguous()
+            for kh, kw in FILTER_EDGE_KERNELS:
+                if kh * kw > 10000 and dtype != torch.uint8:
+                    continue  # the generic instance again: its plain version costs a launch a tap
+                taps = (torch.rand((kh, kw), generator=gen, device=dev) - 0.45).contiguous()
+                for xla_order in (True, False):
+                    err["filter2d"] = max(err["filter2d"], exact(
+                        f"filter2d {dtype} {shape} {kh}x{kw} xla_order={xla_order}",
+                        filter2d_u8(batch, taps, xla_order=xla_order),
+                        filter2d_u8_plain(batch, taps, xla_order=xla_order)))
+            for p, r in LBP_EDGE_CASES:
+                for golden in (False, True):
+                    err["lbp_codes"] = max(err["lbp_codes"], exact(
+                        f"lbp_codes {dtype} {shape} P{p} R{r} golden={golden}",
+                        TX.lbp_codes(batch, p, r, golden=golden),
+                        (TX.lbp_codes_f64_plain if golden else TX.lbp_codes_f32_plain)(batch, p, r)))
+    batch = frames(FILTER_WIDE_SHAPE, torch.uint8).contiguous()
+    for k in FILTER_WIDE_KSIZES:
+        taps = ((torch.rand((k, k), generator=gen, device=dev) - 0.45) / k).contiguous()
+        for xla_order in (True, False):
+            err["filter2d"] = max(err["filter2d"], exact(
+                f"filter2d {FILTER_WIDE_SHAPE} ksize {k} xla_order={xla_order}",
+                filter2d_u8(batch, taps, xla_order=xla_order), filter2d_u8_plain(batch, taps, xla_order=xla_order)))
+    k = FILTER_REFUSED_KSIZE
+    try:
+        filter2d_u8(batch, torch.zeros((k, k), device=dev), xla_order=True)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"filter2d: a ksize-{k} kernel, whose tile does not fit, was not refused")
+    print(f"texture edge frames: filter2d at {FILTER_EDGE_KERNELS} in both orders and lbp_codes at {LBP_EDGE_CASES} "
+          f"in both arithmetics on {TEXTURE_EDGE_SHAPES}, uint8, uint16 and float32, bit-exact; filter2d at ksizes "
+          f"{FILTER_WIDE_KSIZES} on {FILTER_WIDE_SHAPE}, both orders, bit-exact; ksize {FILTER_REFUSED_KSIZE} refused")
+
+
 def phase_texture(dev) -> dict:
     """The texture features: the LBP, Gabor and HOG chains through the
     pipeline manager on the 32 BGR 1024^2 scenes and the five data_fns on
@@ -2261,7 +2487,8 @@ def phase_texture(dev) -> dict:
         if list(cpu) != list(card) or any(np.asarray(cpu[c]).tobytes() != np.asarray(card[c]).tobytes() for c in cpu):
             raise AssertionError(f"texture {k}_data on cuda differs from the CPU run")
     tables_ms = {}
-    for k, fn in data_fns.items():
+    timed_fns = dict(data_fns, hu_moments=get_impl("extraction.hu_moments").data_fn)
+    for k, fn in timed_fns.items():
         start = time.perf_counter()
         for f in frames[:TEXTURE_TABLE_FRAMES]:
             fn(f)
@@ -2270,7 +2497,7 @@ def phase_texture(dev) -> dict:
     print(f"texture: {TEXTURE_CHAINS} chains on {frames.shape} == the JAX package's digests == the port's CPU run on "
           f"frame 0; the 5 data_fns on {TEXTURE_TABLE_FRAMES} frames: their exact inputs (GLCM and box counts, "
           f"LBP's bins, Gabor's mean) == the JAX package's digest, every column == the port's CPU run on frame 0; "
-          f"host-clock ms a frame {json.dumps(tables_ms)}")
+          f"host-clock ms a frame (and Hu moments') {json.dumps(tables_ms)}")
 
     # the kernels against their plain versions
     gray = bgr_to_gray(torch.from_numpy(frames).to(dev)).contiguous()
@@ -2329,6 +2556,7 @@ def phase_texture(dev) -> dict:
             err["hog_cells"] = max(err["hog_cells"], exact(
                 f"hog_cells {name} {nb} bins, {side}x{side}", HG.hog_cells(batch, nb, side),
                 HG.hog_cells_plain(batch, nb, side)))
+    texture_edge_checks(dev, err)
     print(f"kernels: glcm_counts bit-exact at distances {GLCM_DISTANCES} and angles 0..pi on 8 scenes and a flat "
           f"frame; lbp_codes at {LBP_CASES} in both arithmetics on the 32 scenes; filter2d at ksizes "
           f"{FILTER_KSIZES[:-1]} on the 32 scenes and {FILTER_KSIZES[-1]} on {FILTER_SMALL_SIDE}^2, both orders; "
@@ -2352,7 +2580,7 @@ def phase_texture(dev) -> dict:
     cells = (EXTRACT_SIDE // 8) ** 2 * TEXTURE_FRAMES
     bounds = {
         "glcm_counts": bound_ms(float(one.numel()) + 65536 * 4),
-        "lbp_codes": bound_ms(2 * px, f32_inst=LBP_OPS_PER_SAMPLE * 8 * px),
+        "lbp_codes": bound_ms(2 * px, f32_inst=lbp_least_ops(8, 1.0) * px),
         "filter2d": bound_ms(2 * px, f32_inst=21 * 21 * px),
         "hog_cells": bound_ms(px + cells * 9 * 4, f32_inst=HOG_OPS_PER_PIXEL * px),
     }
@@ -2369,7 +2597,8 @@ def phase_texture(dev) -> dict:
         "lbp_codes": {
             f"P{p} R{r}{' golden' if golden else ''}": {
                 "ms": time_ms(lambda: TX.lbp_codes(gray, p, r, golden=golden)),
-                "bound_ms": bound_ms(2 * px, f32_inst=LBP_OPS_PER_SAMPLE * p * px)[0]}
+                "bound_ms": bound_ms(2 * px, **({"f64_inst": lbp_f64_least_ops(p, r, *gray.shape)} if golden else
+                                                {"f32_inst": lbp_least_ops(p, r) * px}))[0]}
             for p, r in LBP_CASES for golden in (False, True) if (p, golden) != (8, False)
         },
         "filter2d": {
@@ -2394,7 +2623,7 @@ def phase_texture(dev) -> dict:
         label = f"{name} {TEXTURE_DTYPE_FRAMES} scenes"
         by_input["lbp_codes"][f"P8 R1.0 {label}"] = {
             "ms": time_ms(lambda: TX.lbp_codes(batch, 8, 1.0)),
-            "bound_ms": bound_ms((size + 1) * n_px, f32_inst=LBP_OPS_PER_SAMPLE * 8 * n_px)[0]}
+            "bound_ms": bound_ms((size + 1) * n_px, f32_inst=lbp_least_ops(8, 1.0) * n_px)[0]}
         by_input["filter2d"][f"ksize 21 {label}"] = {
             "ms": time_ms(lambda: filter2d_u8(batch, taps[21], xla_order=True)),
             "bound_ms": bound_ms((size + 1) * n_px, f32_inst=21 * 21 * n_px)[0]}
@@ -2497,6 +2726,12 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--extraction-times-of"]:
         extraction_times_of(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--texture-times-of"]:
+        texture_times_of(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--texture-times-one"]:
+        texture_times_one(sys.argv[2])
         return
     smi = phase_device()
     dev = torch.device("cuda", 0)

@@ -10,11 +10,10 @@
 - The chain (``PipelineManager`` / chain runner on ``device="cpu"``)
   against the JAX package's compiled chain, bit for bit, on uint8 BGR and
   gray, float32 and uint16 frames, at default and other parameters.
-- ``hog_visualize`` against ``hog_visualize_j`` bit for bit.
-- ``hog_data`` against the CPU data path (``hog_features_np``, float64):
-  the port takes the chain's float32 cell histograms, so the features
-  agree within atol 1e-6 (measured: below 3e-8 on these frames; an L2-Hys
-  feature lies in [0, 1]).
+- ``hog_visualize`` against ``hog_visualize_j`` bit for bit, at cell
+  counts where XLA's dot takes each of its orders (``render_lanes``).
+- ``hog_data`` against the CPU data path (``hog_features_np``, float64)
+  bit for bit: the port runs its copy of it on the gray plane.
 
 The test marked ``cuda`` holds the kernel (``csrc/hog.cu``) against its
 plain version on the card; it skips where there is no card::
@@ -28,6 +27,7 @@ import pytest
 import torch
 
 from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
+from tests.test_torch_f9_render import needs_avx512
 from yamimageprocessor_tpu_torch.ops import hogf as HG
 from yamimageprocessor_tpu_torch.ops.schema import Stage
 from yamimageprocessor_tpu_torch.pipeline.compiler import get_compiled_chain
@@ -199,10 +199,34 @@ def test_hog_chain_matches_jax_on_other_frames(kind):
     _same_chain({"orientations": 12, "pixels_per_cell": (4, 4)}, _frames(kind))
 
 
+@needs_avx512
+@pytest.mark.parametrize(
+    "side, bins, rows, per_row",
+    [(8, 9, 1, 1), (8, 9, 1, 4), (8, 9, 2, 6), (8, 9, 4, 4), (8, 9, 9, 10), (8, 9, 12, 12),
+     (2, 32, 1, 1), (2, 32, 1, 5), (2, 32, 4, 4), (2, 32, 1, 17), (2, 32, 5, 8)],
+    ids=lambda v: str(v),
+)
+def test_small_renders_match_hog_visualize_j(side, bins, rows, per_row):
+    """One frame of ``rows x per_row`` cells: XLA's dot sums a pixel's bins
+    in 8 lanes (one cell), 4 (up to 16 cells), 2 (at 9 bins on 8 x 8 cells:
+    17-32, 65-96, 129-160 and 193-224 cells, here 90 and 144) or in order
+    (17 or more cells of 2 x 2 pixels), as ``render_lanes`` says."""
+
+    import jax
+
+    from yamimageprocessor_tpu.ops import hogf as H
+
+    cells = rows * per_row
+    hist = (np.random.default_rng(cells + bins).random((1, rows, per_row, bins)) * 40 - 5).astype(np.float32)
+    shape = (rows * side + 3, per_row * side + 1)
+    want = np.asarray(jax.jit(jax.vmap(lambda h: H.hog_visualize_j(h, shape, (side, side), bins)))(hist))
+    got = HG.hog_visualize(torch.from_numpy(hist), shape, side).numpy()
+    assert got.tobytes() == want.tobytes()
+
+
 def test_visualize_matches_hog_visualize_j():
-    """At the main path's cell counts (here 8 frames of 16 x 16 cells;
-    XLA's dot sums the bins in order there).  Below a few hundred cells
-    the dot takes other orders (ROADMAP, Queue 3)."""
+    """At the main path's cell counts (here 8 frames of 16 x 16 cells, the
+    dot's count the batch's: 2048)."""
 
     import jax
 
@@ -230,8 +254,10 @@ def test_hog_data_matches_jax(params):
         want = EX.hog_data(img, *params)
         got = hog_data(img, *params, device="cpu")
         assert list(got) == list(want.columns)
+        # the reference repeats its own bits (numpy's reductions can round by buffer alignment)
+        assert EX.hog_data(img, *params).to_numpy().tobytes() == want.to_numpy().tobytes()
         if got:
-            np.testing.assert_allclose(np.concatenate(list(got.values())), want.to_numpy()[0], rtol=0, atol=1e-6)
+            assert np.concatenate(list(got.values())).tobytes() == want.to_numpy()[0].tobytes()
 
 
 def test_non_square_cells_raise():

@@ -291,3 +291,53 @@ def test_unknown_ops_and_host_steps():
     assert (host.apply(np.zeros((2, 2), np.uint8)) == 255).all()
     with pytest.raises(NotImplementedError):
         PipelineStep(name="Otsu", stage=Stage.SEGMENTATION).apply(np.zeros((2, 2), np.uint8))
+
+
+def _host_frames():
+    rng = np.random.default_rng(11)
+    mask = np.zeros((23, 31), np.uint8)
+    mask[4:15, 6:20] = 255
+    mask[17:21, 2:29] = 255
+    return {
+        "noise": rng.integers(0, 256, (37, 45), dtype=np.uint8),
+        "mask": mask,
+        "flat": np.full((17, 19), 90, np.uint8),
+        "empty": np.zeros((9, 12), np.uint8),
+        "float": (rng.standard_normal((26, 30)) * 50 + 100).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("kind", ["noise", "mask", "flat", "float"])
+def test_hog_gradients_np_match_jax(kind):
+    from yamimageprocessor_tpu.ops.hogf import _gradients_np
+
+    from yamimageprocessor_tpu_torch.ops.hogf import gradients_np
+
+    img = _host_frames()[kind].astype(np.float64)
+    for ours, ref in zip(gradients_np(img), _gradients_np(img)):
+        assert ours.dtype == ref.dtype and ours.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["noise", "mask", "flat", "float"])
+@pytest.mark.parametrize("params", [(9, (8, 8), (3, 3)), (7, (4, 4), (2, 2)), (12, (6, 5), (1, 1)), (9, (8, 8), (9, 9))])
+def test_hog_features_np_match_jax(kind, params):
+    from yamimageprocessor_tpu.ops.hogf import hog_features_np as ref_features
+
+    from yamimageprocessor_tpu_torch.ops.hogf import hog_features_np
+
+    gray = _host_frames()[kind]
+    for ours, ref in zip(hog_features_np(gray, *params), ref_features(gray, *params)):
+        assert ours.dtype == ref.dtype and ours.shape == ref.shape and ours.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["noise", "mask", "flat", "empty", "float"])
+def test_moments_and_hu_moments_match_jax(kind):
+    from yamimageprocessor_tpu.ops import shape as SH
+
+    from yamimageprocessor_tpu_torch.ops.extraction import hu_moments, moments_np
+
+    img = _host_frames()[kind]
+    ours, ref = moments_np(img), SH.moments_np(img)
+    assert list(ours) == list(ref)
+    assert np.array(list(ours.values())).tobytes() == np.array(list(ref.values())).tobytes()
+    assert hu_moments(ours).tobytes() == SH.hu_moments(ref).tobytes()

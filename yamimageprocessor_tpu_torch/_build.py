@@ -72,7 +72,7 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_annotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_filter2d_u8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_glcm_counts": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "yam_lbp_codes": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yam_lbp_codes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_hog_cells": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
 }
 

@@ -16,12 +16,8 @@
 // lbp_codes (for lbp_j, texture.py:70, and lbp_np, :40): the uniform code
 // 0..P+1 of every pixel, as uint8, from frames of any of the three element
 // types (a template parameter; every value is exact in float32 and float64,
-// so the arithmetic after the load is the same).  A thread a pixel; the P <= 32 samples' parameters
-// sit in shared memory, the frame is read through the cache with edge
-// clamping (the reference pads by ceil(R) + 1 with edge values), the sample
-// bits gather in one word, and ones and transitions are popcounts.  Bound:
-// bytes (1 in, 1 out) at small P; at P = 24 about 4 * 24 cached reads and
-// 3 * 24 fused multiply-adds a pixel.  Two arithmetics, a template flag:
+// so the arithmetic after the load is the same).  Two arithmetics, a
+// template flag:
 //
 // - float32 (the chain): each sample is the difference to the centre,
 //   interpolated as XLA's CPU backend runs lbp_j, the weights folded into
@@ -31,15 +27,33 @@
 //   fractions formed per pixel, ry = (y + pad) + dr, fy = ry - floor(ry),
 //   ((v00 (1 - fy)) (1 - fx) + (v01 (1 - fy)) fx) + ..., compared with the
 //   centre; every operation rounded apart, as numpy does.
+//
+// Bound on the card: operations.  Design: a block of 8 warps stages its
+// 128 x 16 tile and a halo of pad = ceil(R) + 1, edge-clamped as the
+// reference pads, in shared memory once (float32, or the values as double
+// for the float64 path), so the inner loop has no clamps and no global
+// loads; a thread computes 4 pixels of a row, 32 columns apart (a warp's
+// loads of one corner are 32 consecutive words: no bank conflicts); the
+// samples' corner offsets, weights and float64 offsets are a kernel
+// parameter (the constant bank), the sample loop unrolled for P = 8, 16 and
+// 24 and up to 32 otherwise.  In the float32 path each distinct corner's
+// difference to the centre is formed once a pixel (the same rounded value
+// in every sample that reads it): the chain's default (P 8, R 1) has its
+// own instance, its 13 corners known at compile time (12 loads a pixel);
+// any other geometry takes the corners it shares with the sample before
+// from it (a relation code a sample, from the host).  The float64 path keeps the
+// fractions per pixel (ry = (y + pad) + dr rounds differently from row to
+// row), so only its loads move to the tile.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int GLCM_THREADS = 256;
-constexpr int LBP_TX = 32, LBP_TY = 8;
+constexpr int LBP_THREADS = 256, LBP_COLS = 128, LBP_ROWS = 16;
 constexpr int MAX_P = 32;
 
 __global__ void __launch_bounds__(GLCM_THREADS)
@@ -68,81 +82,217 @@ glcm_counts_kernel(const uint8_t* __restrict__ src, int* __restrict__ out, int h
 
 __device__ __forceinline__ int clampi(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
 
-template <bool GOLDEN, typename T>
-__global__ void __launch_bounds__(LBP_TX * LBP_TY)
-lbp_codes_kernel(const T* __restrict__ src, uint8_t* __restrict__ dst, const void* __restrict__ params,
-                 int h, int w, int p, int pad) {
-  // float32: (p, 6) words (int32 y0, int32 x0, w00, w01, w10, w11); float64: (p, 2) (dr, dc)
-  __shared__ float f32p[MAX_P * 6];
-  __shared__ double f64p[MAX_P * 2];
-  const int tid = threadIdx.y * LBP_TX + threadIdx.x;
-  if (GOLDEN) {
-    for (int k = tid; k < 2 * p; k += LBP_TX * LBP_TY) f64p[k] = static_cast<const double*>(params)[k];
-  } else {
-    for (int k = tid; k < 6 * p; k += LBP_TX * LBP_TY) f32p[k] = static_cast<const float*>(params)[k];
-  }
-  __syncthreads();
-  const int x = blockIdx.x * LBP_TX + threadIdx.x, y = blockIdx.y * LBP_TY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const long long frame = static_cast<long long>(blockIdx.z) * h * w;
-  const T* img = src + frame;
-  const T centre = __ldg(img + static_cast<long long>(y) * w + x);
-  unsigned bits = 0;
-  for (int s = 0; s < p; ++s) {
-    bool bit;
-    if (GOLDEN) {
-      const double ry = __dadd_rn(static_cast<double>(y + pad), f64p[2 * s]);
-      const double cx = __dadd_rn(static_cast<double>(x + pad), f64p[2 * s + 1]);
-      const double fy0 = floor(ry), fx0 = floor(cx);
-      const double fy = __dsub_rn(ry, fy0), fx = __dsub_rn(cx, fx0);
-      const int y0 = static_cast<int>(fy0) - pad, x0 = static_cast<int>(fx0) - pad;
-      const int ya = clampi(y0, h - 1), yb = clampi(y0 + 1, h - 1);
-      const int xa = clampi(x0, w - 1), xb = clampi(x0 + 1, w - 1);
-      const double v00 = static_cast<double>(__ldg(img + static_cast<long long>(ya) * w + xa));
-      const double v01 = static_cast<double>(__ldg(img + static_cast<long long>(ya) * w + xb));
-      const double v10 = static_cast<double>(__ldg(img + static_cast<long long>(yb) * w + xa));
-      const double v11 = static_cast<double>(__ldg(img + static_cast<long long>(yb) * w + xb));
-      const double gy = __dsub_rn(1.0, fy), gx = __dsub_rn(1.0, fx);
-      double val = __dmul_rn(__dmul_rn(v00, gy), gx);
-      val = __dadd_rn(val, __dmul_rn(__dmul_rn(v01, gy), fx));
-      val = __dadd_rn(val, __dmul_rn(__dmul_rn(v10, fy), gx));
-      val = __dadd_rn(val, __dmul_rn(__dmul_rn(v11, fy), fx));
-      bit = val >= static_cast<double>(centre);
-    } else {
-      const float* q = f32p + 6 * s;
-      const int y0 = __float_as_int(q[0]) + y, x0 = __float_as_int(q[1]) + x;
-      const int ya = clampi(y0, h - 1), yb = clampi(y0 + 1, h - 1);
-      const int xa = clampi(x0, w - 1), xb = clampi(x0 + 1, w - 1);
-      const float c = static_cast<float>(centre);
-      const float d00 = __fsub_rn(static_cast<float>(__ldg(img + static_cast<long long>(ya) * w + xa)), c);
-      const float d01 = __fsub_rn(static_cast<float>(__ldg(img + static_cast<long long>(ya) * w + xb)), c);
-      const float d10 = __fsub_rn(static_cast<float>(__ldg(img + static_cast<long long>(yb) * w + xa)), c);
-      const float d11 = __fsub_rn(static_cast<float>(__ldg(img + static_cast<long long>(yb) * w + xb)), c);
-      float acc = __fmaf_rn(q[2], d00, __fmul_rn(q[3], d01));
-      acc = __fmaf_rn(q[4], d10, acc);
-      acc = __fmaf_rn(q[5], d11, acc);
-      bit = acc >= 0.0f;
-    }
-    bits |= static_cast<unsigned>(bit) << s;
-  }
+// The samples of one launch, a kernel parameter (the constant bank).
+// relation[s] says which corners sample s shares with sample s - 1: NONE,
+// SAME (all four), RIGHT (x0 one more: 00 = 01 before, 10 = 11 before),
+// LEFT, DOWN (y0 one more: 00 = 10 before, 01 = 11 before) or UP.
+struct LbpParams {
+  int corner[MAX_P][2];     // (y0, x0) of each sample's top-left corner from the centre
+  float weight[MAX_P][4];   // the folded float32 weights of corners 00, 01, 10, 11
+  int relation[MAX_P];
+  double offset[MAX_P][2];  // (dr, dc), the float64 path's
+};
+
+enum Relation { NONE = 0, SAME = 1, RIGHT = 2, LEFT = 3, DOWN = 4, UP = 5 };
+
+// The chain's default geometry, P 8 and R 1: each sample's top-left corner,
+// the 13 distinct corners of the 8 samples, and each sample's 4 corners
+// among them (00, 01, 10, 11).
+constexpr int MAIN_P = 8, MAIN_CORNERS = 13;
+constexpr int kMainCorner[MAIN_P][2] = {{0, 1}, {-1, 0}, {-1, 0}, {-1, -1}, {0, -1}, {0, -1}, {1, 0}, {0, 0}};
+__host__ __device__ constexpr int main_distinct(int u, int axis) {
+  constexpr int kMainDistinct[MAIN_CORNERS][2] = {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1}, {0, 0}, {0, 1}, {0, 2},
+                                                  {1, -1},  {1, 0},  {1, 1},  {1, 2}, {2, 0}, {2, 1}};
+  return kMainDistinct[u][axis];
+}
+__host__ __device__ constexpr int main_use(int s, int k) {
+  constexpr int kMainUses[MAIN_P][4] = {{5, 6, 9, 10}, {1, 2, 4, 5}, {1, 2, 4, 5}, {0, 1, 3, 4},
+                                        {3, 4, 7, 8},  {3, 4, 7, 8}, {8, 9, 11, 12}, {4, 5, 8, 9}};
+  return kMainUses[s][k];
+}
+
+bool is_main_geometry(const LbpParams& prm, int p) {
+  if (p != MAIN_P) return false;
+  for (int s = 0; s < MAIN_P; ++s)
+    if (prm.corner[s][0] != kMainCorner[s][0] || prm.corner[s][1] != kMainCorner[s][1]) return false;
+  return true;
+}
+
+__device__ __forceinline__ unsigned lbp_code(unsigned bits, int p) {
   const unsigned mask = p == 32 ? 0xffffffffu : ((1u << p) - 1u);
   const unsigned rolled = ((bits << 1) | (bits >> (p - 1))) & mask;
   const int transitions = __popc(bits ^ rolled);
-  const int code = transitions <= 2 ? __popc(bits) : p + 1;
-  dst[frame + static_cast<long long>(y) * w + x] = static_cast<uint8_t>(code);
+  return transitions <= 2 ? __popc(bits) : p + 1;
+}
+
+// The float32 sample bits of the chain's default geometry: the 13
+// distinct corners' differences once (the centre's own, c - c, loads
+// nothing), then each sample's FMA chain on 4 of them.
+__device__ __forceinline__ unsigned lbp_bits_main(const float* __restrict__ ctr, int pitch, const LbpParams& prm) {
+  const float c = ctr[0];
+  float d[MAIN_CORNERS];
+#pragma unroll
+  for (int u = 0; u < MAIN_CORNERS; ++u) {
+    const int dy = main_distinct(u, 0), dx = main_distinct(u, 1);
+    d[u] = __fsub_rn(dy == 0 && dx == 0 ? c : ctr[dy * pitch + dx], c);
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int s = 0; s < MAIN_P; ++s) {
+    const float* wt = prm.weight[s];
+    float acc = __fmaf_rn(d[main_use(s, 0)], wt[0], __fmul_rn(d[main_use(s, 1)], wt[1]));
+    acc = __fmaf_rn(d[main_use(s, 2)], wt[2], acc);
+    acc = __fmaf_rn(d[main_use(s, 3)], wt[3], acc);
+    bits |= static_cast<unsigned>(acc >= 0.0f) << s;
+  }
+  return bits;
+}
+
+// The float32 sample bits of the pixel whose centre is at ctr in the tile.
+template <int P>
+__device__ __forceinline__ unsigned lbp_bits_f32(const float* __restrict__ ctr, int pitch, int p,
+                                                 const LbpParams& prm) {
+  const float c = ctr[0];
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  unsigned bits = 0;
+#pragma unroll
+  for (int s = 0; s < (P ? P : MAX_P); ++s) {
+    if (!P && s >= p) break;
+    const float* at = ctr + prm.corner[s][0] * pitch + prm.corner[s][1];
+    float e[4];
+    switch (s == 0 ? NONE : prm.relation[s]) {
+      case SAME:
+        e[0] = d[0]; e[1] = d[1]; e[2] = d[2]; e[3] = d[3];
+        break;
+      case RIGHT:
+        e[0] = d[1]; e[2] = d[3];
+        e[1] = __fsub_rn(at[1], c); e[3] = __fsub_rn(at[pitch + 1], c);
+        break;
+      case LEFT:
+        e[1] = d[0]; e[3] = d[2];
+        e[0] = __fsub_rn(at[0], c); e[2] = __fsub_rn(at[pitch], c);
+        break;
+      case DOWN:
+        e[0] = d[2]; e[1] = d[3];
+        e[2] = __fsub_rn(at[pitch], c); e[3] = __fsub_rn(at[pitch + 1], c);
+        break;
+      case UP:
+        e[2] = d[0]; e[3] = d[1];
+        e[0] = __fsub_rn(at[0], c); e[1] = __fsub_rn(at[1], c);
+        break;
+      default:
+        e[0] = __fsub_rn(at[0], c); e[1] = __fsub_rn(at[1], c);
+        e[2] = __fsub_rn(at[pitch], c); e[3] = __fsub_rn(at[pitch + 1], c);
+    }
+    const float* wt = prm.weight[s];
+    float acc = __fmaf_rn(e[0], wt[0], __fmul_rn(e[1], wt[1]));
+    acc = __fmaf_rn(e[2], wt[2], acc);
+    acc = __fmaf_rn(e[3], wt[3], acc);
+    bits |= static_cast<unsigned>(acc >= 0.0f) << s;
+    d[0] = e[0]; d[1] = e[1]; d[2] = e[2]; d[3] = e[3];
+  }
+  return bits;
+}
+
+// The float64 sample bits of pixel (y, x) of the frame, its tile origin at
+// (ty0, tx0) (the frame coordinates of the tile's first row and column).
+template <int P>
+__device__ __forceinline__ unsigned lbp_bits_f64(const double* __restrict__ tile, int pitch, int y, int x, int ty0,
+                                                 int tx0, int pad, int p, const LbpParams& prm) {
+  const double c = tile[(y - ty0) * pitch + (x - tx0)];
+  unsigned bits = 0;
+#pragma unroll
+  for (int s = 0; s < (P ? P : MAX_P); ++s) {
+    if (!P && s >= p) break;
+    const double ry = __dadd_rn(static_cast<double>(y + pad), prm.offset[s][0]);
+    const double cx = __dadd_rn(static_cast<double>(x + pad), prm.offset[s][1]);
+    const double fy0 = floor(ry), fx0 = floor(cx);
+    const double fy = __dsub_rn(ry, fy0), fx = __dsub_rn(cx, fx0);
+    const double* at = tile + (static_cast<int>(fy0) - pad - ty0) * pitch + (static_cast<int>(fx0) - pad - tx0);
+    const double gy = __dsub_rn(1.0, fy), gx = __dsub_rn(1.0, fx);
+    double val = __dmul_rn(__dmul_rn(at[0], gy), gx);
+    val = __dadd_rn(val, __dmul_rn(__dmul_rn(at[1], gy), fx));
+    val = __dadd_rn(val, __dmul_rn(__dmul_rn(at[pitch], fy), gx));
+    val = __dadd_rn(val, __dmul_rn(__dmul_rn(at[pitch + 1], fy), fx));
+    bits |= static_cast<unsigned>(val >= c) << s;
+  }
+  return bits;
+}
+
+// A block: LBP_COLS x LBP_ROWS pixels; a warp a row at a time, a lane the
+// pixels lane, lane + 32, lane + 64 and lane + 96 of it.
+template <bool GOLDEN, typename T, int P, bool MAIN>
+__global__ void __launch_bounds__(LBP_THREADS)
+lbp_codes_kernel(const T* __restrict__ src, uint8_t* __restrict__ dst, const __grid_constant__ LbpParams prm, int h,
+                 int w, int p, int pad, int pitch) {
+  using V = typename std::conditional<GOLDEN, double, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* tile = reinterpret_cast<V*>(smem);
+  const int x0 = blockIdx.x * LBP_COLS, y0 = blockIdx.y * LBP_ROWS;
+  const int ty0 = y0 - pad, tx0 = x0 - pad;
+  const int tile_rows = LBP_ROWS + 2 * pad, tile_cols = LBP_COLS + 2 * pad;
+  const long long frame = static_cast<long long>(blockIdx.z) * h * w;
+  const T* in = src + frame;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // edge-clamped, as the reference pads by pad with edge values
+  for (int r = warp; r < tile_rows; r += LBP_THREADS / 32) {
+    const long long row = static_cast<long long>(clampi(ty0 + r, h - 1)) * w;
+    for (int c = lane; c < tile_cols; c += 32)
+      tile[r * pitch + c] = static_cast<V>(in[row + clampi(tx0 + c, w - 1)]);
+  }
+  __syncthreads();
+  uint8_t* out = dst + frame;
+  for (int r = warp; r < LBP_ROWS; r += LBP_THREADS / 32) {
+    const int y = y0 + r;
+    if (y >= h) break;
+#pragma unroll 1
+    for (int k = 0; k < LBP_COLS / 32; ++k) {
+      const int x = x0 + lane + 32 * k;
+      if (x >= w) break;
+      unsigned bits;
+      if constexpr (GOLDEN)
+        bits = lbp_bits_f64<P>(tile, pitch, y, x, ty0, tx0, pad, p, prm);
+      else if constexpr (MAIN)
+        bits = lbp_bits_main(tile + (r + pad) * pitch + (x - tx0), pitch, prm);
+      else
+        bits = lbp_bits_f32<P>(tile + (r + pad) * pitch + (x - tx0), pitch, p, prm);
+      out[static_cast<long long>(y) * w + x] = static_cast<uint8_t>(lbp_code(bits, p));
+    }
+  }
+}
+
+template <bool GOLDEN, typename T, int P, bool MAIN = false>
+cudaError_t lbp_launch(const void* src, void* dst, const LbpParams& prm, int n, int h, int w, int p, int pad,
+                       cudaStream_t stream) {
+  const int pitch = LBP_COLS + 2 * pad;
+  const long long bytes = static_cast<long long>(LBP_ROWS + 2 * pad) * pitch * (GOLDEN ? 8 : 4);
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(lbp_codes_kernel<GOLDEN, T, P, MAIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w + LBP_COLS - 1) / LBP_COLS, (h + LBP_ROWS - 1) / LBP_ROWS, n);
+  lbp_codes_kernel<GOLDEN, T, P, MAIN><<<grid, LBP_THREADS, bytes, stream>>>(
+      static_cast<const T*>(src), static_cast<uint8_t*>(dst), prm, h, w, p, pad, pitch);
+  return cudaGetLastError();
+}
+
+template <bool GOLDEN, typename T>
+cudaError_t lbp_samples(const void* src, void* dst, const LbpParams& prm, int n, int h, int w, int p, int pad,
+                        cudaStream_t stream) {
+  if (!GOLDEN && is_main_geometry(prm, p)) return lbp_launch<false, T, MAIN_P, true>(src, dst, prm, n, h, w, p, pad, stream);
+  switch (p) {
+    case 8: return lbp_launch<GOLDEN, T, 8>(src, dst, prm, n, h, w, p, pad, stream);
+    case 16: return lbp_launch<GOLDEN, T, 16>(src, dst, prm, n, h, w, p, pad, stream);
+    case 24: return lbp_launch<GOLDEN, T, 24>(src, dst, prm, n, h, w, p, pad, stream);
+    default: return lbp_launch<GOLDEN, T, 0>(src, dst, prm, n, h, w, p, pad, stream);
+  }
 }
 
 template <typename T>
-cudaError_t lbp_launch(const void* src, void* dst, const void* params, int n, int h, int w, int p, int pad,
-                       int golden, cudaStream_t stream) {
-  const dim3 grid((w + LBP_TX - 1) / LBP_TX, (h + LBP_TY - 1) / LBP_TY, n), block(LBP_TX, LBP_TY);
-  if (golden)
-    lbp_codes_kernel<true, T><<<grid, block, 0, stream>>>(static_cast<const T*>(src), static_cast<uint8_t*>(dst),
-                                                          params, h, w, p, pad);
-  else
-    lbp_codes_kernel<false, T><<<grid, block, 0, stream>>>(static_cast<const T*>(src), static_cast<uint8_t*>(dst),
-                                                           params, h, w, p, pad);
-  return cudaGetLastError();
+cudaError_t lbp_arith(const void* src, void* dst, const LbpParams& prm, int n, int h, int w, int p, int pad, int golden,
+                      cudaStream_t stream) {
+  return golden ? lbp_samples<true, T>(src, dst, prm, n, h, w, p, pad, stream)
+                : lbp_samples<false, T>(src, dst, prm, n, h, w, p, pad, stream);
 }
 
 }  // namespace
@@ -163,16 +313,28 @@ extern "C" int yam_glcm_counts(const void* src, void* out, int n, int h, int w, 
 }
 
 // src: (n, h, w) of kind 0 uint8, 1 uint16 or 2 float32; dst: (n, h, w)
-// uint8; params: float32 (p, 6) words (golden 0) or float64 (p, 2) offsets
-// (golden 1) on the card; 1 <= p <= 32.
-extern "C" int yam_lbp_codes(const void* src, void* dst, const void* params, int n, int h, int w, int p, int pad,
+// uint8.  Host arrays of the p <= 32 samples: corners int32 (p, 2), weights
+// float32 (p, 4) and relations int32 (p) (the float32 path's), offsets
+// float64 (p, 2) (the float64 path's); they travel as a kernel parameter.
+extern "C" int yam_lbp_codes(const void* src, void* dst, const int* corners, const float* weights,
+                             const int* relations, const double* offsets, int n, int h, int w, int p, int pad,
                              int golden, int kind, void* stream) {
-  if (n < 1 || n > 65535 || h < 1 || w < 1 || p < 1 || p > MAX_P) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || n > 65535 || h < 1 || w < 1 || p < 1 || p > MAX_P || pad < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LbpParams prm = {};
+  for (int s = 0; s < p; ++s) {
+    for (int k = 0; k < 2; ++k) {
+      prm.corner[s][k] = corners[2 * s + k];
+      prm.offset[s][k] = offsets[2 * s + k];
+    }
+    for (int k = 0; k < 4; ++k) prm.weight[s][k] = weights[4 * s + k];
+    prm.relation[s] = relations[s];
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
-    case 0: return static_cast<int>(lbp_launch<uint8_t>(src, dst, params, n, h, w, p, pad, golden, s));
-    case 1: return static_cast<int>(lbp_launch<uint16_t>(src, dst, params, n, h, w, p, pad, golden, s));
-    case 2: return static_cast<int>(lbp_launch<float>(src, dst, params, n, h, w, p, pad, golden, s));
+    case 0: return static_cast<int>(lbp_arith<uint8_t>(src, dst, prm, n, h, w, p, pad, golden, st));
+    case 1: return static_cast<int>(lbp_arith<uint16_t>(src, dst, prm, n, h, w, p, pad, golden, st));
+    case 2: return static_cast<int>(lbp_arith<float>(src, dst, prm, n, h, w, p, pad, golden, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

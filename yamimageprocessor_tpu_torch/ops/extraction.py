@@ -19,20 +19,18 @@ on the whole frame (the reference marks them ``global_stats``).
 The texture tables follow the reference's CPU data path, whose functions
 are numpy's (``lbp_np``, ``glcm_np``, ``gabor_np``, ``hog_features_np``,
 ``fractal_box_counts``): the kernels' exact integers (pair counts, code and
-level histograms, box counts) are finished with the reference's float64
-formulas on the host, so Haralick's and the fractal dimension's columns
-(on the same host's numpy and LAPACK), LBP's counts and Gabor's mean are
-the reference's bits; HOG's features come
-from the float32 cell histograms of the chain (``hog_data``'s tolerance is
-stated in ``tests/test_torch_hog.py``).
+level histograms, box counts, the filtered frame, the gray plane) are
+finished with the reference's float64 code on the host, so every column is
+the reference's bits (Haralick's and the fractal dimension's on the same
+host's numpy and LAPACK): Gabor's std is ``np.std`` of the stretched frame,
+HOG's features are the port's copy of ``hog_features_np`` run on the gray
+plane.
 
-Hu moments: the raw moments of the Otsu mask up to order 3 are integer
-sums (int64 a row on the device, exact Python integers over the rows on
-the host), the central moments are integer polynomials of them, so each
-normalized moment is one rounding of an exact rational, then the
-reference's float64 Hu formulas.  Histogram statistics: the histogram256
-kernel's counts, then the reference's float64 formulas
-(``texture.py:histogram_stats_np``) on the same counts.
+Hu moments: the Otsu mask (0/255, exact) read back, then the port's copies
+of ``moments_np`` and ``hu_moments`` (the reference's host route ``_hu``).
+Histogram statistics: the histogram256 kernel's counts, then the
+reference's float64 formulas (``texture.py:histogram_stats_np``) on the
+same counts.
 """
 from __future__ import annotations
 
@@ -101,43 +99,41 @@ def _frames(image) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(image))[None]
 
 
-def mask_row_moments(imgs: torch.Tensor) -> torch.Tensor:
-    """``(B, H, 4)`` int64: per row ``y`` of each Otsu mask the sums of
-    ``x**p`` over its foreground, ``p = 0..3`` (exact below 2**63: rows up
-    to ~55000 pixels)."""
+def moments_np(image: np.ndarray) -> Dict[str, float]:
+    """Raw, central and normalized moments of an intensity image
+    (``moments_np``, cv2.moments semantics, host numpy in float64)."""
 
-    fg = (binary(imgs) > 0).to(torch.int64)
-    x = torch.arange(fg.shape[-1], dtype=torch.int64, device=fg.device)
-    return torch.stack([(fg * x**p).sum(-1) for p in range(4)], dim=-1)
+    img = image.astype(np.float64)
+    h, w = img.shape
+    y, x = np.mgrid[:h, :w].astype(np.float64)
+    m = {}
+    for p in range(4):
+        for q in range(4):
+            if p + q <= 3:
+                m[f"m{p}{q}"] = float((img * (x**p) * (y**q)).sum())
+    m00 = m["m00"] if m["m00"] != 0 else 1.0
+    cx = m["m10"] / m00
+    cy = m["m01"] / m00
+    for p in range(4):
+        for q in range(4):
+            if 2 <= p + q <= 3:
+                m[f"mu{p}{q}"] = float((img * ((x - cx) ** p) * ((y - cy) ** q)).sum())
+    m["mu00"] = m["m00"]
+    m["mu10"] = 0.0
+    m["mu01"] = 0.0
+    for p in range(4):
+        for q in range(4):
+            if 2 <= p + q <= 3:
+                norm = m00 ** ((p + q) / 2 + 1)
+                m[f"nu{p}{q}"] = m[f"mu{p}{q}"] / norm
+    return m
 
 
-def hu_from_row_moments(rows: np.ndarray) -> np.ndarray:
-    """The 7 Hu invariants of one frame from its ``(H, 4)`` row sums, the
-    mask weighted 255 as the reference's 0/255 binary is."""
+def hu_moments(m: Dict[str, float]) -> np.ndarray:
+    """The 7 Hu invariants from normalized central moments (``hu_moments``)."""
 
-    y = [int(v) for v in range(rows.shape[0])]
-    r = [[int(v) for v in rows[:, p]] for p in range(4)]
-    s = {(p, q): sum(yy**q * rp for yy, rp in zip(y, r[p])) for p in range(4) for q in range(4) if p + q <= 3}
-    s00, s10, s01 = s[0, 0], s[1, 0], s[0, 1]
-    if s00 == 0:
-        return np.zeros(7, dtype=np.float64)
-    # central moments times s00^(order - 1) / 255: integers
-    n2 = {
-        (2, 0): s00 * s[2, 0] - s10 * s10,
-        (0, 2): s00 * s[0, 2] - s01 * s01,
-        (1, 1): s00 * s[1, 1] - s10 * s01,
-    }
-    n3 = {
-        (3, 0): s00 * s00 * s[3, 0] - 3 * s00 * s10 * s[2, 0] + 2 * s10**3,
-        (0, 3): s00 * s00 * s[0, 3] - 3 * s00 * s01 * s[0, 2] + 2 * s01**3,
-        (2, 1): s00 * s00 * s[2, 1] - 2 * s00 * s10 * s[1, 1] - s00 * s01 * s[2, 0] + 2 * s10 * s10 * s01,
-        (1, 2): s00 * s00 * s[1, 2] - 2 * s00 * s01 * s[1, 1] - s00 * s10 * s[0, 2] + 2 * s01 * s01 * s10,
-    }
-    # nu_pq = mu_pq / m00^((p+q)/2 + 1), m00 = 255 s00
-    nu = {k: v / (255.0 * float(s00) ** 3) for k, v in n2.items()}
-    nu.update({k: v / (255.0**1.5 * float(s00) ** 4.5) for k, v in n3.items()})
-    n20, n02, n11 = nu[2, 0], nu[0, 2], nu[1, 1]
-    n30, n03, n21, n12 = nu[3, 0], nu[0, 3], nu[2, 1], nu[1, 2]
+    n20, n02, n11 = m["nu20"], m["nu02"], m["nu11"]
+    n30, n03, n21, n12 = m["nu30"], m["nu03"], m["nu21"], m["nu12"]
     h1 = n20 + n02
     h2 = (n20 - n02) ** 2 + 4 * n11**2
     h3 = (n30 - 3 * n12) ** 2 + (3 * n21 - n03) ** 2
@@ -153,10 +149,12 @@ def hu_from_row_moments(rows: np.ndarray) -> np.ndarray:
 
 
 def hu_moments_data(image: np.ndarray, *, device="cuda") -> Dict[str, np.ndarray]:
-    """Columns ``hu_1`` .. ``hu_7`` of one frame, one row each."""
+    """Columns ``hu_1`` .. ``hu_7`` of one frame, one row each: the Otsu
+    mask (0/255) on ``device``, read back, then the reference's host route
+    (``moments_np`` and ``hu_moments`` in float64)."""
 
-    rows = mask_row_moments(_frames(image).to(device))[0].cpu().numpy()
-    hu = hu_from_row_moments(rows)
+    mask = binary(_frames(image).to(device))[0].cpu().numpy()
+    hu = hu_moments(moments_np(mask))
     return {f"hu_{i + 1}": hu[i : i + 1] for i in range(7)}
 
 
@@ -304,14 +302,17 @@ def gabor_data(
     device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Columns ``mean`` and ``std`` of ``gabor_np``'s output, one row: the
-    filter in numpy's order, then the stretch of its levels on the host;
-    the mean is the exact level sum over the pixel count, the std comes
-    from the level counts."""
+    filter in numpy's order on ``device``, then the stretch of its levels on
+    the host; the mean is the exact level sum over the pixel count, the std
+    ``np.std`` of the stretched frame read back (the array the reference
+    takes it of)."""
 
     taps = torch.from_numpy(gabor_kernel(int(ksize), sigma, theta, lambd, gamma, psi)).to(device)
     filtered = filter2d_u8(_gray_frames(image, device), taps, xla_order=False)
-    hist = histogram256_batch(filtered)[0].cpu().numpy()
-    mean, std = TX.level_mean_std(hist, TX.gabor_data_levels(hist))
+    hist = histogram256_batch(filtered)[0].cpu().numpy().astype(np.int64)
+    levels = TX.gabor_data_levels(hist)
+    mean = int((hist * levels.astype(np.int64)).sum()) / int(hist.sum())
+    std = float(np.std(levels[filtered[0].cpu().numpy()]))
     return {"mean": np.array([mean]), "std": np.array([std])}
 
 
@@ -348,11 +349,14 @@ def hog_data(
     image: np.ndarray, orientations: int = 9, pixels_per_cell=(8, 8), cells_per_block=(3, 3), *, device="cuda"
 ) -> Dict[int, np.ndarray]:
     """One row of the L2-Hys block features, a column each (named ``0``,
-    ``1``, ... as the reference's DataFrame names them), from the chain's
-    float32 cell histograms, normalised in float64 on the host."""
+    ``1``, ... as the reference's DataFrame names them): the gray plane
+    (exact integers) from ``device``, then ``hog_features_np``'s float64
+    steps on the host."""
 
-    hist = HG.hog_cells(_gray_frames(image, device), int(orientations), _cell_side(pixels_per_cell))
-    features = HG.hog_block_features(hist[0].cpu().numpy(), tuple(int(v) for v in cells_per_block))
+    gray = _gray_frames(image, device)[0].cpu().numpy()
+    features, _ = HG.hog_features_np(
+        gray, int(orientations), tuple(int(v) for v in pixels_per_cell), tuple(int(v) for v in cells_per_block)
+    )
     return dict(enumerate(features.reshape(-1, 1)))
 
 
@@ -397,8 +401,8 @@ __all__ = [
     "lbp_data",
     "lbp_device",
     "histogram_stats",
-    "hu_from_row_moments",
+    "hu_moments",
     "hu_moments_data",
-    "mask_row_moments",
+    "moments_np",
     "region_properties_data",
 ]

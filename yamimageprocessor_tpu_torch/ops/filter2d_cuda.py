@@ -8,6 +8,16 @@ XLA's contracted order (``filter2d_j`` in the JAX package's chain) or in
 numpy's (``filter2d_np`` on its data path).  A CUDA tensor launches the
 kernel (``filter2d_u8.launches`` counts the launches) or raises; a CPU
 tensor runs :func:`.filters.filter2d_fma` or :func:`.filters.filter2d_plain`.
+
+The kernel stages a block's 128-column tile once and slides a register
+window of 8 outputs along each staged row; the launcher in
+``csrc/filter2d.cu`` alone sizes the block and refuses a kernel whose tile
+does not fit a block's shared memory (``tests/test_torch_texture_schedule.py``
+models its schedule in numpy from the constants of that source).
+
+The ksize-21 instance takes its taps from the constant bank, which the
+library's module holds once: launch it on one CUDA stream at a time (two
+ksize-21 launches on two streams at once would share the taps).
 """
 from __future__ import annotations
 
@@ -31,7 +41,9 @@ def filter2d_u8_plain(frames: torch.Tensor, kernel: torch.Tensor, *, xla_order: 
 def filter2d_u8(frames: torch.Tensor, kernel: torch.Tensor, *, xla_order: bool) -> torch.Tensor:
     """``(N, H, W)`` frames (uint8, uint16 or float32 on the card)
     correlated with a float32 ``(kh, kw)`` kernel of odd sides -> uint8
-    ``(N, H, W)``."""
+    ``(N, H, W)``.  On the card one stream at a time (the module docstring);
+    a kernel whose tile does not fit a block's shared memory (square sides
+    above 131) is refused by the launcher, which raises ``RuntimeError``."""
 
     if not _build.on_card("filter2d_u8", frames):
         return filter2d_u8_plain(frames, kernel, xla_order=xla_order)
@@ -51,10 +63,10 @@ def filter2d_u8(frames: torch.Tensor, kernel: torch.Tensor, *, xla_order: bool) 
             f"got {tuple(kernel.shape)} {kernel.dtype} on {kernel.device}"
         )
     n, h, w = frames.shape
+    kh, kw = kernel.shape
     out = torch.empty(frames.shape, dtype=torch.uint8, device=frames.device)
     if frames.numel() == 0:
         return out
-    kh, kw = kernel.shape
     for start, stop in slices(n, _MAX_GRID_Z):
         _build.launch(
             "yam_filter2d_u8", frames.device, frames[start].data_ptr(), out[start].data_ptr(), kernel.data_ptr(),

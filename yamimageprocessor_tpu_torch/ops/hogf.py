@@ -19,14 +19,16 @@ backend, bit for bit:
 
 On the card the kernel of ``csrc/hog.cu`` computes it (uint8, uint16 or
 float32 frames; any other type raises); a CPU tensor runs
-:func:`hog_cells_plain`.  Block normalisation
-(float64, for the data path), the stamp visualisation and the display are
-plain torch on cell arrays; the fractal dimension's box counts are exact
+:func:`hog_cells_plain`.  The stamp visualisation (in the order of XLA's
+dot, :func:`render_lanes`) and the display are plain torch on cell arrays;
+the data path's features are ``hog_features_np``'s float64 steps on the
+host (:func:`hog_features_np`); the fractal dimension's box counts are exact
 integer sums of the Otsu mask and its fit is the reference's
 ``np.polyfit``.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -366,7 +368,7 @@ hog_cells.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the visualisation (the chain's output) and the block features (the table)
+# the visualisation (the chain's output) and the features (the table)
 
 
 def stamp_masks(pixels_per_cell: Tuple[int, int], orientations: int) -> np.ndarray:
@@ -390,19 +392,103 @@ def stamp_masks(pixels_per_cell: Tuple[int, int], orientations: int) -> np.ndarr
     return stamps
 
 
+#: YNNPACK's float32 dot kernels that XLA's CPU runtime picks from for the
+#: render's dot on a host with AVX-512 where the stamps have 64 or more
+#: pixels, as ``(tile_m, tile_n, tile_k, cost a tile)`` in the order the
+#: library weighs them (``ynn::get_dot_kernel``, read in the disassembly of
+#: jaxlib 0.9.0; the other kernels it weighs are never the cheapest there)
+_DOT_KERNELS = (
+    (5, 64, 1, 78.0),
+    (5, 32, 1, 56.0),
+    (5, 16, 1, 45.0),
+    (5, 32, 2, 78.0),
+    (4, 16, 2, 51.0),
+    (8, 8, 2, 60.0),
+    (5, 16, 4, 78.0),
+    (6, 8, 4, 61.0),
+    (8, 4, 4, 60.0),
+    (12, 4, 4, 80.0),
+)
+
+
+def render_lanes(cells: int, bins: int, ppc: int) -> Tuple[int, bool]:
+    """``(L, halves)``: the accumulators ``L`` (1, 2, 4 or 8) in which XLA's
+    CPU code sums a render pixel's bins, and how it adds them.
+    ``hog_visualize_j``'s einsum is one dot of the ``(ppc^2, bins)`` stamps
+    by the ``(bins, cells)`` weights, ``cells`` counting every frame of the
+    batch.  Accumulator ``j`` adds the bins ``j, j + L, ...`` below ``bins -
+    bins % L`` in order; the accumulators are added pairwise (``((a0 + a1) +
+    (a2 + a3))``) or, where ``halves``, as halves (``((a0 + a4) + (a2 +
+    a6)) + ((a1 + a5) + (a3 + a7))``); then the last ``bins % L`` bins' own
+    sum in order is added (:func:`render_sum`).
+
+    - one cell: XLA's own matrix-vector loop, 8 lanes, added pairwise on
+      stamps of 16 pixels or more, as halves below (found at 9 bins on 8 x 8
+      cells and 32 bins on 2 x 2 cells; at other bin counts its order
+      differs, a documented deviation, ROADMAP F9);
+    - stamps of 64 pixels or more: the YNNPACK kernel of least cost
+      ``ceil(m / tile_m) * ceil(cells / tile_n) * ceil(bins / tile_k) *
+      cost`` (:data:`_DOT_KERNELS`), whose ``tile_k`` is ``L``;
+    - smaller stamps: 4 lanes up to 16 cells (8 where ``bins % 4 == 1`` or
+      ``bins == 6``, 4 at 5 bins), then in order.
+
+    These are the choices YNNPACK makes on a host with AVX-512, which it
+    detects at run time (XLA's ``--xla_cpu_max_isa`` does not reach them):
+    on another host the reference's own render takes other orders.  Held
+    against the JAX package by ``scripts/hog_reference_orders.py render``,
+    ``tests/test_torch_hog.py`` and ``tests/test_torch_f9_render.py`` (F9's
+    remainder: 7 shapes a last bit apart, counted), which skip on a host
+    without AVX-512."""
+
+    m = ppc * ppc
+    if cells == 1:
+        return 8, m < 16
+    if m >= 64:
+        best, lanes = math.inf, 1
+        for tm, tn, tk, cost in _DOT_KERNELS:
+            total = -(-m // tm) * -(-cells // tn) * -(-bins // tk) * cost
+            if total < best:
+                best, lanes = total, tk
+        return lanes, False
+    most = 4 if bins == 5 else 8 if bins % 4 == 1 or bins == 6 else 16
+    return (4 if cells <= most else 1), False
+
+
+def render_sum(term, count: int, lanes: int, halves: bool):
+    """The sum of ``term(0) .. term(count - 1)`` (``count >= 1``) in the
+    order of :func:`render_lanes` with ``lanes`` accumulators."""
+
+    main = count - count % lanes
+    accs = []
+    for j in range(lanes if main else 0):
+        acc = term(j)
+        for k in range(j + lanes, main, lanes):
+            acc = acc + term(k)
+        accs.append(acc)
+    while len(accs) > 1:
+        h = len(accs) // 2
+        accs = [accs[i] + accs[i + h] for i in range(h)] if halves else [
+            accs[i] + accs[i + 1] for i in range(0, len(accs), 2)
+        ]
+    if main < count:
+        tail = term(main)
+        for k in range(main + 1, count):
+            tail = tail + term(k)
+        accs = [accs[0] + tail] if accs else [tail]
+    return accs[0]
+
+
 def hog_visualize(hist: torch.Tensor, shape: Tuple[int, int], ppc: int) -> torch.Tensor:
     """``(B, H, W)`` float32 line render of ``(B, ncr, ncc, bins)`` cell
     histograms (``hog_visualize_j``): each cell pixel the sum of the
-    clamped weights of the bins whose stamp covers it, in bin order (the
-    dot's order; stamps are 0 or 1, so every product is exact), zero
-    outside the cells."""
+    clamped weights times the bins' stamps (0 or 1, so every product is
+    exact) in the dot's order (:func:`render_lanes`), zero outside the
+    cells."""
 
     n, ncr, ncc, nb = hist.shape
     stamps = torch.from_numpy(stamp_masks((ppc, ppc), nb)).to(hist.device)
     weights = torch.clamp_min(hist, 0.0)
-    cells = torch.zeros((n, ncr, ncc, ppc, ppc), dtype=torch.float32, device=hist.device)
-    for b in range(nb):
-        cells = cells + weights[..., b, None, None] * stamps[b]
+    cells = render_sum(lambda b: weights[..., b, None, None] * stamps[b], nb, *render_lanes(n * ncr * ncc, nb, ppc))
     out = cells.permute(0, 1, 3, 2, 4).reshape(n, ncr * ppc, ncc * ppc)
     return torch.nn.functional.pad(out, (0, shape[1] - ncc * ppc, 0, shape[0] - ncr * ppc))
 
@@ -418,32 +504,63 @@ def hog_display(viz: torch.Tensor) -> torch.Tensor:
     return convert(((viz - lo) * 255.0) / den, torch.uint8)
 
 
-def hog_block_features(hist: np.ndarray, cells_per_block: Tuple[int, int]) -> np.ndarray:
-    """``hog_features_np``'s L2-Hys block features (float64, flattened as
-    ``(blocks_row, blocks_col, cpb, cpb, bins)``) of one frame's ``(ncr,
-    ncc, bins)`` cell histograms.  Each block's sum of squares is added
-    term by term in the block's C order, elementwise over all blocks: the
-    same bits on every host and for every buffer (numpy's reductions over
-    a strided view round by the data's alignment)."""
+def gradients_np(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Zero-border float64 central differences of one frame
+    (``_gradients_np``, host numpy)."""
 
-    hist = np.asarray(hist, dtype=np.float64)
+    g_row = np.zeros_like(img, dtype=np.float64)
+    g_col = np.zeros_like(img, dtype=np.float64)
+    g_row[1:-1, :] = img[2:, :] - img[:-2, :]
+    g_col[:, 1:-1] = img[:, 2:] - img[:, :-2]
+    return g_row, g_col
+
+
+def hog_features_np(
+    gray: np.ndarray,
+    orientations: int = 9,
+    pixels_per_cell: Tuple[int, int] = (8, 8),
+    cells_per_block: Tuple[int, int] = (3, 3),
+):
+    """``(features, cell histograms)`` of one gray frame with L2-Hys block
+    normalisation: ``hog_features_np`` step for step in float64 on the host
+    (the data path's table; ``hypot`` and ``arctan2`` are the host libm's)."""
+
+    img = gray.astype(np.float64)
+    g_row, g_col = gradients_np(img)
+    magnitude = np.hypot(g_row, g_col)
+    orientation = np.rad2deg(np.arctan2(g_row, g_col)) % 180.0
+
+    c_row, c_col = pixels_per_cell
+    n_cells_row = img.shape[0] // c_row
+    n_cells_col = img.shape[1] // c_col
+    cropped_mag = magnitude[: n_cells_row * c_row, : n_cells_col * c_col]
+    cropped_ori = orientation[: n_cells_row * c_row, : n_cells_col * c_col]
+
+    bin_width = 180.0 / orientations
+    hist = np.zeros((n_cells_row, n_cells_col, orientations), dtype=np.float64)
+    for b in range(orientations):
+        lo = b * bin_width
+        hi = (b + 1) * bin_width
+        sel = (cropped_ori >= lo) & (cropped_ori < hi)
+        contrib = np.where(sel, cropped_mag, 0.0)
+        hist[:, :, b] = (contrib.reshape(n_cells_row, c_row, n_cells_col, c_col).sum(axis=(1, 3))) / (c_row * c_col)
+
     b_row, b_col = cells_per_block
-    n_blocks_row = hist.shape[0] - b_row + 1
-    n_blocks_col = hist.shape[1] - b_col + 1
+    n_blocks_row = n_cells_row - b_row + 1
+    n_blocks_col = n_cells_col - b_col + 1
     if n_blocks_row <= 0 or n_blocks_col <= 0:
-        return np.zeros(0)
-    win = np.lib.stride_tricks.sliding_window_view(hist, (b_row, b_col), axis=(0, 1))
-    blocks = np.ascontiguousarray(win.transpose(0, 1, 3, 4, 2))  # (nbr, nbc, b_row, b_col, bins)
-    terms = blocks.reshape(n_blocks_row, n_blocks_col, -1)
-
-    def norms(t: np.ndarray) -> np.ndarray:
-        acc = np.zeros(t.shape[:2])
-        for k in range(t.shape[2]):
-            acc = acc + t[:, :, k] * t[:, :, k]
-        return np.sqrt(acc + 1e-5**2)[:, :, None]
-
-    terms = np.minimum(terms / norms(terms), 0.2)
-    return (terms / norms(terms)).ravel()
+        return np.zeros(0), hist
+    blocks = np.zeros((n_blocks_row, n_blocks_col, b_row, b_col, orientations), dtype=np.float64)
+    for r in range(n_blocks_row):
+        for c in range(n_blocks_col):
+            block = hist[r : r + b_row, c : c + b_col, :]
+            eps = 1e-5
+            norm = np.sqrt((block**2).sum() + eps**2)
+            block = block / norm
+            block = np.minimum(block, 0.2)
+            norm = np.sqrt((block**2).sum() + eps**2)
+            blocks[r, c] = block / norm
+    return blocks.ravel(), hist
 
 
 # ---------------------------------------------------------------------------
@@ -490,11 +607,14 @@ __all__ = [
     "cell_reciprocal",
     "fractal_dimension",
     "gradients",
-    "hog_block_features",
+    "gradients_np",
     "hog_cells",
     "hog_cells_plain",
     "hog_display",
+    "hog_features_np",
     "hog_visualize",
+    "render_lanes",
+    "render_sum",
     "magnitude_and_bin",
     "stamp_masks",
     "vector_plan",

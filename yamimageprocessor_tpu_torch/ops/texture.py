@@ -26,7 +26,6 @@ frame over the 256 levels (:func:`lbp_display_tables`,
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -42,6 +41,12 @@ LBP_MAX_P = 32
 LEVELS = 256
 #: frames a launch takes (a grid dimension)
 _MAX_GRID = 65535
+#: the LBP kernel's block (constants at the top of ``csrc/texture.cu``): its
+#: pixels, 128 columns x 16 rows; 8 warps, a warp a row at a time, a lane 4
+#: pixels 32 columns apart
+LBP_COLS = 128
+LBP_ROWS = 16
+LBP_THREADS = 256
 
 
 # ---------------------------------------------------------------------------
@@ -145,16 +150,38 @@ def lbp_codes_f64_plain(gray: torch.Tensor, p: int, r: float) -> torch.Tensor:
     return _codes_from_bits(torch.stack(bits), p)
 
 
+#: relation codes of a sample's corners to the sample before's (``csrc/texture.cu``):
+#: its top-left corner's step from the one before -> the code
+_RELATIONS = {(0, 0): 1, (0, 1): 2, (0, -1): 3, (1, 0): 4, (-1, 0): 5}
+
+
+def lbp_relations(corners: np.ndarray) -> np.ndarray:
+    """``(p,)`` int32: how each sample's 2 x 2 corners lie to the sample
+    before's (``corners`` from :func:`lbp_chain_params`): 1 the same four,
+    2 / 3 one column right / left (two shared), 4 / 5 one row down / up (two
+    shared), 0 none shared (the first sample, and diagonal or farther
+    steps).  The kernel forms a shared corner's difference to the centre
+    once."""
+
+    rel = np.zeros(len(corners), np.int32)
+    for s in range(1, len(corners)):
+        dy, dx = (int(v) for v in corners[s] - corners[s - 1])
+        rel[s] = _RELATIONS.get((dy, dx), 0)
+    return rel
+
+
 def lbp_codes(gray: torch.Tensor, p: int, r: float, *, golden: bool = False) -> torch.Tensor:
     """Uniform LBP codes ``0..p+1`` of ``(B, H, W)`` frames as uint8:
     ``golden`` False is the chain's float32 arithmetic, True the data
     path's float64 one.
 
-    On the card (uint8, uint16 or float32 frames, ``p <= 32``) the kernel (for ``lbp_j``,
-    ``yamimageprocessor_tpu/ops/texture.py:70``, and ``lbp_np``, ``:40``;
-    no pallas_call): a thread a pixel, the samples' corners and weights (or
-    offsets) in shared memory, the frame read through the cache with edge
-    clamping, the sample bits in one word, ones and transitions by
+    On the card (uint8, uint16 or float32 frames, ``p <= 32``) the kernel
+    (for ``lbp_j``, ``yamimageprocessor_tpu/ops/texture.py:70``, and
+    ``lbp_np``, ``:40``; no pallas_call): a block stages a 128 x 16 tile and
+    its edge-clamped halo in shared memory once, a thread computes 4 pixels
+    of a row, the samples' corners, weights, relations and offsets travel as
+    a kernel parameter (the constant bank), a shared corner's difference is
+    formed once, the sample bits gather in one word, ones and transitions by
     popcount."""
 
     if not _build.on_card("lbp_codes", gray):
@@ -170,17 +197,15 @@ def lbp_codes(gray: torch.Tensor, p: int, r: float, *, golden: bool = False) -> 
     out = torch.empty(gray.shape, dtype=torch.uint8, device=gray.device)
     if gray.numel() == 0:
         return out
-    if golden:
-        params = torch.from_numpy(np.ascontiguousarray(lbp_offsets(p, float(r)), dtype=np.float64))
-    else:
-        # (p, 6) words: the corner's int32 row and column offsets, then its four float32 weights
-        corners, weights = lbp_chain_params(p, float(r))
-        params = torch.from_numpy(np.concatenate([corners.view(np.float32), weights], axis=1))
-    params = params.to(gray.device)
+    # host arrays: the launcher copies them into the kernel's parameter
+    corners, weights = lbp_chain_params(p, float(r))
+    relations = lbp_relations(corners)
+    offsets = np.ascontiguousarray(lbp_offsets(p, float(r)), dtype=np.float64)
     for start, stop in slices(n, _MAX_GRID):
         _build.launch(
-            "yam_lbp_codes", gray.device, gray[start].data_ptr(), out[start].data_ptr(), params.data_ptr(),
-            stop - start, h, w, p, lbp_pad(float(r)), int(golden), kind,
+            "yam_lbp_codes", gray.device, gray[start].data_ptr(), out[start].data_ptr(), corners.ctypes.data,
+            weights.ctypes.data, relations.ctypes.data, offsets.ctypes.data, stop - start, h, w, p,
+            lbp_pad(float(r)), int(golden), kind,
         )
     lbp_codes.launches += 1
     return out
@@ -342,22 +367,11 @@ def gabor_data_levels(hist: np.ndarray) -> np.ndarray:
     return np.clip(np.rint((levels - lo) * (255.0 / span)), 0, 255).astype(np.uint8)
 
 
-def level_mean_std(hist: np.ndarray, levels: np.ndarray) -> Tuple[float, float]:
-    """``(mean, std)`` of a frame whose pixels take value ``levels[v]``
-    with counts ``hist[v]``: the mean from the exact integer sum and one
-    division (``np.mean``'s value), the population std from the level
-    counts in float64."""
-
-    counts = np.asarray(hist, dtype=np.int64)
-    values = np.asarray(levels, dtype=np.int64)
-    n = int(counts.sum())
-    mean = int((counts * values).sum()) / n
-    var = float((counts * (values.astype(np.float64) - mean) ** 2).sum()) / n
-    return mean, math.sqrt(var)
-
-
 __all__ = [
+    "LBP_COLS",
     "LBP_MAX_P",
+    "LBP_ROWS",
+    "LBP_THREADS",
     "LEVELS",
     "gabor_data_levels",
     "gabor_display_tables",
@@ -373,5 +387,5 @@ __all__ = [
     "lbp_display_tables",
     "lbp_offsets",
     "lbp_pad",
-    "level_mean_std",
+    "lbp_relations",
 ]

@@ -116,7 +116,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
    distances 1 and 64 and angles 0 to pi on 8 scenes and a flat frame,
    LBP at (8, 1), (16, 2), (24, 8) in both arithmetics, the dense filter
    at ksizes 3 and 21 and at 101 on a 512^2 frame in both orders, HOG at
-   (9, 8) and (32, 2) and on a 2048^2 frame), and the filter and LBP on
+   (9, 8) and (32, 2) and on a 2048^2 frame, at (32, 2) on a crop whose
+   cells do not fill the tiles evenly; GLCM also on a crop whose rows do
+   not fill its units evenly, a 3-scene batch at negative offsets and a
+   flat 2048^2 frame, one key past any 16-bit half), and the filter and LBP on
    edge frames (one pixel, one row, one column, widths that are no
    multiple of the filter's strip or block, frames smaller than the kernel
    or than R) of the three frame types, the filter also at ksizes 111 and
@@ -156,8 +159,8 @@ flagship and segmentation chains: run it on two checkouts in one call to
 compare them.  ``--extraction-times-of DIR`` likewise times the hull and
 annotation kernels of checkout DIR on the seven extraction label sets,
 with digests of their outputs and the blobs frame's peak memory.
-``--texture-times-of DIR [DIR ...]`` times the dense filter and the LBP
-codes of each checkout DIR and of this one on the texture phase's inputs,
+``--texture-times-of DIR [DIR ...]`` times the dense filter, the LBP
+codes, HOG cells and GLCM counts of each checkout DIR and of this one on the texture phase's inputs,
 in turns (the DIRs, this, this, the DIRs backwards, each in a process of
 its own), and fails unless their outputs' digests agree; it also times the
 HOG, Gabor and Hu-moments tables (host ms a frame, not compared: an
@@ -253,6 +256,11 @@ LBP_CASES = ((8, 1.0), (16, 2.0), (24, 8.0))
 FILTER_KSIZES = (3, 21, 101)  # 101 on a FILTER_SMALL_SIDE^2 frame
 FILTER_SMALL_SIDE = 512
 HOG_CASES = ((9, 8), (32, 2))  # (orientations, cell side); (9, 8) also on a HOG_WIDE_SIDE^2 frame
+# crops whose cells do not fill the kernel's tiles evenly: 32 bins 2x2 (tiles of 64 x 16 cells), the
+# GLCM's units of window rows (8 rows a unit on one frame)
+HOG_RAGGED_CROP = (2, 1001, 1000)
+GLCM_RAGGED_CROP = (1, 1031, 997)
+GLCM_BATCH_OFFSETS = ((-3, -2), (-1, 2))  # on a batch of 3 scenes
 HOG_WIDE_SIDE = 2048
 # (cell side, orientations) of every other way XLA sums a cell (ops/hogf.py:cell_order), each on a crop
 # 8 cells wide: 4 and 8 lanes with pairs, 8 lanes with a tail, windows summed in order and in pairs, the
@@ -880,8 +888,10 @@ def extraction_times_of(root: str) -> None:
 
 
 def texture_times_one(root: str) -> None:
-    """Time the dense filter and the LBP codes of the port in the checkout
-    ``root`` on the texture phase's 32 gray scenes (and 4 as float32), and
+    """Time the dense filter, the LBP codes, HOG cells (9 bins 8x8 on the 32
+    gray scenes and a 2048^2 frame, 32 bins 2x2) and GLCM counts (one scene
+    and a flat frame at (1, 0), distance 64, 8 scenes) of the port in the
+    checkout ``root`` on the texture phase's 32 gray scenes (and 4 as float32), and
     its HOG, Gabor and Hu-moments tables on :data:`TEXTURE_TIMED_TABLE_FRAMES`
     scenes (host clock), and print one JSON line: each kernel case's device
     ms and the SHA-256 of its output, each table's host ms a frame."""
@@ -890,6 +900,7 @@ def texture_times_one(root: str) -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     import yamimageprocessor_tpu_torch as port
+    from yamimageprocessor_tpu_torch.ops import hogf as HG
     from yamimageprocessor_tpu_torch.ops import texture as TX
     from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
     from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8
@@ -915,6 +926,17 @@ def texture_times_one(root: str) -> None:
             cases[f"lbp_codes P{p} R{r}{' golden' if golden else ''}"] = (
                 lambda p=p, r=r, golden=golden: TX.lbp_codes(gray, p, r, golden=golden))
     cases[f"lbp_codes P8 R1.0 float32 {TEXTURE_DTYPE_FRAMES} scenes"] = lambda: TX.lbp_codes(floats, 8, 1.0)
+    wide = bgr_to_gray(torch.from_numpy(extraction_frame(HOG_WIDE_SIDE))[None].to(dev)).contiguous()
+    flat = torch.full((1, EXTRACT_SIDE, EXTRACT_SIDE), 77, dtype=torch.uint8, device=dev)
+    cases.update({
+        "hog_cells 9 bins 8x8": lambda: HG.hog_cells(gray, 9, 8),
+        "hog_cells 32 bins 2x2": lambda: HG.hog_cells(gray, 32, 2),
+        f"hog_cells 9 bins 8x8 on {HOG_WIDE_SIDE}^2": lambda: HG.hog_cells(wide, 9, 8),
+        "glcm_counts one scene (1, 0)": lambda: TX.glcm_counts(gray[:1], 1, 0),
+        "glcm_counts flat (1, 0)": lambda: TX.glcm_counts(flat, 1, 0),
+        "glcm_counts distance 64": lambda: TX.glcm_counts(gray[:1], 64, 0),
+        "glcm_counts 8 scenes": lambda: TX.glcm_counts(gray[:8], 1, 0),
+    })
     times, digests = {}, {}
     for name, fn in cases.items():
         digests[name] = sha256(fn())
@@ -933,8 +955,8 @@ def texture_times_one(root: str) -> None:
 
 
 def texture_times_of(roots) -> None:
-    """Time the dense filter and the LBP codes, and three tables, of the
-    checkouts ``roots`` (older ones, unpacked with ``git archive``) and of
+    """Time the dense filter, the LBP codes, HOG cells and GLCM counts, and
+    three tables, of the checkouts ``roots`` (older ones, unpacked with ``git archive``) and of
     this one on the same inputs, in turns (the roots, this, this, the roots
     backwards; each a process of its own), check that each kernel case's
     output digests agree, and print the mean of each checkout's two runs."""
@@ -2510,6 +2532,16 @@ def phase_texture(dev) -> dict:
                 err["glcm_counts"] = max(err["glcm_counts"], exact(
                     f"glcm_counts {name} d{d} ({dx},{dy})", TX.glcm_counts(batch, dx, dy),
                     TX.glcm_counts_plain(batch, dx, dy)))
+    wide = bgr_to_gray(torch.from_numpy(extraction_frame(HOG_WIDE_SIDE))[None].to(dev)).contiguous()
+    flat_wide = torch.full((1, HOG_WIDE_SIDE, HOG_WIDE_SIDE), 77, dtype=torch.uint8, device=dev)
+    ragged = wide[:, : GLCM_RAGGED_CROP[1], : GLCM_RAGGED_CROP[2]].contiguous()
+    glcm_more = [(f"ragged {tuple(ragged.shape)}", ragged, 1, 0),
+                 (f"flat {HOG_WIDE_SIDE}^2 (one key, {flat_wide.numel() - HOG_WIDE_SIDE} counts)", flat_wide, 1, 0)]
+    glcm_more += [(f"3 scenes ({dx},{dy})", gray[:3], dx, dy) for dx, dy in GLCM_BATCH_OFFSETS]
+    for name, batch, dx, dy in glcm_more:
+        err["glcm_counts"] = max(err["glcm_counts"], exact(
+            f"glcm_counts {name}", TX.glcm_counts(batch, dx, dy), TX.glcm_counts_plain(batch, dx, dy)))
+    del flat_wide, ragged
     for p, r in LBP_CASES:
         for golden in (False, True):
             err["lbp_codes"] = max(err["lbp_codes"], exact(
@@ -2523,8 +2555,9 @@ def phase_texture(dev) -> dict:
             err["filter2d"] = max(err["filter2d"], exact(
                 f"filter2d ksize {k} xla_order={xla_order}", filter2d_u8(batch, taps[k], xla_order=xla_order),
                 filter2d_u8_plain(batch, taps[k], xla_order=xla_order)))
-    wide = bgr_to_gray(torch.from_numpy(extraction_frame(HOG_WIDE_SIDE))[None].to(dev)).contiguous()
-    for (nb, side), batch in ((HOG_CASES[0], gray), (HOG_CASES[1], gray), (HOG_CASES[0], wide)):
+    hog_ragged = gray[: HOG_RAGGED_CROP[0], : HOG_RAGGED_CROP[1], : HOG_RAGGED_CROP[2]].contiguous()
+    for (nb, side), batch in ((HOG_CASES[0], gray), (HOG_CASES[1], gray), (HOG_CASES[0], wide),
+                              (HOG_CASES[1], hog_ragged)):
         err["hog_cells"] = max(err["hog_cells"], exact(
             f"hog_cells {nb} bins, {side}x{side} on {tuple(batch.shape)}", HG.hog_cells(batch, nb, side),
             HG.hog_cells_plain(batch, nb, side)))
@@ -2558,7 +2591,7 @@ def phase_texture(dev) -> dict:
                 HG.hog_cells_plain(batch, nb, side)))
     texture_edge_checks(dev, err)
     print(f"kernels: glcm_counts bit-exact at distances {GLCM_DISTANCES} and angles 0..pi on 8 scenes and a flat "
-          f"frame; lbp_codes at {LBP_CASES} in both arithmetics on the 32 scenes; filter2d at ksizes "
+          f"frame, and on {[name for name, *_ in glcm_more]}; hog_cells at {HOG_CASES[1]} on {HOG_RAGGED_CROP}; lbp_codes at {LBP_CASES} in both arithmetics on the 32 scenes; filter2d at ksizes "
           f"{FILTER_KSIZES[:-1]} on the 32 scenes and {FILTER_KSIZES[-1]} on {FILTER_SMALL_SIDE}^2, both orders; "
           f"hog_cells at {HOG_CASES} on the 32 scenes and {HOG_CASES[0]} on {HOG_WIDE_SIDE}^2, and at (side, bins) "
           f"{HOG_ORDER_CASES} on 8-cell-wide crops; lbp_codes at {LBP_CASES[:2]}, filter2d at ksizes "
@@ -2873,6 +2906,15 @@ def main() -> None:
             entry["by_input"] = ext["scan_times"]
         if name in TEXTURE_KERNELS:
             entry["by_input"] = tex["by_input"][name]
+        if name == "glcm_counts":
+            entry["design"] = ("one cooperative launch: the output zeroed in it, units of at most 65535 pairs "
+                               "(whole window rows) counted as 16-bit halves in a 128 KiB block-private table, "
+                               "flushed after a grid barrier by one global atomic a non-zero counter")
+            entry["empty_launch_ms"] = kern["empty_launch_ms"]
+        if name == "hog_cells":
+            entry["design"] = ("a tile of whole cells staged in shared memory as float32 with a 1-pixel halo; "
+                               "each pixel's magnitude and bin formed once; a thread a (cell, bin) adds its bin's "
+                               "magnitudes in cell_order's order; a warp's outputs consecutive floats")
         if name == "flood":
             entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]

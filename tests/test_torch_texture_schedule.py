@@ -1,6 +1,6 @@
-"""Numpy models of the dense filter's and the LBP codes' schedules
-(``csrc/filter2d.cu``, ``csrc/texture.cu``), held against the plain
-versions on the CPU.
+"""Numpy models of the dense filter's, the LBP codes' and the GLCM counts'
+schedules (``csrc/filter2d.cu``, ``csrc/texture.cu``), held against the
+plain versions on the CPU.
 
 The filter: a block of 8 warps stages 128 columns and ``16 * rows`` rows of
 the frame with the reflect-101 halo (and, in the generic instance, the
@@ -27,6 +27,19 @@ ties: the default geometry's (8, 1) instance forms each of its 13
 distinct corners once (its tables, read from the source, are the chain's
 defaults), any other takes the corners a sample shares with the one
 before from it (:func:`.texture.lbp_relations`).
+
+GLCM: one cooperative launch counts units of whole window rows (a row's
+segments where a row has more than ``GLCM_FILL`` pairs), about one a
+resident block, into block-private tables of 16-bit halves, then flushes
+them.  The tests read ``GLCM_THREADS``, ``GLCM_WORDS`` and ``GLCM_FILL``
+from the source and check that the units and each unit's division-free
+walk count every pair of the window once, for all eight offset signs and
+at 1 x 2, 2 x 1, an offset of the width minus 1 and a row longer than
+``GLCM_FILL``, that no unit exceeds 65,535 pairs (so no half can carry)
+and every block has a unit (so each reaches the grid barrier), and that
+the packed halves, flushed, give ``glcm_counts_plain`` on a scene and on
+flat frames whose unit holds exactly 65,535 pairs of one key in either
+half.
 """
 from __future__ import annotations
 
@@ -418,3 +431,137 @@ def test_lbp_main_geometry_tables_are_the_chain_defaults():
             acc = fma32(e[3], wt[3].expand_as(e[3]), acc)
             bits.append(acc >= 0)
         assert torch.equal(TX._codes_from_bits(torch.stack(bits), 8), TX.lbp_codes_f32_plain(frames, 8, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# GLCM counts: units of whole window rows, block-private 16-bit halves
+
+
+def _cu_int(source: str, name: str) -> int:
+    return int(re.search(rf"^constexpr int {name} = (\d+);", source, re.M).group(1))
+
+
+class G:
+    """``csrc/texture.cu``'s GLCM sizes, read from the source."""
+
+    _src = (CSRC / "texture.cu").read_text()
+    THREADS, WORDS, FILL = _cu_int(_src, "GLCM_THREADS"), _cu_int(_src, "GLCM_WORDS"), _cu_int(_src, "GLCM_FILL")
+
+
+def glcm_plan(n: int, rows: int, cols: int, resident: int) -> dict:
+    """``glcm_plan`` and the launcher's grid: units of ``unit_rows`` rows of
+    ``seg_cols``-column segments, about ``resident`` of them for the batch,
+    at most ``GLCM_FILL`` pairs each."""
+
+    seg_cols = min(cols, G.FILL)
+    segs = -(-cols // seg_cols)
+    cap_rows = G.FILL // seg_cols
+    per_frame = max(1, resident // n)
+    unit_rows = min(max(-(-rows // per_frame), 1), cap_rows)
+    units_per_frame = -(-rows // unit_rows) * segs
+    units = n * units_per_frame
+    return {"unit_rows": unit_rows, "seg_cols": seg_cols, "segs": segs, "units_per_frame": units_per_frame,
+            "units": units, "grid": min(resident, units)}
+
+
+def glcm_units(plan: dict, rows: int, cols: int):
+    """``(block, frame, first row, rows, first column, columns)`` of each
+    unit (rows and columns of the window), as the kernel's loop takes them."""
+
+    for u in range(plan["units"]):
+        f, rest = divmod(u, plan["units_per_frame"])
+        ra, ca = (rest // plan["segs"]) * plan["unit_rows"], (rest % plan["segs"]) * plan["seg_cols"]
+        yield u % plan["grid"], f, ra, min(plan["unit_rows"], rows - ra), ca, min(plan["seg_cols"], cols - ca)
+
+
+def unit_visits(nrows: int, ncols: int) -> np.ndarray:
+    """How many times ``glcm_count_unit``'s threads visit each pair of a
+    unit, stepping (i, j) by ``GLCM_THREADS`` without a division."""
+
+    t = np.arange(G.THREADS)
+    i, j = t // ncols, t % ncols
+    di, dj = G.THREADS // ncols, G.THREADS % ncols
+    visits = np.zeros((nrows, ncols), np.int64)
+    while (i < nrows).any():
+        live = i < nrows
+        np.add.at(visits, (i[live], j[live]), 1)
+        j = j + dj
+        i = i + di
+        wrap = j >= ncols
+        j = np.where(wrap, j - ncols, j)
+        i = np.where(wrap, i + 1, i)
+    return visits
+
+
+GLCM_OFFSETS = [(dx, dy) for dx in (-3, 0, 2) for dy in (-1, 0, 4) if (dx, dy) != (0, 0)]  # the eight sign pairs
+
+
+@pytest.mark.parametrize("resident", [1, 3, 132])
+@pytest.mark.parametrize(
+    "shape, offsets",
+    [((2, 37, 50), GLCM_OFFSETS), ((3, 300, 256), [(1, 0), (-1, 1)]), ((1, 1, 2), [(1, 0), (-1, 0)]),
+     ((1, 2, 1), [(0, 1), (0, -1)]), ((1, 3, 10), [(9, 0), (-9, 0), (9, 2)]), ((1, 2, 70000), [(1, 0), (-2, 1)])],
+    ids=["offsets", "batch", "1x2", "2x1", "width-1", "wide-row"],
+)
+def test_glcm_units_count_every_pair_once(shape, offsets, resident):
+    n, h, w = shape
+    walks = {}
+    for dx, dy in offsets:
+        rows, cols = h - abs(dy), w - abs(dx)
+        plan = glcm_plan(n, rows, cols, resident)
+        assert 1 <= plan["grid"] <= plan["units"]  # every block has a first unit: each reaches the barrier once
+        covered = np.zeros((n, rows, cols), np.int64)
+        for block, f, ra, nrows, ca, ncols in glcm_units(plan, rows, cols):
+            assert nrows * ncols <= G.FILL  # no 16-bit half can carry
+            if (nrows, ncols) not in walks:
+                walks[nrows, ncols] = unit_visits(nrows, ncols)
+                assert (walks[nrows, ncols] == 1).all()
+            covered[f, ra : ra + nrows, ca : ca + ncols] += 1
+        assert (covered == 1).all(), (shape, dx, dy, resident)
+    assert G.WORDS * 4 == 128 * 1024 and G.WORDS * 2 == 65536
+
+
+def glcm_model(frames: np.ndarray, dx: int, dy: int, resident: int) -> np.ndarray:
+    """The kernel's counts: each unit's pairs as 16-bit halves of uint32
+    words (a carry would corrupt the neighbour, as on the card), flushed
+    into the frame's zeroed table counter by counter."""
+
+    n, h, w = frames.shape
+    r0, c0 = max(0, -dy), max(0, -dx)
+    rows, cols = h - abs(dy), w - abs(dx)
+    out = np.zeros((n, 65536), np.int64)
+    plan = glcm_plan(n, rows, cols, resident)
+    for _, f, ra, nrows, ca, ncols in glcm_units(plan, rows, cols):
+        a = frames[f, r0 + ra : r0 + ra + nrows, c0 + ca : c0 + ca + ncols].astype(np.int64)
+        b = frames[f, r0 + ra + dy : r0 + ra + dy + nrows, c0 + ca + dx : c0 + ca + dx + ncols].astype(np.int64)
+        key = (a * 256 + b).ravel()
+        table = np.zeros(G.WORDS, np.uint32)
+        np.add.at(table, key >> 1, (np.uint32(1) << ((key & 1) << 4).astype(np.uint32)))
+        halves = np.bincount(key, minlength=65536)
+        assert halves.max() <= 0xFFFF
+        out[f, 0::2] += table & 0xFFFF
+        out[f, 1::2] += table >> 16
+    return out.reshape(n, 256, 256)
+
+
+@pytest.mark.parametrize("value", [76, 77], ids=["low-half", "high-half"])
+def test_glcm_halves_hold_a_full_unit_of_one_key(value):
+    # 257 rows of 255 pairs: exactly GLCM_FILL pairs of one key in one half
+    frames = np.full((1, 300, 256), value, np.uint8)
+    plan = glcm_plan(1, 300, 255, 1)
+    assert plan["unit_rows"] * 255 == G.FILL
+    got = glcm_model(frames, 1, 0, 1)
+    assert np.array_equal(got, TX.glcm_counts_plain(torch.from_numpy(frames), 1, 0).numpy())
+    assert got[0, value, value] == 300 * 255
+
+
+@pytest.mark.parametrize("resident", [1, 132])
+def test_glcm_model_is_the_plain_counts_on_a_scene(resident):
+    rng = np.random.default_rng(3)
+    ys, xs = np.mgrid[0:120, 0:150]
+    scene = np.sin(ys / 9.0) * 70 + np.cos(xs / 13.0) * 50 + 128 + rng.normal(0, 12, (2, 120, 150))
+    frames = np.clip(np.rint(scene), 0, 255).astype(np.uint8)
+    frames[1, 30:60] = 40  # a flat band
+    for dx, dy in [(1, 0), (1, -1), (0, 1), (-1, -1), (-1, 0), (64, 0), (-5, 7)]:
+        want = TX.glcm_counts_plain(torch.from_numpy(frames), dx, dy).numpy()
+        assert np.array_equal(glcm_model(frames, dx, dy, resident), want), (dx, dy)

@@ -4,14 +4,29 @@
 //
 // glcm_counts (for glcm_j's .at[idx].add(1), texture.py:143): the (n, 256,
 // 256) int32 counts of (I[y, x], I[y + dy, x + dx]) over the window where
-// both lie in the frame, any offset.  256 KiB of counters a frame are more
-// than one SM's shared memory, so the counts go straight to device memory,
-// where a frame's table stays in the 50 MB L2.  Bound on the card: bytes
-// (the frame read once, the table written once) unless many pixels share a
-// pair, when the atomics on one address serialise: lanes of a warp holding
-// the same pair are merged (__match_any_sync) and their leader adds the
-// count once, so a flat frame issues one atomic a warp, not 32.  The output
-// must be zero (the wrapper allocates it with torch.zeros).
+// both lie in the frame, any offset.  Bound on the card: bytes (the frame
+// read once, the table written once); what a call costs besides is fixed
+// (a launch, clearing the table) and the atomics of pairs that share a key.
+// Design: one cooperative launch of as many blocks as the card holds at
+// once (1024 threads and a 128 KiB table each, one a multiprocessor):
+//
+// 1. each block zeroes its share of the output (no torch.zeros: the wrapper
+//    allocates it with torch.empty) and its private table;
+// 2. it counts its first unit of pairs into the private table: 65536
+//    counters as 16-bit halves of 32-bit words, key = a * 256 + b adds 1 <<
+//    (16 * (key & 1)) to word key >> 1 with a shared-memory atomicAdd.  A
+//    unit is whole rows of the window (a row's segment where a row has more
+//    than GLCM_FILL pairs) of at most GLCM_FILL = 65535 pairs, so no half
+//    can carry into its neighbour, not even on a flat frame; the walk over
+//    a unit's rows and columns steps without a division;
+// 3. a grid barrier: every share of the output is zero;
+// 4. it reads the private table back, adds each non-zero counter to the
+//    frame's table with a red.global.add, and zeroes the words it read; then
+//    its next unit (u + gridDim.x), counted and flushed the same way.
+//
+// glcm_plan sizes the units so that one frame fills the grid (a 1024^2
+// frame: 128 units of 8 rows) and a batch takes at most GLCM_FILL pairs a
+// unit.  A refused launch returns its error, cleared; nothing falls back.
 //
 // lbp_codes (for lbp_j, texture.py:70, and lbp_np, :40): the uniform code
 // 0..P+1 of every pixel, as uint8, from frames of any of the three element
@@ -45,39 +60,110 @@
 // fractions per pixel (ry = (y + pad) + dr rounds differently from row to
 // row), so only its loads move to the tile.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int GLCM_THREADS = 256;
+constexpr int GLCM_THREADS = 1024;
+constexpr int GLCM_WORDS = 32768;  // a block's table: 65536 16-bit counters in 128 KiB
+constexpr int GLCM_FILL = 65535;   // pairs a unit counts before it flushes: no 16-bit half can carry
 constexpr int LBP_THREADS = 256, LBP_COLS = 128, LBP_ROWS = 16;
 constexpr int MAX_P = 32;
 
-__global__ void __launch_bounds__(GLCM_THREADS)
-glcm_counts_kernel(const uint8_t* __restrict__ src, int* __restrict__ out, int h, int w, int dx, int dy,
-                   int r0, int c0, int rows, int cols) {
-  const uint8_t* img = src + static_cast<long long>(blockIdx.y) * h * w;
-  int* table = out + static_cast<long long>(blockIdx.y) * 65536;
-  const long long total = static_cast<long long>(rows) * cols;
-  const int lane = threadIdx.x & 31;
-  const long long warp = (static_cast<long long>(blockIdx.x) * GLCM_THREADS + threadIdx.x) >> 5;
-  const long long warps = (static_cast<long long>(gridDim.x) * GLCM_THREADS) >> 5;
-  // warp-uniform trip count: every lane takes part in each match
-  for (long long base = warp * 32; base < total; base += warps * 32) {
-    const long long k = base + lane;
-    int key = -1;
-    if (k < total) {
-      const int r = static_cast<int>(k / cols) + r0, c = static_cast<int>(k % cols) + c0;
-      const int a = __ldg(img + static_cast<long long>(r) * w + c);
-      const int b = __ldg(img + static_cast<long long>(r + dy) * w + (c + dx));
-      key = a * 256 + b;
+// Count the pairs of one unit into the private table: the pixels at rows
+// ra .. ra + nrows - 1 and columns ca .. ca + ncols - 1 of frame img, each
+// with its partner (dy, dx) away.
+__device__ __forceinline__ void glcm_count_unit(const uint8_t* __restrict__ img, unsigned* table, int w, int dx,
+                                                int dy, int ra, int nrows, int ca, int ncols) {
+  const long long down = static_cast<long long>(dy) * w + dx;
+  int i = threadIdx.x / ncols, j = threadIdx.x % ncols;
+  const int di = GLCM_THREADS / ncols, dj = GLCM_THREADS % ncols;
+  while (i < nrows) {
+    const long long at = static_cast<long long>(ra + i) * w + ca + j;
+    const int key = __ldg(img + at) * 256 + __ldg(img + at + down);
+    atomicAdd(table + (key >> 1), 1u << ((key & 1) << 4));
+    j += dj;
+    i += di;
+    if (j >= ncols) {
+      j -= ncols;
+      ++i;
     }
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(table + key, __popc(peers));
   }
+}
+
+// Add the private table's non-zero counters to the frame's table and zero them.
+__device__ __forceinline__ void glcm_flush(uint4* table, int* __restrict__ counts) {
+  for (int k = threadIdx.x; k < GLCM_WORDS / 4; k += GLCM_THREADS) {
+    const uint4 v = table[k];
+    if ((v.x | v.y | v.z | v.w) == 0u) continue;
+    table[k] = make_uint4(0u, 0u, 0u, 0u);
+    const unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      int* at = counts + 8 * k + 2 * q;  // the counters of keys 2 (4k + q) and 2 (4k + q) + 1
+      if (words[q] & 0xffffu) atomicAdd(at, static_cast<int>(words[q] & 0xffffu));
+      if (words[q] >> 16) atomicAdd(at + 1, static_cast<int>(words[q] >> 16));
+    }
+  }
+}
+
+struct GlcmPlan {
+  int r0, c0, rows, cols;  // the window
+  int unit_rows, seg_cols, segs, units_per_frame;
+  long long units;
+};
+
+__global__ void __launch_bounds__(GLCM_THREADS, 1)
+glcm_counts_kernel(const uint8_t* __restrict__ src, int* __restrict__ out, int n, int h, int w, int dx, int dy,
+                   const GlcmPlan p) {
+  extern __shared__ uint4 glcm_table[];
+  unsigned* table = reinterpret_cast<unsigned*>(glcm_table);
+  const long long words4 = static_cast<long long>(n) * 65536 / 4;
+  int4* zero = reinterpret_cast<int4*>(out);
+  for (long long k = static_cast<long long>(blockIdx.x) * GLCM_THREADS + threadIdx.x; k < words4;
+       k += static_cast<long long>(gridDim.x) * GLCM_THREADS)
+    zero[k] = make_int4(0, 0, 0, 0);
+  for (int k = threadIdx.x; k < GLCM_WORDS / 4; k += GLCM_THREADS) glcm_table[k] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  // gridDim.x <= units: every block has a first unit, and every block reaches the barrier once
+  for (long long u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int f = static_cast<int>(u / p.units_per_frame), rest = static_cast<int>(u % p.units_per_frame);
+    const int ra = (rest / p.segs) * p.unit_rows, ca = (rest % p.segs) * p.seg_cols;
+    glcm_count_unit(src + static_cast<long long>(f) * h * w, table, w, dx, dy, p.r0 + ra, min(p.unit_rows, p.rows - ra),
+                    p.c0 + ca, min(p.seg_cols, p.cols - ca));
+    if (u == blockIdx.x)
+      cg::this_grid().sync();  // every block's share of the output is zero (and this block's counts are in)
+    else
+      __syncthreads();
+    glcm_flush(glcm_table, out + static_cast<long long>(f) * 65536);
+    __syncthreads();
+  }
+}
+
+// Units of at most GLCM_FILL pairs: a row's segments of seg_cols columns
+// (the whole row where it has at most GLCM_FILL pairs), unit_rows rows a
+// unit, so that n frames fill about `resident` units.
+GlcmPlan glcm_plan(int n, int r0, int c0, int rows, int cols, int resident) {
+  GlcmPlan p{};
+  p.r0 = r0;
+  p.c0 = c0;
+  p.rows = rows;
+  p.cols = cols;
+  p.seg_cols = cols < GLCM_FILL ? cols : GLCM_FILL;
+  p.segs = (cols + p.seg_cols - 1) / p.seg_cols;
+  const int cap_rows = GLCM_FILL / p.seg_cols;  // >= 1
+  const int per_frame = resident / n > 1 ? resident / n : 1;
+  const int want = (rows + per_frame - 1) / per_frame;
+  p.unit_rows = want < 1 ? 1 : (want > cap_rows ? cap_rows : want);
+  p.units_per_frame = (rows + p.unit_rows - 1) / p.unit_rows * p.segs;
+  p.units = static_cast<long long>(n) * p.units_per_frame;
+  return p;
 }
 
 __device__ __forceinline__ int clampi(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
@@ -297,18 +383,47 @@ cudaError_t lbp_arith(const void* src, void* dst, const LbpParams& prm, int n, i
 
 }  // namespace
 
-// src: (n, h, w) uint8; out: (n, 256, 256) int32, zero.  The window where
-// both pixels of a pair lie in the frame must not be empty.
+namespace {
+
+// How many blocks of the GLCM kernel the current device holds at once (the
+// cooperative launch's grid at most).
+cudaError_t glcm_resident_blocks(int* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(glcm_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         GLCM_WORDS * 4);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, glcm_counts_kernel, GLCM_THREADS, GLCM_WORDS * 4);
+  *blocks = per_sm * sms;
+  return err;
+}
+
+}  // namespace
+
+// src: (n, h, w) uint8; out: (n, 256, 256) int32, any contents (the kernel
+// zeroes it).  The window where both pixels of a pair lie in the frame must
+// not be empty.  One cooperative launch.
 extern "C" int yam_glcm_counts(const void* src, void* out, int n, int h, int w, int dx, int dy, void* stream) {
   const int r0 = dy < 0 ? -dy : 0, r1 = dy < 0 ? h : h - dy;
   const int c0 = dx < 0 ? -dx : 0, c1 = dx < 0 ? w : w - dx;
   if (n < 1 || n > 65535 || r1 <= r0 || c1 <= c0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(r1 - r0) * (c1 - c0);
-  long long blocks = (total + GLCM_THREADS * 4 - 1) / (GLCM_THREADS * 4);  // 4 pairs a thread
-  if (blocks > 4096) blocks = 4096;
-  const dim3 grid(static_cast<unsigned>(blocks), n);
-  glcm_counts_kernel<<<grid, GLCM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<int*>(out), h, w, dx, dy, r0, c0, r1 - r0, c1 - c0);
+  int resident = 0;
+  const cudaError_t err = glcm_resident_blocks(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  GlcmPlan plan = glcm_plan(n, r0, c0, r1 - r0, c1 - c0, resident);
+  const unsigned grid = static_cast<unsigned>(plan.units < resident ? plan.units : resident);
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  int* o = static_cast<int*>(out);
+  void* args[] = {&s, &o, &n, &h, &w, &dx, &dy, &plan};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(glcm_counts_kernel),
+                                                           dim3(grid), dim3(GLCM_THREADS), args, GLCM_WORDS * 4,
+                                                           static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves its error behind for the next launch's check: take it
+    return static_cast<int>(launched);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -330,12 +330,16 @@ def hog_cells(gray: torch.Tensor, orientations: int, ppc: int) -> torch.Tensor:
     """``(B, H // ppc, W // ppc, orientations)`` float32 cell histograms of
     ``(B, H, W)`` frames (``hog_features_j``'s ``hist``).
 
-    On the card (uint8, uint16 or float32 frames) the kernel (for ``hogf.py:89-110`` of
-    ``hog_features_j``; no pallas_call): a group of threads a cell, which
-    computes each pixel's gradients, magnitude and bin once from the frame
-    read through the cache, and sums the cell in :func:`cell_order`'s
-    order with a register a bin; the groups' lanes are combined by warp
-    shuffles as the vector lanes are."""
+    On the card (uint8, uint16 or float32 frames) the kernel (for
+    ``hogf.py:89-110`` of ``hog_features_j``; no pallas_call), bound by its
+    operations (a pixel's formulas: atan2f's two divisions and polynomial,
+    the hypot's division and root).  A block takes a tile of
+    whole cells: it stages the tile and a one-pixel halo in shared memory
+    as float32 (16-byte loads), forms each pixel's magnitude and bin once
+    (neighbouring threads neighbouring columns) into shared memory, then
+    sums with a thread per (cell, bin), which adds its bin's magnitudes in
+    :func:`cell_order`'s order (a pixel of another bin adds +0 there), so
+    that a warp's outputs are consecutive floats."""
 
     orientations, ppc = int(orientations), int(ppc)
     if not _build.on_card("hog_cells", gray):

@@ -274,22 +274,24 @@ def glcm_counts(gray: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
     lie in the frame.
 
     On the card the kernel (for ``glcm_j``'s scatter-add,
-    ``yamimageprocessor_tpu/ops/texture.py:143``; no pallas_call): 256 KiB
-    of counters a frame are more than an SM's shared memory, so a warp adds
-    into device memory (the table stays in L2): lanes holding the same pair
-    are merged by ``__match_any_sync`` and their leader adds the count
-    once, which keeps a flat frame (every pair the same) from serialising
-    on one address 32 times over.  The output is zeroed by the wrapper."""
+    ``yamimageprocessor_tpu/ops/texture.py:143``; no pallas_call), one
+    cooperative launch a call: each block zeroes its share of the output
+    (allocated with ``torch.empty``), counts units of at most 65,535 pairs
+    (whole rows of the window) into a private table of 65,536 16-bit
+    counters in shared memory, two to a word, so that no half can carry,
+    and after a grid barrier adds each non-zero counter to the frame's
+    table with one global atomic.  An empty window launches nothing and
+    gives zeros (a documented deviation); a refused launch raises."""
 
     if not _build.on_card("glcm_counts", gray):
         return glcm_counts_plain(gray, dx, dy)
     if gray.dtype != torch.uint8 or gray.ndim != 3 or not gray.is_contiguous():
         raise ValueError(f"glcm_counts takes contiguous (B, H, W) uint8, got {tuple(gray.shape)} {gray.dtype}")
     n, h, w = gray.shape
-    out = torch.zeros((n, LEVELS, LEVELS), dtype=torch.int32, device=gray.device)
     r0, r1, c0, c1 = _glcm_window(h, w, dx, dy)
     if n == 0 or r1 <= r0 or c1 <= c0:
-        return out
+        return torch.zeros((n, LEVELS, LEVELS), dtype=torch.int32, device=gray.device)
+    out = torch.empty((n, LEVELS, LEVELS), dtype=torch.int32, device=gray.device)
     for start, stop in slices(n, _MAX_GRID):
         _build.launch(
             "yam_glcm_counts", gray.device, gray[start].data_ptr(), out[start].data_ptr(), stop - start, h, w,

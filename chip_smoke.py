@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its seven
+"""Build and check the torch port on one CUDA card, then drive its eight
 main paths once each: the flagship preprocess chain, the segmentation
 chain, the batched CLAHE chain, the denoise chain, the bilateral filter,
-the region-properties extraction and the texture features.
+the region-properties extraction, the texture features and the shape
+features (Fourier descriptors, approximate shape).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
@@ -127,7 +128,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
    version's and (GLCM: ``torch.bincount``; the filter: ``conv2d`` in
    float32) the library call's device time beside its bound, the tables'
    host-clock ms a frame (and the Hu moments table's) and each chain's
-   device and back-to-back time.
+   device and back-to-back time;
+11. shape: the Fourier chain (num_coeff 10 and 512) through the pipeline
+   manager on the same 32 scenes and the Fourier (num_coeff 10) and
+   approximate-shape (error_threshold 1.0) data_fns on the first 8, in one
+   run with the counts set to 0: the chain's outputs and the tables' exact
+   columns against SHA-256 digests of the JAX package's, everything against
+   the port's CPU run (the spectral lines within 1e-10 of the largest); the
+   contour trace bit for bit against its plain walk on the 32 scenes, a
+   2048^2 frame of 65536 blobs and the 4001-row disk, the Fourier lines
+   within 1e-10 of the largest line and 1e-8 pixel of the reconstruction
+   (the rounded polygon equal) on the 32 scenes' largest contours and the
+   disk's at both num_coeff, the boundary errors bit for bit on the 8
+   frames' candidates and the disk's; each kernel's, its plain version's
+   and (the Fourier lines: cuFFT's fft and ifft) the library call's device
+   time beside its bound; the chain's host-clock ms at 1, 8 and 32 frames,
+   its kernels by the profiler, the tables' host ms a frame.
 
 The kernel phase also holds the median kernel bit for bit against its
 plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
@@ -171,6 +187,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 from collections import defaultdict
 import statistics
 import subprocess
@@ -287,6 +304,22 @@ FILTER_REFUSED_KSIZE = 133
 FILTER_WIDE_SHAPE = (1, 300, 260)
 
 # JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/torch_port_digests.py
+SHAPE_COEFFS = (10, 512)  # the Fourier chain's num_coeff: the default and the schema's largest
+SHAPE_TABLE_FRAMES = 8  # frames of the 32 scenes the Fourier and approximate-shape tables run on
+SHAPE_THRESHOLD = 1.0  # approximate_shape's default error_threshold
+SHAPE_BATCHES = (1, 8, 32)  # the Fourier chain's host-clock batches (the first frames of the 32 scenes)
+SHAPE_KERNELS = ("trace_contours", "fourier_lines", "polygon_mean_errors")
+FOURIER_LINE_TOL = 1e-10  # |lines - plain| <= FOURIER_LINE_TOL * max(1, max|c|) a contour
+FOURIER_RECON_TOL = 1e-8  # |reconstruction - plain| in pixels
+#: a floor of one step of a contour walk: one dependent L1-hit load (about 32
+#: clocks at 1.98 GHz); a walk of n points takes at least n such steps
+DEPENDENT_STEP_S = 32 / 1.98e9
+#: FP64 instructions: a complex multiply-add (4), a radix-2 butterfly (a
+#: complex multiply, 4 with two FMAs, and two complex adds, 4), a sincospi
+#: (a floor of 20), a (candidate, point, edge) of the boundary error with
+#: its hypot (a floor of 35, a division and a square root one each)
+FOURIER_F64_PER_MAC, FFT_F64_PER_BUTTERFLY, SINCOSPI_F64, POLYGON_F64_PER_EDGE = 4, 8, 20, 35
+
 DIGESTS = {
     "segmentation_input": "789006ca990ec8e56fe63d5aa294f3853622819e9d010fb70d302ba9730050c0",
     "segmentation_output": "aa7c92f3bfcf004e955ee8c8fed24bc3fcaedd8c795647601d35b654ed2c9995",
@@ -319,6 +352,10 @@ DIGESTS = {
     "texture_gabor_output": "c2d18dac888ae80f58d65b15423bed37c978922c48f8a93f879018e6d11167fb",
     "texture_hog_output": "dc7b12aa0fccbe6e9229679bf4dc74571642b1f6318ab70d389b7795482215bb",
     "texture_tables": "2a9401277d78a80b352400db83afdb263bae2663897e033e55ce7841701596ce",
+    "shape_input": "7d29de7e4cafffb16cd4918e73793db6d8b1cc2df8a77967e40e5c53b0302a7f",
+    "shape_fourier10_output": "a5ce65607a95416e14f48a87e57e637131a0a30db6b921828c9a81206a2d5e0f",
+    "shape_fourier512_output": "0eadddb6b9c371e8eb03fbff6f888b0a4d5c80eec3509c6cda558b52d63db741",
+    "shape_tables": "21029badbb1dfa06c5044f05c24c570371453eae16c12249ce7a8ef58a3b52cc",
 }
 
 
@@ -401,8 +438,9 @@ def exact(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
         raise AssertionError(
             f"{name}: got {tuple(got.shape)} {got.dtype}, want {tuple(want.shape)} {want.dtype}"
         )
-    if got.dtype == torch.float32:
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+    if got.dtype in (torch.float32, torch.float64):
+        bits = torch.int32 if got.dtype == torch.float32 else torch.int64
+        if not torch.equal(got.view(bits), want.view(bits)):
             raise AssertionError(f"{name}: max abs err {float((got - want).abs().max())}")
         return 0
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
@@ -1581,6 +1619,9 @@ def _counters():
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
     from yamimageprocessor_tpu_torch.ops import texture as TX
     from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8
+    from yamimageprocessor_tpu_torch.ops.contours import trace_contours
+    from yamimageprocessor_tpu_torch.ops.fourier import fourier_lines
+    from yamimageprocessor_tpu_torch.ops.polygon import polygon_mean_errors
 
     return {
         "sepconv": sep_filter_u8,
@@ -1600,6 +1641,9 @@ def _counters():
         "lbp_codes": TX.lbp_codes,
         "filter2d": filter2d_u8,
         "hog_cells": HG.hog_cells,
+        "trace_contours": trace_contours,
+        "fourier_lines": fourier_lines,
+        "polygon_mean_errors": polygon_mean_errors,
     }
 
 
@@ -2702,6 +2746,300 @@ def phase_texture(dev) -> dict:
             "bounds": bounds, "library": library, "by_input": by_input, "tables_ms": tables_ms, "chains": chains}
 
 
+def fourier_steps(num_coeff: int):
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    return [PipelineStep(name="Fourier", stage=Stage.ANALYSIS, params={"num_coeff": num_coeff})]
+
+
+def shape_table_digest(fourier_tables, shape_tables) -> str:
+    """SHA-256 of each frame's Fourier table's exact columns and
+    approximate-shape table (a copy of
+    ``scripts/torch_port_digests.py:shape_table_digest``)."""
+
+    h = hashlib.sha256()
+    for fourier, shape in zip(fourier_tables, shape_tables):
+        h.update(b"|")
+        if len(fourier):
+            for column in ("num_coeff", "area", "perimeter", "circularity"):
+                dtype = np.int64 if column == "num_coeff" else np.float64
+                h.update(np.ascontiguousarray(np.asarray(fourier[column]), dtype=dtype).tobytes())
+        if len(shape):
+            for column, dtype in (("region_index", np.int64), ("area", np.float64), ("perimeter", np.float64),
+                                  ("vertices", np.int64)):
+                h.update(np.ascontiguousarray(np.asarray(shape[column]), dtype=dtype).tobytes())
+            h.update("\n".join(str(e) for e in np.asarray(shape["edge_lengths"])).encode())
+    return h.hexdigest()
+
+
+def same_shape_tables(name: str, card: dict, cpu: dict) -> float:
+    """Every column of two tables of one frame equal (Fourier's spectral
+    lines within FOURIER_LINE_TOL of the largest line); returns the lines'
+    largest difference over that scale."""
+
+    if list(card) != list(cpu):
+        raise AssertionError(f"{name}: columns {list(card)[:6]} on the card, {list(cpu)[:6]} on the CPU")
+    lines = [c for c in card if c.startswith("coeff_")]
+    for c in card:
+        if c not in lines and (np.asarray(card[c]).dtype != np.asarray(cpu[c]).dtype
+                               or np.asarray(card[c]).tolist() != np.asarray(cpu[c]).tolist()):
+            raise AssertionError(f"{name}: column {c} on the card differs from the CPU run")
+    if not lines:
+        return 0.0
+    a = np.array([card[c][0] for c in lines])
+    b = np.array([cpu[c][0] for c in lines])
+    rel = float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+    if rel > FOURIER_LINE_TOL:
+        raise AssertionError(f"{name}: spectral lines {rel} of the largest apart")
+    return rel
+
+
+def fourier_kernel_vs_plain(name: str, pts: torch.Tensor, offs, k: int) -> tuple:
+    """fourier_lines on the card against its plain version on the same
+    contours: (largest reconstruction difference in pixels, largest line
+    difference over its contour's scale); raises past the tolerances or
+    where a rounded reconstruction differs."""
+
+    from yamimageprocessor_tpu_torch.ops.fourier import fourier_lines, fourier_lines_plain
+
+    got_c, got_o, got_r = fourier_lines(pts, offs, k)
+    want_c, want_o, want_r = fourier_lines_plain(pts, offs, k)
+    rel = 0.0
+    for a, b in zip(want_o[:-1], want_o[1:]):
+        scale = max(1.0, float(torch.linalg.vector_norm(want_c[a:b], dim=1).max()))
+        rel = max(rel, float((got_c[a:b] - want_c[a:b]).abs().max()) / scale)
+    recon = float((got_r - want_r).abs().max())
+    if got_o != want_o or rel > FOURIER_LINE_TOL or recon > FOURIER_RECON_TOL:
+        raise AssertionError(f"fourier_lines {name} k {k}: lines {rel}, reconstruction {recon}")
+    if not torch.equal(torch.round(got_r), torch.round(want_r)):
+        raise AssertionError(f"fourier_lines {name} k {k}: a rounded reconstruction differs")
+    return recon, rel
+
+
+def trace_bound(labels: torch.Tensor, cont) -> tuple:
+    """(bound ms, by): the label map read and the points and areas written
+    once, or the longest contour's chain of dependent steps."""
+
+    lengths = cont.offsets[1:] - cont.offsets[:-1]
+    nbytes = labels.numel() * 4 + cont.points.numel() * 4 + cont.area2.numel() * 8
+    longest = int(lengths.max()) if len(lengths) else 0
+    t_bytes, t_chain = nbytes / HBM_BYTES_PER_S, longest * DEPENDENT_STEP_S
+    return max(t_bytes, t_chain) * 1e3, ("bytes" if t_bytes >= t_chain else "operations")
+
+
+def fourier_bound(offs, k: int) -> tuple:
+    """(bound ms, by) of the 2k lines and the reconstruction of each
+    contour: its points read, lines and reconstruction written; in FP64
+    instructions the n sincospi of the twiddles and the lesser of the
+    direct sums (2 x 2k x n complex multiply-adds) and an FFT pair (2 x
+    (n / 2) log2 n radix-2 butterflies), whichever a contour needs fewer
+    of."""
+
+    ns = [b - a for a, b in zip(offs[:-1], offs[1:])]
+    inst = sum(min(2 * 2 * min(k, n) * n * FOURIER_F64_PER_MAC, 2 * (n / 2) * math.log2(n) * FFT_F64_PER_BUTTERFLY)
+               + SINCOSPI_F64 * n for n in ns)
+    nbytes = sum(8 * n + 16 * n + 32 * min(k, n) for n in ns)
+    return bound_ms(nbytes, f64_inst=inst)
+
+
+def polygon_bound(offs, vert_offsets, owner) -> tuple:
+    """(bound ms, by): the points and vertices read, the means written;
+    POLYGON_F64_PER_EDGE FP64 instructions a (candidate, point, edge)."""
+
+    vo = np.asarray(vert_offsets)
+    ns = np.diff(np.asarray(offs))[np.asarray(owner)]
+    nv = np.diff(vo)
+    return bound_ms(8 * float(np.sum(ns)) + 8 * float(vo[-1]) + 8 * len(nv),
+                    f64_inst=POLYGON_F64_PER_EDGE * float(np.sum(ns * nv)))
+
+
+def phase_shape(dev) -> dict:
+    """Fourier descriptors and the approximate shape: the Fourier chain
+    (num_coeff 10 and 512) through the pipeline manager on the 32 BGR
+    1024^2 scenes and both tables on the first 8, against the JAX package's
+    digests and the port's CPU run; the three kernels against their plain
+    versions (also on the blobs frame and the 4001-row disk); their times,
+    bounds and PyTorch yardstick; the chain's host-clock ms at 1, 8 and 32
+    frames and the tables' host ms a frame."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction as EXT
+    from yamimageprocessor_tpu_torch.ops import polygon as PG
+    from yamimageprocessor_tpu_torch.ops import shape as SH
+    from yamimageprocessor_tpu_torch.ops.contours import TraceLaunch, trace_contours, trace_contours_plain
+    from yamimageprocessor_tpu_torch.ops.extraction_device import region_count_bound, region_labels
+    from yamimageprocessor_tpu_torch.ops.fourier import LinesLaunch, fourier_lines_plain
+    from yamimageprocessor_tpu_torch.ops.labeling import label
+    from yamimageprocessor_tpu_torch.ops.registry import get_impl
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    frames = np.stack([extraction_frame(seed=s) for s in range(TEXTURE_FRAMES)])
+    check_digest("shape_input", frames)
+    first = frames[:SHAPE_TABLE_FRAMES]
+    managers = {k: PipelineManager(fourier_steps(k), device=dev) for k in SHAPE_COEFFS}
+    fourier_data = get_impl("extraction.fourier").data_fn
+    shape_data = get_impl("extraction.approximate_shape").data_fn
+    run = drive(
+        "shape",
+        SHAPE_KERNELS + ("cc", "histogram256"),
+        lambda: (
+            {k: m.apply(frames) for k, m in managers.items()},
+            [fourier_data(f, SHAPE_COEFFS[0]) for f in first],
+            [shape_data(f, SHAPE_THRESHOLD) for f in first],
+        ),
+    )
+    outs, ftables, stables = run["out"]
+    for k in SHAPE_COEFFS:
+        check_digest(f"shape_fourier{k}_output", outs[k])
+    got = shape_table_digest(ftables, stables)
+    if got != DIGESTS["shape_tables"]:
+        raise AssertionError(f"shape_tables: {got}, the JAX package's is {DIGESTS['shape_tables']}")
+    for k in SHAPE_COEFFS:
+        cpu = PipelineManager(fourier_steps(k), device="cpu").apply(frames)
+        exact(f"fourier chain num_coeff {k} cuda vs cpu", torch.from_numpy(outs[k]), torch.from_numpy(cpu))
+    line_rel = 0.0
+    for i, f in enumerate(first):
+        line_rel = max(line_rel, same_shape_tables(f"fourier_data frame {i}", ftables[i],
+                                                   fourier_data(f, SHAPE_COEFFS[0], device="cpu")))
+        same_shape_tables(f"approximate_shape_data frame {i}", stables[i], shape_data(f, SHAPE_THRESHOLD, device="cpu"))
+    tables_ms = {}
+    for key, fn in (("fourier", lambda f: fourier_data(f, SHAPE_COEFFS[0])),
+                    ("approximate_shape", lambda f: shape_data(f, SHAPE_THRESHOLD))):
+        start = time.perf_counter()
+        for f in first:
+            fn(f)
+        torch.cuda.synchronize()
+        tables_ms[key] = (time.perf_counter() - start) * 1e3 / len(first)
+    print(f"shape: the Fourier chain at num_coeff {SHAPE_COEFFS} on {frames.shape} == the JAX package's digests == "
+          f"the port's CPU run; the Fourier and approximate-shape tables on {len(first)} frames == the JAX package's "
+          f"digest (exact columns) == the port's CPU run (lines within {line_rel:.3g} of the largest); host-clock ms "
+          f"a frame {json.dumps(tables_ms)}")
+
+    # the kernels against their plain versions: the main path's inputs, the
+    # blobs frame (65536 regions) and the 4001-row disk (one long contour)
+    err = {"trace_contours": 0, "fourier_lines": 0.0, "polygon_mean_errors": 0}
+    imgs = torch.from_numpy(frames).to(dev)
+    labels = region_labels(imgs).contiguous()
+    nseg = region_count_bound(labels)
+    blobs = region_labels(torch.from_numpy(blobs_frame())[None].to(dev)).contiguous()
+    disk = label(torch.from_numpy(np.ascontiguousarray(tall_disk_mask())).to(dev)).contiguous()
+    traced = {}
+    for name, lab in (("32 scenes", labels), (f"blobs {BLOBS_SIDE}^2", blobs), (f"tall disk {TALL_SIDE}^2", disk)):
+        n = region_count_bound(lab)
+        got, want = trace_contours(lab, n), trace_contours_plain(lab, n)
+        for field, a, b in zip(got._fields, got, want):
+            err["trace_contours"] = max(err["trace_contours"], exact(f"trace_contours {name} {field}", a, b))
+        traced[name] = (lab, n, got)
+        lengths = (got.offsets[1:] - got.offsets[:-1]).cpu()
+        print(f"trace_contours {name}: {len(lengths)} contours, {int(lengths.sum())} points, longest "
+              f"{int(lengths.max())}: bit-exact against the plain walk")
+    cont = traced["32 scenes"][2]
+    offsets, frames_of, area2 = cont.offsets.cpu().numpy(), cont.frames.cpu().numpy(), cont.area2.cpu().numpy()
+    largest = EXT._largest(frames_of, area2, len(frames))
+    main_pts, main_offs = EXT._gather(cont.points, offsets, largest[largest >= 0])
+    disk_cont = traced[f"tall disk {TALL_SIDE}^2"][2]
+    disk_pts, disk_offs = disk_cont.points, disk_cont.offsets.cpu().tolist()
+    line_err = 0.0
+    for name, pts, offs in (("32 scenes", main_pts, main_offs), ("tall disk", disk_pts, disk_offs)):
+        for k in SHAPE_COEFFS:
+            recon, rel = fourier_kernel_vs_plain(name, pts, offs, k)
+            err["fourier_lines"] = max(err["fourier_lines"], recon)
+            line_err = max(line_err, rel)
+    candidates = [EXT.shape_candidates(f, device=dev)[2] for f in first]
+    for i, args in enumerate(candidates):
+        err["polygon_mean_errors"] = max(err["polygon_mean_errors"], exact(
+            f"polygon_mean_errors frame {i}", PG.polygon_mean_errors(*args), PG.polygon_mean_errors_plain(*args)))
+    disk_host = disk_pts.cpu().numpy().astype(np.int64)
+    disk_pair = SH.farthest_pairs(disk_pts, disk_offs)[0]
+    disk_cands = SH.candidate_polygons(disk_host, disk_pair)
+    verts, vert_offsets = PG.pack_candidates(disk_cands)
+    disk_args = (disk_pts, disk_offs, verts.to(dev), vert_offsets, torch.zeros(len(disk_cands), dtype=torch.int64))
+    err["polygon_mean_errors"] = max(err["polygon_mean_errors"], exact(
+        "polygon_mean_errors tall disk", PG.polygon_mean_errors(*disk_args), PG.polygon_mean_errors_plain(*disk_args)))
+    print(f"kernels: trace_contours bit-exact on the 32 scenes, the blobs and the tall disk; fourier_lines within "
+          f"{err['fourier_lines']:.3g} pixels and {line_err:.3g} of the largest line at num_coeff {SHAPE_COEFFS} on "
+          f"the 32 scenes' largest contours and the tall disk ({disk_offs[-1]} points); polygon_mean_errors "
+          f"bit-exact on {len(first)} frames' candidates and the tall disk's {len(disk_cands)}")
+
+    # times at the main paths' shapes: the trace and the lines on the 32-frame
+    # chain, the errors on one frame's candidates (a launch a table); each the
+    # wrapper's own launch object, its buffers allocated once
+    k0 = SHAPE_COEFFS[0]
+    args0 = candidates[0]
+    times = {
+        "trace_contours": paired_ms(TraceLaunch(labels, nseg).run, lambda: trace_contours_plain(labels, nseg),
+                                    plain_runs=3),
+        "fourier_lines": paired_ms(LinesLaunch(main_pts, main_offs, k0).run,
+                                   lambda: fourier_lines_plain(main_pts, main_offs, k0), plain_runs=3),
+        "polygon_mean_errors": paired_ms(PG.ErrorsLaunch(*args0).run, lambda: PG.polygon_mean_errors_plain(*args0),
+                                         plain_runs=3),
+    }
+    bounds = {
+        "trace_contours": trace_bound(labels, cont),
+        "fourier_lines": fourier_bound(main_offs, k0),
+        "polygon_mean_errors": polygon_bound(args0[1], args0[3], args0[4]),
+    }
+    by_input = {"trace_contours": {}, "fourier_lines": {}, "polygon_mean_errors": {}}
+    for name in (f"blobs {BLOBS_SIDE}^2", f"tall disk {TALL_SIDE}^2"):
+        lab, n, c = traced[name]
+        by_input["trace_contours"][name] = {"ms": time_ms(TraceLaunch(lab, n).run), "bound_ms": trace_bound(lab, c)[0],
+                                            "bound_by": trace_bound(lab, c)[1]}
+    for name, pts, offs, k in (("32 scenes, num_coeff 512", main_pts, main_offs, 512),
+                               ("tall disk, num_coeff 10", disk_pts, disk_offs, 10),
+                               ("tall disk, num_coeff 512", disk_pts, disk_offs, 512)):
+        by_input["fourier_lines"][name] = {"ms": time_ms(LinesLaunch(pts, offs, k).run),
+                                           "bound_ms": fourier_bound(offs, k)[0], "bound_by": fourier_bound(offs, k)[1]}
+    by_input["polygon_mean_errors"]["tall disk"] = {
+        "ms": time_ms(PG.ErrorsLaunch(*disk_args).run, runs=5),
+        "bound_ms": polygon_bound(disk_offs, vert_offsets, disk_args[4])[0]}
+    # the PyTorch yardstick: cuFFT's fft, the kept lines selected, its ifft. A
+    # ragged batch of contours has no single library call, so the main path's
+    # figure is 3 calls a contour, mostly launches; beside it one contour of
+    # the disk's 11312 points at num_coeff 512, a transform pair's own time
+    def spectra(pts, offs, k):
+        out = []
+        for a, b in zip(offs[:-1], offs[1:]):
+            z = pts[a:b].to(torch.float64)
+            n, kk = b - a, min(k, b - a)
+            mask = torch.zeros(n, dtype=torch.complex128, device=dev)
+            mask[:kk] = 1
+            mask[n - kk:] = 1
+            out.append((torch.complex(z[:, 0], z[:, 1]), mask))
+        return out
+
+    def library_fourier(pairs):
+        return lambda: [torch.fft.ifft(torch.fft.fft(z) * mask) for z, mask in pairs]
+
+    library = {"trace_contours": None, "fourier_lines": time_ms(library_fourier(spectra(main_pts, main_offs, k0))),
+               "polygon_mean_errors": None}
+    by_input["fourier_lines"]["tall disk, num_coeff 512"]["library_ms"] = time_ms(
+        library_fourier(spectra(disk_pts, disk_offs, 512)))
+    for k in SHAPE_KERNELS:
+        print(f"time {k}: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f}, library {library[k]}, "
+              f"bound {bounds[k][0]:.4f} ({bounds[k][1]}); by input {json.dumps(by_input[k])}")
+
+    # the Fourier chain on the host clock (labels, trace, the largest contours'
+    # lines, the paint, the reads back), and its device time by kernel
+    chains = {}
+    for n in SHAPE_BATCHES:
+        for k in SHAPE_COEFFS:
+            if n != SHAPE_BATCHES[-1] and k != k0:
+                continue
+            batch = frames[:n]
+            ms = wall_ms(lambda: managers[k].apply(batch), calls=3)
+            chains[f"{n} frames, num_coeff {k}"] = {"host_ms": ms, "ms_a_frame": ms / n,
+                                                    "mpix_s": n * EXTRACT_SIDE**2 / 1e6 / (ms / 1e3)}
+    profile = chain_profile(lambda: managers[k0].apply(frames), {
+        "contour_": "trace_contours", "fourier_": "fourier_lines", "cc_": "cc", "histogram256": "histogram256"})
+    print_profile("fourier chain (32 frames)", profile)
+    print(f"fourier chain host clock: {json.dumps(chains)}")
+    del imgs, labels, blobs, disk
+    torch.cuda.empty_cache()
+    return {"launches": {k: run["launches"][k] for k in SHAPE_KERNELS}, "err": err, "times": times,
+            "bounds": bounds, "library": library, "by_input": by_input, "tables_ms": tables_ms, "chains": chains,
+            "profile": profile, "line_err": line_err}
+
+
 def blobs_peak_memory(blobs: np.ndarray) -> dict:
     """Peak device memory of ``region_tables([blobs])`` (the memo
     cleared): bytes allocated at the peak, and above what was allocated
@@ -2766,20 +3104,28 @@ def main() -> None:
     if sys.argv[1:2] == ["--texture-times-one"]:
         texture_times_one(sys.argv[2])
         return
+    begin = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kern = phase_kernels(dev)
     filt = phase_filter_kernels(dev)
+    print(f"elapsed after the kernel phases: {time.perf_counter() - begin:.1f} s")
     launches = {}
     for phase in (phase_flagship, phase_segmentation, phase_clahe, phase_denoise, phase_bilateral):
         for name, count in phase(dev).items():
             launches[name] = launches.get(name, 0) + count
+        print(f"elapsed after {phase.__name__}: {time.perf_counter() - begin:.1f} s")
     ext = phase_extraction(dev)
+    print(f"elapsed after phase_extraction: {time.perf_counter() - begin:.1f} s")
     for name, count in ext["launches"].items():
         launches[name] = launches.get(name, 0) + count
     tex = phase_texture(dev)
     launches.update(tex["launches"])
+    print(f"elapsed after phase_texture: {time.perf_counter() - begin:.1f} s")
+    shp = phase_shape(dev)
+    launches.update(shp["launches"])
+    print(f"elapsed after phase_shape: {time.perf_counter() - begin:.1f} s")
     loaded = sorted(
         k for k in sys.modules
         if k == "jax" or k.startswith("jax.") or k == "yamimageprocessor_tpu" or k.startswith("yamimageprocessor_tpu.")
@@ -2847,6 +3193,29 @@ def main() -> None:
          "yamimageprocessor_tpu/ops/hogf.py:89-110 hog_features_j's cell histograms (XLA, not a pallas_call)",
          "none: PyTorch has no HOG; ms: 9 bins, 8x8 cells on the 32 scenes; by_input: 32 bins 2x2, a 2048^2 frame"),
     ]
+    rows += [
+        ("trace_contours", "yamimageprocessor_tpu_torch/csrc/contour.cu",
+         "yamimageprocessor_tpu/ops/shape.py:107 trace_external_contours (host numpy and Python, not a pallas_call)",
+         "none: PyTorch has no contour tracing; ms: the 32 scenes' labels (4 CUDA launches: seeds with the "
+         "packed mask, neighbour bytes, count walk, write walk, with the seeds' fill and the counts' scan); "
+         "by_input: the blobs, the 4001-row disk"),
+        ("fourier_lines", "yamimageprocessor_tpu_torch/csrc/shape.cu",
+         "yamimageprocessor_tpu/ops/extraction_device.py:254 fourier_dft_j (XLA, not a pallas_call); CPU golden "
+         "ops/shape.py:278 fourier_reconstruct",
+         "torch.fft.fft, the kept lines selected, torch.fft.ifft (cuFFT) of each of the 32 scenes' largest "
+         "contours in one event pair: a ragged batch has no single library call, so 96 calls, mostly launches "
+         "(by_input's disk at num_coeff 512: one contour's pair); ms: num_coeff 10 on those contours; bound: the "
+         "lesser of the direct sums and an FFT pair; max_abs_err: the reconstruction's pixels (lines: "
+         "max_rel_line_err of the largest line)"),
+        ("polygon_mean_errors", "yamimageprocessor_tpu_torch/csrc/shape.cu",
+         "yamimageprocessor_tpu/ops/extraction_device.py:339 polygon_mean_errors_j (XLA, not a pallas_call); CPU "
+         "golden ops/shape.py:218 point_polygon_distance averaged by np.mean",
+         "none: no PyTorch call gives the distance to a polygon's edges; ms: frame 0's 64 contours x 20 "
+         "candidates (a launch a table); by_input: the 4001-row disk's 20"),
+    ]
+    for name in SHAPE_KERNELS:
+        for key in ("err", "times", "bounds", "library"):
+            kern[key][name] = shp[key][name]
     for name in TEXTURE_KERNELS:
         for key in ("err", "times", "bounds", "library"):
             kern[key][name] = tex[key][name]
@@ -2915,6 +3284,11 @@ def main() -> None:
             entry["design"] = ("a tile of whole cells staged in shared memory as float32 with a 1-pixel halo; "
                                "each pixel's magnitude and bin formed once; a thread a (cell, bin) adds its bin's "
                                "magnitudes in cell_order's order; a warp's outputs consecutive floats")
+        if name in SHAPE_KERNELS:
+            entry["by_input"] = shp["by_input"][name]
+        if name == "fourier_lines":
+            entry["max_rel_line_err"] = shp["line_err"]
+            entry["tolerance"] = {"lines": FOURIER_LINE_TOL, "reconstruction": FOURIER_RECON_TOL}
         if name == "flood":
             entry.update(kern["flood_stats"])
             entry["device_ms"] = kern["flood_device_ms"]
@@ -2922,6 +3296,7 @@ def main() -> None:
         entries.append(entry)
     print(f"extraction rates: {json.dumps(ext['rates'])}")
     print(f"texture chains: {json.dumps(tex['chains'])}; tables host ms a frame: {json.dumps(tex['tables_ms'])}")
+    print(f"fourier chain: {json.dumps(shp['chains'])}; shape tables host ms a frame: {json.dumps(shp['tables_ms'])}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(

@@ -32,9 +32,15 @@ ksize 21 and HOG at their default parameters, each one step batched over
 the 32 BGR 1024^2 scenes of seeds 0-31) with the exact columns of the
 texture tables' exact inputs on the first 8 of them (the GLCM's pair
 counts, the fractal dimension's box counts, LBP's bin counts and Gabor's
-mean from the CPU data path).  ``chip_smoke.py``
-keeps these as constants.  Takes about 4 min and a few GB of memory on an
-8-core CPU; ``--texture`` prints only the texture digests (about 1 min).
+mean from the CPU data path); and the Fourier chain (num_coeff 10 and 512,
+``fourier_descriptors_extraction`` frame by frame) on the same 32 scenes
+with the Fourier and approximate-shape tables of the first 8 (the columns
+that the rounded polygons and the chosen polygons give: everything but
+the spectral lines).  ``chip_smoke.py`` keeps these as constants.  Takes
+about 10 min and a few GB of memory on an 8-core CPU (the approximate
+shape's host loop, ~30 s a frame, most of it); ``--texture`` prints only
+the texture digests (about 1 min), ``--shape`` only the shape digests
+(about 5 min).
 """
 from __future__ import annotations
 
@@ -163,6 +169,53 @@ def texture_digests(result: dict) -> None:
     result["texture_tables"] = texture_table_digest(frames[:TEXTURE_TABLE_FRAMES])
 
 
+SHAPE_COEFFS = (10, 512)
+SHAPE_TABLE_FRAMES = 8
+SHAPE_THRESHOLD = 1.0
+FOURIER_EXACT = ("num_coeff", "area", "perimeter", "circularity")
+SHAPE_COLUMNS = (("region_index", np.int64), ("area", np.float64), ("perimeter", np.float64),
+                 ("vertices", np.int64))
+
+
+def shape_table_digest(fourier_tables, shape_tables) -> str:
+    """SHA-256 of each frame's Fourier table's exact columns (num_coeff
+    int64; area, perimeter, circularity float64) and approximate-shape
+    table (region_index, vertices int64; area, perimeter float64; the
+    edge_lengths strings), a frame at a time; a table without columns adds
+    nothing but the frame's separator.  Takes DataFrames or dicts of
+    arrays."""
+
+    h = hashlib.sha256()
+    for fourier, shape in zip(fourier_tables, shape_tables):
+        h.update(b"|")
+        if len(fourier):
+            for column in FOURIER_EXACT:
+                h.update(np.ascontiguousarray(np.asarray(fourier[column]), dtype=np.int64 if column == "num_coeff" else np.float64).tobytes())
+        if len(shape):
+            for column, dtype in SHAPE_COLUMNS:
+                h.update(np.ascontiguousarray(np.asarray(shape[column]), dtype=dtype).tobytes())
+            h.update("\n".join(str(e) for e in np.asarray(shape["edge_lengths"])).encode())
+    return h.hexdigest()
+
+
+def shape_digests(result: dict) -> None:
+    from bench import _dense_scene
+    from yamimageprocessor_tpu.ops import extraction as EX
+
+    frames = np.stack(
+        [np.repeat(_dense_scene(EXTRACT_SIDE, seed=s)[..., None], 3, axis=-1) for s in range(TEXTURE_FRAMES)]
+    )
+    result["shape_input"] = digest(frames)
+    for k in SHAPE_COEFFS:
+        out = np.stack([EX.fourier_descriptors_extraction(f, k) for f in frames])
+        result[f"shape_fourier{k}_output"] = digest(out)
+    first = frames[:SHAPE_TABLE_FRAMES]
+    result["shape_tables"] = shape_table_digest(
+        [EX.fourier_data(f, SHAPE_COEFFS[0]) for f in first],
+        [EX.approximate_shape_data(f, SHAPE_THRESHOLD) for f in first],
+    )
+
+
 def clahe_steps():
     """The CLAHE chain of ``bench.py:_extra_batched_clahe``: Gaussian 5x5
     -> CLAHE (clip 2.0, grid 4) -> the mean of R and G."""
@@ -221,9 +274,9 @@ def main() -> None:
     from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
 
     start = time.perf_counter()
-    if sys.argv[1:] == ["--texture"]:
+    if sys.argv[1:] in (["--texture"], ["--shape"]):
         result = {"backend": jax.default_backend()}
-        texture_digests(result)
+        (texture_digests if sys.argv[1:] == ["--texture"] else shape_digests)(result)
         result["seconds"] = round(time.perf_counter() - start, 1)
         print(json.dumps(result))
         return
@@ -272,6 +325,7 @@ def main() -> None:
         result[f"{name}_output_shape"] = list(out.shape)
     extraction_digests(result)
     texture_digests(result)
+    shape_digests(result)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

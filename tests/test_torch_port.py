@@ -26,8 +26,9 @@ def test_the_port_has_the_eleven_ops_of_its_two_chains():
     """The eleven ops of the flagship and segmentation chains, the two the
     CLAHE chain adds, the rest of preprocessing (all ten preprocessing ops
     of the reference), the region-properties extraction, Hu moments,
-    histogram statistics and the texture features (LBP, Haralick, Gabor,
-    HOG, fractal dimension): 25 of the reference's 41 ids."""
+    histogram statistics, the texture features (LBP, Haralick, Gabor,
+    HOG, fractal dimension), the Fourier descriptors and the approximate
+    shape: 27 of the reference's 41 ids, every extraction id."""
 
     assert PORTED == sorted(
         [
@@ -56,6 +57,8 @@ def test_the_port_has_the_eleven_ops_of_its_two_chains():
             "extraction.gabor",
             "extraction.hog",
             "extraction.fractal",
+            "extraction.fourier",
+            "extraction.approximate_shape",
         ]
     )
 
@@ -136,6 +139,10 @@ _SPLIT_CASES = [
     ("extraction.hog", {}),
     ("extraction.hog", {"orientations": "12", "pixels_per_cell": [4, 4], "cells_per_block": (2, 2)}),
     ("extraction.fractal", {"min_box_size": 4}),
+    ("extraction.fourier", {}),
+    ("extraction.fourier", {"num_coeff": "512"}),
+    ("extraction.approximate_shape", {}),
+    ("extraction.approximate_shape", {"error_threshold": 5.0}),
 ]
 
 
@@ -219,13 +226,15 @@ def test_texture_displays_are_uint8_gray(identifier):
 
 
 def test_text_annotated_texture_ops_refuse_a_chain():
-    """Haralick and the fractal dimension annotate with host text in the
-    reference: the port has their tables only, and a chain naming them
-    raises (as for Hu moments and histogram statistics)."""
+    """Haralick, the fractal dimension and the approximate shape annotate
+    with host text in the reference: the port has their tables only, and a
+    chain naming them raises (as for Hu moments and histogram
+    statistics)."""
 
     from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
 
-    for identifier, name in (("extraction.haralick", "Haralick"), ("extraction.fractal", "Fractal")):
+    for identifier, name in (("extraction.haralick", "Haralick"), ("extraction.fractal", "Fractal"),
+                             ("extraction.approximate_shape", "Approximate Shape")):
         impl = get_impl(identifier)
         assert impl.device_fn is None and impl.data_fn is not None
         step = PipelineStep(name=name, stage=Stage.ANALYSIS)

@@ -74,6 +74,10 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_glcm_counts": (_P, _P, _I, _I, _I, _I, _I, _P),
     "yam_lbp_codes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_hog_cells": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    "yam_contour_seed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "yam_contour_walk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "yam_fourier_lines": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "yam_polygon_errors": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

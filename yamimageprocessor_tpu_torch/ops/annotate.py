@@ -1,6 +1,7 @@
-"""Annotation geometry of the region-properties op (the port's copy of
-what the annotation needs from ``yamimageprocessor_tpu/utils/annotate.py``:
-``_as_color``, ``rect_border`` (``:39``) and ``draw_disk`` (``:95``)).
+"""Annotation geometry of the region-properties and Fourier ops (the
+port's copy of what the annotations need from
+``yamimageprocessor_tpu/utils/annotate.py``: ``_as_color``, ``rect_border``
+(``:39``), ``draw_disk`` (``:95``) and ``draw_polyline`` (``:105-138``)).
 
 The reference paints one region at a time with numpy slices over the
 frame.  Here the same pixels come out as flat indices for every region
@@ -80,4 +81,42 @@ def draw_disk(cx, cy, radius: int, h: int, w: int):
     return owner[inside], (y * w + x)[inside]
 
 
-__all__ = ["BGRColor", "draw_disk", "rect_border"]
+def polyline_pixels(points: torch.Tensor, offsets, owner, h: int, w: int, thickness: int = 2) -> torch.Tensor:
+    """Flat pixel indices into a batch of ``h x w`` frames of the closed
+    polylines ``draw_polyline`` paints: polyline ``p`` is
+    ``points[offsets[p]:offsets[p + 1]]`` (int64 ``(x, y)``) on frame
+    ``owner[p]``.  Each segment ``(x0, y0) -> (x1, y1)`` (the last one back to
+    the first point) takes ``steps = max(|dx|, |dy|) + 1`` points, numpy's
+    ``linspace`` in float64 (``i * (delta / (steps - 1)) + start``, the last
+    point ``stop`` itself) rounded half to even by ``np.rint``, each stamped
+    with a ``(2r + 1)^2`` square, ``r = thickness // 2``, clipped into the
+    frame.  A pixel is repeated where stamps overlap."""
+
+    dev = points.device
+    offsets = torch.as_tensor(offsets, dtype=torch.int64, device=dev)
+    owner = torch.as_tensor(owner, dtype=torch.int64, device=dev)
+    lengths = offsets[1:] - offsets[:-1]
+    poly, at = _segments(offsets[:-1], lengths)  # a segment a point
+    nxt = torch.where(at + 1 < offsets[1:][poly], at + 1, offsets[:-1][poly])
+    x0, y0 = points[at, 0], points[at, 1]
+    x1, y1 = points[nxt, 0], points[nxt, 1]
+    steps = torch.maximum((x1 - x0).abs(), (y1 - y0).abs()) + 1
+    seg, i = _segments(torch.zeros_like(steps), steps)
+    div = (steps - 1)[seg]
+    last = i == div
+
+    def linspace(a, b):
+        step = (b - a).to(torch.float64)[seg] / div.to(torch.float64)
+        value = i.to(torch.float64) * step + a[seg].to(torch.float64)
+        return torch.where(last, b[seg], torch.round(value).to(torch.int64))
+
+    xs, ys = linspace(x0, x1), linspace(y0, y1)
+    r = max(thickness // 2, 0)
+    d = torch.arange(-r, r + 1, device=dev)
+    xi = (xs[:, None, None] + d[None, None, :]).clamp(0, w - 1)
+    yi = (ys[:, None, None] + d[None, :, None]).clamp(0, h - 1)
+    frame = owner[poly][seg][:, None, None]
+    return ((frame * h + yi) * w + xi).reshape(-1)
+
+
+__all__ = ["BGRColor", "draw_disk", "polyline_pixels", "rect_border"]

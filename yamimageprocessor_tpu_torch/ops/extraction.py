@@ -5,15 +5,18 @@ Ported: ``extraction.region_properties`` (``extraction.py:41-113``),
 ``extraction.hu_moments`` (``:117-150``), ``extraction.lbp`` (``:151-180``),
 ``extraction.haralick`` (``:185-227``), ``extraction.gabor``
 (``:232-279``), ``extraction.hog`` (``:350-395``), ``extraction.histogram``
-(``:400-435``) and ``extraction.fractal`` (``:437-468``).  A ``data_fn``
+(``:400-435``), ``extraction.fractal`` (``:437-468``),
+``extraction.fourier`` (``:284-345``) and ``extraction.approximate_shape``
+(``:473-565``).  A ``data_fn``
 returns the reference DataFrame's columns in its order and with its values
 as a dict of numpy arrays, since the port does not use pandas.  Region
 properties', LBP's, Gabor's and HOG's ``device_fn`` is the image the
 reference's chain produces (the annotation; the uint8 displays of the
-codes, the Gabor response and the HOG render).  Hu moments, Haralick,
-histogram and fractal annotate with host-drawn text in the reference
-(cv2's font), which is not ported: they have a ``data_fn`` and no
-``device_fn``, and a chain that names them raises.  Each output depends
+codes, the Gabor response and the HOG render; Fourier's polygon).  Hu
+moments, Haralick, histogram, fractal and the approximate shape annotate
+with host-drawn text in the reference (cv2's font), which is not ported:
+they have a ``data_fn`` and no ``device_fn``, and a chain that names them
+raises.  Each output depends
 on the whole frame (the reference marks them ``global_stats``).
 
 The texture tables follow the reference's CPU data path, whose functions
@@ -31,6 +34,19 @@ of ``moments_np`` and ``hu_moments`` (the reference's host route ``_hu``).
 Histogram statistics: the histogram256 kernel's counts, then the
 reference's float64 formulas (``texture.py:histogram_stats_np``) on the
 same counts.
+
+Fourier descriptors and the approximate shape trace every region's outer
+contour on the device (:func:`.contours.trace_contours`, from the labels
+the region properties use).  Fourier takes each frame's largest contour
+(the first maximum of the exact doubled areas), its kept spectral lines and
+reconstruction (:func:`.fourier.fourier_lines`), and paints the rounded
+polygon on the device (the chain) or measures it with the reference's host
+code (the table).  The approximate shape reads the contours of area 100 or
+more back, runs the reference's Douglas-Peucker on the host at its 20
+epsilon factors (the farthest pair found once a contour on the device),
+and evaluates every candidate's mean boundary error in one device call
+(:func:`.polygon.polygon_mean_errors`, the reference's float64 bits), so
+it chooses the reference's polygons.
 """
 from __future__ import annotations
 
@@ -40,11 +56,22 @@ import numpy as np
 import torch
 
 from yamimageprocessor_tpu_torch.ops import hogf as HG
+from yamimageprocessor_tpu_torch.ops import shape as SH
 from yamimageprocessor_tpu_torch.ops import texture as TX
+from yamimageprocessor_tpu_torch.ops.annotate import _as_color, _segments, polyline_pixels
 from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
-from yamimageprocessor_tpu_torch.ops.extraction_device import binary, region_properties_device_fn, region_table
+from yamimageprocessor_tpu_torch.ops.contours import trace_contours
+from yamimageprocessor_tpu_torch.ops.extraction_device import (
+    binary,
+    region_count_bound,
+    region_labels,
+    region_properties_device_fn,
+    region_table,
+)
+from yamimageprocessor_tpu_torch.ops.fourier import fourier_lines
 from yamimageprocessor_tpu_torch.ops.filter2d_cuda import filter2d_u8
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
+from yamimageprocessor_tpu_torch.ops.polygon import pack_candidates, polygon_mean_errors
 from yamimageprocessor_tpu_torch.ops.registry import register_op
 from yamimageprocessor_tpu_torch.ops.tables import gabor_kernel
 
@@ -388,8 +415,185 @@ def fractal_data(image: np.ndarray, min_box_size: int = 2, *, device="cuda") -> 
 register_op("extraction.fractal", device_fn=None, data_fn=fractal_data, split=_all_static)
 
 
+# ---------------------------------------------------------------------------
+# Fourier descriptors and the approximate shape: contours traced on the device
+
+_YELLOW = (0, 255, 255)
+
+
+def _contours(imgs: torch.Tensor):
+    """(contours, offsets, frames, doubled areas): every region's outer
+    contour of a batch, the last three read back as numpy arrays."""
+
+    labels = region_labels(imgs).contiguous()
+    cont = trace_contours(labels, region_count_bound(labels))
+    return cont, cont.offsets.cpu().numpy(), cont.frames.cpu().numpy(), cont.area2.cpu().numpy()
+
+
+def _gather(points: torch.Tensor, offsets: np.ndarray, which):
+    """The contours ``which`` one after another on ``points``' device, and
+    their offsets (a list)."""
+
+    which = np.asarray(which, np.int64)
+    lengths = offsets[which + 1] - offsets[which]
+    new = [0] + np.cumsum(lengths).tolist()
+    dev = points.device
+    _, at = _segments(torch.from_numpy(offsets[which]).to(dev), torch.from_numpy(lengths).to(dev))
+    return points[at].contiguous(), new
+
+
+def _largest(frames: np.ndarray, area2: np.ndarray, count: int) -> np.ndarray:
+    """Each frame's largest contour (``max(contours, key=contour_area)``:
+    the first of equal areas), -1 for a frame without one."""
+
+    out = np.full(count, -1, np.int64)
+    order = np.lexsort((np.arange(len(frames)), -area2, frames))  # by frame, area falling, then position
+    first = order[np.r_[True, frames[order][1:] != frames[order][:-1]]] if len(order) else order
+    out[frames[first]] = first
+    return out
+
+
+def _fourier(imgs: torch.Tensor, num_coeff: int):
+    """(largest contour per frame, its points' offsets, lines, line
+    offsets, reconstruction) of a batch; the lines and the reconstruction
+    on the device."""
+
+    cont, offsets, frames, area2 = _contours(imgs)
+    largest = _largest(frames, area2, imgs.shape[0])
+    chosen = largest[largest >= 0]
+    pts, offs = _gather(cont.points, offsets, chosen)
+    coeffs, line_offsets, recon = fourier_lines(pts, offs, int(num_coeff))
+    return largest, offs, coeffs, line_offsets, recon
+
+
+def fourier_device(imgs: torch.Tensor, dyn, *, num_coeff: int = 10) -> torch.Tensor:
+    """Batch -> each frame with its largest contour's truncated Fourier
+    reconstruction, rounded half to even, painted as a closed yellow
+    polyline of thickness 2 (``fourier_descriptors_extraction``); a frame
+    without a contour comes back unchanged."""
+
+    largest, offs, _, _, recon = _fourier(imgs, num_coeff)
+    out = imgs.clone(memory_format=torch.contiguous_format)
+    if len(offs) == 1:
+        return out
+    n, h, w = imgs.shape[:3]
+    owner = torch.from_numpy(np.nonzero(largest >= 0)[0]).to(imgs.device)
+    at = polyline_pixels(torch.round(recon).to(torch.int64), offs, owner, h, w, 2)
+    colour = _as_color(0 if imgs.ndim == 3 else imgs.shape[-1], _YELLOW)
+    # uint16 as int16 (the same bits: the colour is below 2^15); the card has
+    # few uint16 kernels
+    flat = out.view(torch.int16) if out.dtype == torch.uint16 else out
+    flat = flat.reshape(n * h * w, -1) if imgs.ndim == 4 else flat.reshape(-1)
+    flat[at] = colour.to(flat.dtype).to(imgs.device)
+    return out
+
+
+def fourier_data(image: np.ndarray, num_coeff: int = 10, *, device="cuda") -> Dict[str, np.ndarray]:
+    """Columns ``num_coeff``, ``area``, ``perimeter``, ``circularity`` and
+    ``coeff_i_real`` / ``coeff_i_imag`` of the 2k kept lines, one row; the
+    polygon (the reconstruction rounded half to even, read back) measured
+    by the reference's host code.  An empty dict for a frame without a
+    contour."""
+
+    largest, _, coeffs, _, recon = _fourier(_frames(image).to(device), num_coeff)
+    if largest[0] < 0:
+        return {}
+    polygon = np.rint(recon.cpu().numpy()).astype(np.int64)
+    area = SH.contour_area(polygon)
+    perimeter = SH.arc_length(polygon, closed=True)
+    circularity = (4 * np.pi * area) / perimeter**2 if perimeter else 0.0
+    data = {
+        "num_coeff": np.array([int(num_coeff)], np.int64),
+        "area": np.array([area]),
+        "perimeter": np.array([perimeter]),
+        "circularity": np.array([circularity], np.float64),
+    }
+    for i, (re, im) in enumerate(coeffs.cpu().numpy()):
+        data[f"coeff_{i}_real"] = np.array([re])
+        data[f"coeff_{i}_imag"] = np.array([im])
+    return data
+
+
+register_op(
+    "extraction.fourier",
+    device_fn=fourier_device,
+    data_fn=fourier_data,
+    split=_all_static,
+)
+
+
+def shape_candidates(image: np.ndarray, *, device="cuda"):
+    """The approximate shape's inputs of one frame: ``(contours,
+    candidates, errors_args)`` where ``contours`` are the host int64 points
+    of each contour of area 100 or more (``contour_area`` from the exact
+    doubled area), ``candidates`` their 20 Douglas-Peucker polygons each,
+    and ``errors_args`` the arguments of :func:`.polygon.polygon_mean_errors`
+    for all of them (the contours' points and the vertices on ``device``);
+    None where no contour is that large."""
+
+    cont, offsets, _, area2 = _contours(_frames(image).to(device))
+    kept = np.nonzero(area2 >= 200)[0]
+    if not len(kept):
+        return None
+    pts, offs = _gather(cont.points, offsets, kept)
+    pairs = SH.farthest_pairs(pts, offs)
+    host = pts.cpu().numpy().astype(np.int64)
+    contours = [host[a:b] for a, b in zip(offs[:-1], offs[1:])]
+    candidates = [SH.candidate_polygons(c, pair) for c, pair in zip(contours, pairs)]
+    verts, vert_offsets = pack_candidates([p for cands in candidates for p in cands])
+    owner = torch.arange(len(contours)).repeat_interleave(len(SH.EPSILON_FACTORS))
+    return contours, candidates, (pts, offs, verts.to(pts.device), vert_offsets, owner)
+
+
+def _shape_records(image: np.ndarray, error_threshold: float = 1.0, *, device="cuda"):
+    """``(vertices, area, perimeter, edges)`` of each contour of area 100 or
+    more, in contour order (``_shape_records``): the polygon
+    ``_optimize_epsilon`` chooses from the candidates' mean boundary
+    errors, measured by the reference's host code."""
+
+    found = shape_candidates(image, device=device)
+    if found is None:
+        return []
+    contours, candidates, args = found
+    avgs = polygon_mean_errors(*args).cpu().numpy()
+    records = []
+    for r, (contour, cands) in enumerate(zip(contours, candidates)):
+        mine = avgs[r * len(cands) : (r + 1) * len(cands)]
+        _, approx = SH.select_epsilon(contour, cands, mine, float(error_threshold))
+        vertices = approx.reshape(-1, 2)
+        area = SH.contour_area(vertices)
+        perimeter = SH.arc_length(vertices, closed=True)
+        edges = [float(np.linalg.norm(vertices[(i + 1) % len(vertices)] - vertices[i])) for i in range(len(vertices))]
+        records.append((vertices, area, perimeter, edges))
+    return records
+
+
+def approximate_shape_data(image: np.ndarray, error_threshold: float = 1.0, *, device="cuda") -> Dict[str, np.ndarray]:
+    """Columns ``region_index``, ``area``, ``perimeter``, ``vertices`` and
+    ``edge_lengths`` (the edges as ``",".join(f"{e:.4f}")`` strings), a row
+    a contour of area 100 or more; an empty dict where there is none."""
+
+    records = _shape_records(image, error_threshold, device=device)
+    if not records:
+        return {}
+    return {
+        "region_index": np.arange(1, len(records) + 1, dtype=np.int64),
+        "area": np.array([r[1] for r in records], np.float64),
+        "perimeter": np.array([r[2] for r in records], np.float64),
+        "vertices": np.array([len(r[0]) for r in records], np.int64),
+        "edge_lengths": np.array([",".join(f"{e:.4f}" for e in r[3]) for r in records], dtype=object),
+    }
+
+
+register_op("extraction.approximate_shape", device_fn=None, data_fn=approximate_shape_data, split=_all_static)
+
+
 __all__ = [
     "REGION_COLUMNS",
+    "approximate_shape_data",
+    "fourier_data",
+    "fourier_device",
+    "shape_candidates",
     "Table",
     "fractal_data",
     "gabor_data",

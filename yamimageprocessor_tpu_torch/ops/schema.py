@@ -67,6 +67,10 @@ ALL_OPS: Tuple[OpSchema, ...] = (
     OpSchema("extraction.gabor", Stage.ANALYSIS, "Gabor", "Gabor"),
     OpSchema("extraction.hog", Stage.ANALYSIS, "HOG", "HOG"),
     OpSchema("extraction.fractal", Stage.ANALYSIS, "Fractal", "Fractal"),
+    # num_coeff: int, default 10, 1..512 (the keyword default of the op's functions)
+    OpSchema("extraction.fourier", Stage.ANALYSIS, "Fourier", "Fourier"),
+    # error_threshold: float, default 1.0, 0..100
+    OpSchema("extraction.approximate_shape", Stage.ANALYSIS, "Approximate Shape", "Approximate Shape"),
 )
 
 _BY_ID: Dict[str, OpSchema] = {op.identifier: op for op in ALL_OPS}

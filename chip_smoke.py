@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its eight
+"""Build and check the torch port on one CUDA card, then drive its nine
 main paths once each: the flagship preprocess chain, the segmentation
 chain, the batched CLAHE chain, the denoise chain, the bilateral filter,
-the region-properties extraction, the texture features and the shape
-features (Fourier descriptors, approximate shape).
+the region-properties extraction, the texture features, the shape
+features (Fourier descriptors, approximate shape) and the streaming of
+gigapixel slides.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --streaming   # build, then the stream phase alone
     python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
     python3 chip_smoke.py --extraction-times-of DIR   # the hull and annotation kernels of checkout DIR
     python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter and LBP kernels, three tables: DIRs and this
@@ -143,7 +145,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
    frames' candidates and the disk's; each kernel's, its plain version's
    and (the Fourier lines: cuFFT's fft and ifft) the library call's device
    time beside its bound; the chain's host-clock ms at 1, 8 and 32 frames,
-   its kernels by the profiler, the tables' host ms a frame.
+   its kernels by the profiler, the tables' host ms a frame;
+12. stream: ``.npy`` slides opened as memmap records (in a temporary
+   directory) through the pipeline manager: the flagship chain on a
+   16384^2 slide in 2048^2 tiles (``bench.py:_extra_gigapixel``'s
+   geometry: the uniform fused route, 64 windows of 2052^2 on the card)
+   with the counts set to 0, equal to the port's dense chain bit for bit;
+   then a cold sweep (source cache cleared), a warm one (nothing read), a
+   device-sink one and one on the batched route (the cache's budget below
+   the windows' bytes), each equal to the dense chain and timed on the
+   host clock in GPix/s, and each part of a sweep timed alone (reads,
+   upload, kernels, read-back, the host's paste); the CLAHE chain (grid 8,
+   clip 40, then normalize) on a 16380^2 slide (the generic route, 4
+   padded grid rows and columns) with the counts set to 0, its two stream
+   kernels bit for bit against their plain versions on a middle row of
+   tiles, the last row (the mirror rows) and the corner tile, and timed
+   there beside their bounds; the flagship and CLAHE chains on 2048^2
+   gray and BGR slides in 512^2 and 500 x 300 tiles against SHA-256
+   digests of the JAX package's streamed output; the segmentation chain
+   on a 4096^2 slide through the dense branch against the dense chain;
+   H2D and D2H of 256 MiB, pinned through ``parallel/transfer.py`` and
+   pageable, in GB/s.
 
 The kernel phase also holds the median kernel bit for bit against its
 plain version at ksizes 3, 5, 7 and 9 on the denoise path's gray frames
@@ -192,7 +214,9 @@ from collections import defaultdict
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -356,6 +380,16 @@ DIGESTS = {
     "shape_fourier10_output": "a5ce65607a95416e14f48a87e57e637131a0a30db6b921828c9a81206a2d5e0f",
     "shape_fourier512_output": "0eadddb6b9c371e8eb03fbff6f888b0a4d5c80eec3509c6cda558b52d63db741",
     "shape_tables": "21029badbb1dfa06c5044f05c24c570371453eae16c12249ce7a8ef58a3b52cc",
+    "stream_gray_input": "037cc07e955daf19273c4605cba9598cd3a5532aa5a00f1bc1742c58e43fa36f",
+    "stream_flagship_gray_512": "ababf7afd2be23de0ff6e6ee3c2c6ac95b9adff8af0439aaf2da3dd67daf7ecb",
+    "stream_flagship_gray_500x300": "ababf7afd2be23de0ff6e6ee3c2c6ac95b9adff8af0439aaf2da3dd67daf7ecb",
+    "stream_clahe_gray_512": "402c3a1fd944ad3094fd11f7e0739a128f5a9bdb0c2830b65a97385247316032",
+    "stream_clahe_gray_500x300": "402c3a1fd944ad3094fd11f7e0739a128f5a9bdb0c2830b65a97385247316032",
+    "stream_bgr_input": "579a595a2055ac27fd8ac968880702ac2026722cc3bbfac76e8f58e639bfd414",
+    "stream_flagship_bgr_512": "647ae31ba21c005da14b7a23e3064a4fb80656b1222a08c31275a89b726e7d86",
+    "stream_flagship_bgr_500x300": "647ae31ba21c005da14b7a23e3064a4fb80656b1222a08c31275a89b726e7d86",
+    "stream_clahe_bgr_512": "b8d2301e565701a4dfa4ccd9b116fbb0b93f8927010e90bab162782ede1f07bd",
+    "stream_clahe_bgr_500x300": "b8d2301e565701a4dfa4ccd9b116fbb0b93f8927010e90bab162782ede1f07bd",
 }
 
 
@@ -1644,6 +1678,8 @@ def _counters():
         "trace_contours": trace_contours,
         "fourier_lines": fourier_lines,
         "polygon_mean_errors": polygon_mean_errors,
+        "stream_grid_histogram": CL.grid_hist_stream,
+        "clahe_stream_blend": CL.clahe_stream_blend,
     }
 
 
@@ -3091,6 +3127,320 @@ _EXTRACTION_GROUPS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# streaming (BASELINE config 5: bench.py:_extra_gigapixel's slide and tiles)
+
+STREAM_SIDE = 16384  # the flagship slide: 64 tiles of 2048^2, windows of 2052^2 (the fused route)
+STREAM_CLAHE_SIDE = 16380  # not a multiple of the tile (the generic route) nor of the grid (4 padded rows and columns)
+STREAM_TILE = (2048, 2048)
+STREAM_SEG_SIDE = 4096  # the segmentation chain through the dense branch
+STREAM_DIGEST_SIDE = 2048
+STREAM_DIGEST_TILES = {"512": (512, 512), "500x300": (500, 300)}  # (width, height): exact and non-exact grids
+STREAM_BATCHED_BUDGET = 128 << 20  # a source-cache budget below the slide's 269 MB of windows: the batched route
+TRANSFER_BYTES = 256 << 20
+STREAM_KERNELS = ("stream_grid_histogram", "clahe_stream_blend")
+
+
+def stream_clahe_steps():
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    return [
+        PipelineStep(name="clahe", op_id="preprocessing.clahe", stage=Stage.PREPROCESSING,
+                     params={"clip_limit": 40.0, "grid_size": 8}),
+        PipelineStep(name="IntensityNormalization", stage=Stage.PREPROCESSING, params={}),
+    ]
+
+
+def write_slide(directory: str, name: str, array: np.ndarray, tile=None):
+    """``array`` saved as ``.npy`` and opened as a memmap-backed record."""
+
+    from yamimageprocessor_tpu_torch.io.tiled_image import TiledImageRecord
+    from yamimageprocessor_tpu_torch.pipeline.tiled_records import TiledPipelineImage
+
+    path = Path(directory) / f"{name}.npy"
+    np.save(path, array)
+    record = TiledImageRecord.from_npy(path, metadata={}, memmap=np.load(path, mmap_mode="r"))
+    return TiledPipelineImage(record, tile_size=tile or STREAM_TILE)
+
+
+def host_s(fn):
+    """(result, host seconds) of ``fn()``, the card idle before and after."""
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def transfer_rates(dev) -> dict:
+    """H2D and D2H GB/s of a 256 MiB buffer, pinned through the port's
+    transfer layer (a staging buffer, the copy stream) and pageable (a
+    torch copy from or to a numpy array already touched), median of 5."""
+
+    from yamimageprocessor_tpu_torch.parallel import transfer as TR
+
+    n = TRANSFER_BYTES
+    host = np.random.default_rng(0).integers(0, 256, n, dtype=np.uint8)
+    stage = TR.staging((n,), np.uint8, dev)
+    np.copyto(stage.array, host)
+    dst = TR.upload(stage, dev)
+    pageable = np.empty(n, np.uint8)
+    pageable[:] = 1
+
+    def pinned_h2d():
+        TR.finish_upload(TR.start_upload(TR.staging((n,), np.uint8, dev), dev, out=dst))
+
+    cases = {
+        "h2d_pinned": pinned_h2d,
+        "h2d_pageable": lambda: dst.copy_(torch.from_numpy(host)),
+        "d2h_pinned": lambda: TR.fetch(dst),
+        "d2h_pageable": lambda: torch.from_numpy(pageable).copy_(dst),
+    }
+    rates = {}
+    for name, fn in cases.items():
+        host_s(fn)
+        times = [host_s(fn)[1] for _ in range(5)]
+        rates[name] = n / statistics.median(times) / 1e9
+    if not np.array_equal(TR.fetch(dst), host):
+        raise AssertionError("transfer: the round trip changed the buffer")
+    return rates
+
+
+def sweep_breakdown(image, dev) -> dict:
+    """Where a flagship sweep's time goes, each part on its own (host ms):
+    reading the 64 windows from the memmap into a pinned buffer of 8, their
+    upload, the chain's kernels on the cached windows (a device-sink sweep,
+    device time by an event pair), the read-back of the 64 tiles, and the
+    host copy of the tiles into the assembled frame."""
+
+    from yamimageprocessor_tpu_torch.parallel import tiling as TL
+    from yamimageprocessor_tpu_torch.parallel import transfer as TR
+    from yamimageprocessor_tpu_torch.models.stages import preprocess_steps
+
+    side, (tw, th) = STREAM_SIDE, STREAM_TILE
+    halo = 2
+    windows = []
+    for left, top, right, bottom in TL.iter_tile_boxes(side, side, (tw, th)):
+        wtop = min(max(top - halo, 0), side - th - 2 * halo)
+        wleft = min(max(left - halo, 0), side - tw - 2 * halo)
+        windows.append((wleft, wtop, wleft + tw + 2 * halo, wtop + th + 2 * halo))
+    batch = 8
+    pinned = torch.empty((batch, th + 2 * halo, tw + 2 * halo), dtype=torch.uint8, pin_memory=True)
+    buf = pinned.numpy()
+    start = time.perf_counter()
+    for i, w in enumerate(windows):
+        TL._read_into(image, w, buf[i % batch])
+    reads = time.perf_counter() - start
+    dev_windows = torch.empty((len(windows),) + tuple(pinned.shape[1:]), dtype=torch.uint8, device=dev)
+
+    def upload_all():
+        for i in range(0, len(windows), batch):
+            dev_windows[i : i + batch].copy_(pinned, non_blocking=True)
+
+    _, h2d = host_s(upload_all)
+    kept = []
+    steps = preprocess_steps()
+    TL.stream_steps_tiled(steps, image, None, device_sink=lambda b, t: kept.append(t), device=dev)  # warm
+    kept.clear()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    begin.record()
+    TL.stream_steps_tiled(steps, image, None, device_sink=lambda b, t: kept.append(t), device=dev)
+    end.record()
+    end.synchronize()
+    kernels_ms = begin.elapsed_time(end)
+    tiles = [t for part in kept for t in part]
+
+    def fetch_all():
+        return [TR.fetch(torch.stack(tiles[i : i + batch])) for i in range(0, len(tiles), batch)]
+
+    fetched, d2h = host_s(fetch_all)
+    frame = np.empty((side, side), np.uint8)
+    start = time.perf_counter()
+    k = 0
+    for part in fetched:
+        for tile in part:
+            top, left = (k // (side // tw)) * th, (k % (side // tw)) * tw
+            frame[top : top + th, left : left + tw] = tile
+            k += 1
+    assembly = time.perf_counter() - start
+    return {
+        "host_reads_ms": reads * 1e3,
+        "h2d_ms": h2d * 1e3,
+        "kernels_device_ms": kernels_ms,
+        "d2h_ms": d2h * 1e3,
+        "assembly_ms": assembly * 1e3,
+    }
+
+
+def stream_kernel_checks(image, dev, frame_shape) -> dict:
+    """The two stream kernels against their plain versions, bit for bit, on
+    the CLAHE slide's windows as the generic route batches them: 7 tiles of
+    a middle row, the last row's 7 (the mirror rows), the corner tile (the
+    mirror rows and columns); the tables from the slide's merged
+    histograms.  Then each kernel's and plain version's device time on the
+    middle row, with its bound."""
+
+    from yamimageprocessor_tpu_torch.ops import clahe as CL
+    from yamimageprocessor_tpu_torch.parallel import tiling as TL
+
+    h, w = frame_shape
+    grid = (8, 8)
+    boxes = list(TL.iter_tile_boxes(w, h, STREAM_TILE))
+    per_row = -(-w // STREAM_TILE[0])
+
+    def tiles_of(sel):
+        regions = np.stack([image.read_region(boxes[k]) for k in sel])
+        return torch.from_numpy(regions).to(dev), [(boxes[k][1], boxes[k][0]) for k in sel]
+
+    hist = torch.zeros((8, 8, 256), dtype=torch.int32, device=dev)
+    for row in range(-(-h // STREAM_TILE[1])):
+        for sel in (range(row * per_row, row * per_row + per_row - 1), [row * per_row + per_row - 1]):
+            t, o = tiles_of(sel)
+            hist += CL.grid_hist_stream(t, o, frame_shape, grid)
+    luts = CL.clahe_stream_luts(hist, 40.0, frame_shape, grid)
+    last = len(boxes) - 1
+    cases = {
+        "middle row": range(3 * per_row, 3 * per_row + per_row - 1),
+        "last row": range(last - per_row + 1, last),
+        "corner": [last],
+    }
+    err = {}
+    for name, sel in cases.items():
+        t, o = tiles_of(sel)
+        err[f"hist {name}"] = exact(f"grid_hist_stream {name}", CL.grid_hist_stream(t, o, frame_shape, grid),
+                                    CL.grid_hist_stream_plain(t, o, frame_shape, grid))
+        err[f"blend {name}"] = exact(f"clahe_stream_blend {name}", CL.clahe_stream_blend(t, luts, o, frame_shape, grid),
+                                     CL.clahe_stream_blend_plain(t, luts, o, frame_shape, grid))
+    t, o = tiles_of(cases["middle row"])
+    nbytes = t.numel()
+    times = {
+        "stream_grid_histogram": paired_ms(lambda: CL.grid_hist_stream(t, o, frame_shape, grid),
+                                           lambda: CL.grid_hist_stream_plain(t, o, frame_shape, grid), plain_runs=3),
+        "clahe_stream_blend": paired_ms(lambda: CL.clahe_stream_blend(t, luts, o, frame_shape, grid),
+                                        lambda: CL.clahe_stream_blend_plain(t, luts, o, frame_shape, grid),
+                                        runs=RUNS, plain_runs=3),
+    }
+    bounds = {
+        "stream_grid_histogram": bound_ms(nbytes + 8 * 8 * 256 * 4),
+        "clahe_stream_blend": bound_ms(2 * nbytes + 8 * 8 * 256),
+    }
+    return {"err": err, "times": times, "bounds": bounds, "batch": tuple(t.shape)}
+
+
+def phase_stream(dev) -> dict:
+    """The streaming runtime on .npy slides opened as memmap records: the
+    flagship chain on a 16384^2 slide (cold, warm and device-sink sweeps,
+    the batched route, against the port's dense chain), the CLAHE chain on
+    16380^2 (its stream kernels against their plain versions), the JAX
+    package's streamed digests at 2048^2, the segmentation chain through the
+    dense branch at 4096^2, and the transfer rates."""
+
+    from yamimageprocessor_tpu_torch.models.stages import flagship_forward, preprocess_steps, segmentation_forward
+    from yamimageprocessor_tpu_torch.models.stages import segmentation_steps
+    from yamimageprocessor_tpu_torch.parallel import tiling as TL
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    begin = time.perf_counter()
+    px = float(STREAM_SIDE) ** 2
+    result = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="yam_stream_") as tmp:
+        rng = np.random.default_rng(5)
+        slide = rng.integers(0, 256, (STREAM_SIDE, STREAM_SIDE), dtype=np.uint8)
+        flag_src = write_slide(tmp, "flagship", slide)
+        manager = PipelineManager(preprocess_steps(), device=dev)
+        TL.clear_source_stack_cache()
+        run, first_s = host_s(lambda: drive("stream flagship", ("sepconv", "histogram256", "lut_apply"),
+                                            lambda: manager.apply(flag_src)))
+        result["launches"].update(run["launches"])
+        streamed = run["out"]
+        dense = flagship_forward(torch.from_numpy(slide).to(dev)[None])[0].cpu()
+        exact("stream flagship == the port's dense chain", torch.from_numpy(streamed), dense)
+        TL.clear_source_stack_cache()
+        cold, cold_s = host_s(lambda: manager.apply(flag_src))
+        warm, warm_s = host_s(lambda: manager.apply(flag_src))
+        exact("stream flagship cold", torch.from_numpy(cold), dense)
+        exact("stream flagship warm", torch.from_numpy(warm), dense)
+        del cold, warm
+        kept = []
+        _, sink_s = host_s(lambda: TL.stream_steps_tiled(preprocess_steps(), flag_src, None, device=dev,
+                                                         device_sink=lambda b, t: kept.append((b, t))))
+        frame = torch.empty((STREAM_SIDE, STREAM_SIDE), dtype=torch.uint8, device=dev)
+        for boxes, batch in kept:
+            for (left, top, right, bottom), tile in zip(boxes, batch):
+                frame[top:bottom, left:right] = tile
+        exact("stream flagship device sink", frame.cpu(), dense)
+        del kept, frame
+        budget = TL._SOURCE_STACK_CACHE.budget
+        TL._SOURCE_STACK_CACHE.budget = STREAM_BATCHED_BUDGET
+        TL.clear_source_stack_cache()
+        try:
+            batched, batched_s = host_s(lambda: manager.apply(flag_src))
+        finally:
+            TL._SOURCE_STACK_CACHE.budget = budget
+        exact("stream flagship batched route", torch.from_numpy(batched), dense)
+        del batched
+        TL.clear_source_stack_cache()
+        result["breakdown"] = sweep_breakdown(flag_src, dev)
+        TL.clear_source_stack_cache()
+        result["gpix_s"] = {
+            "first": px / first_s / 1e9,
+            "cold": px / cold_s / 1e9,
+            "warm": px / warm_s / 1e9,
+            "device_sink": px / sink_s / 1e9,
+            "batched": px / batched_s / 1e9,
+        }
+        print(f"stream flagship {STREAM_SIDE}^2 in {STREAM_TILE} tiles == the port's dense chain (first sweep, "
+              f"cold, warm, device sink, batched route); GPix/s {json.dumps(result['gpix_s'])}")
+        print(f"stream flagship sweep parts (ms): {json.dumps(result['breakdown'])}")
+        del slide, streamed, dense
+
+        side = STREAM_CLAHE_SIDE
+        clahe_slide = rng.integers(0, 256, (side, side), dtype=np.uint8)
+        clahe_src = write_slide(tmp, "clahe", clahe_slide)
+        clahe_manager = PipelineManager(stream_clahe_steps(), device=dev)
+        run, clahe_s = host_s(lambda: drive("stream clahe", ("stream_grid_histogram", "clahe_stream_blend", "lut_apply"),
+                                            lambda: clahe_manager.apply(clahe_src)))
+        result["launches"].update(run["launches"])
+        out = run["out"]
+        if out.shape != (side, side) or out.dtype != np.uint8 or int(out.max()) != 255 or int(out.min()) != 0:
+            raise AssertionError(f"stream clahe: {out.shape} {out.dtype} in [{out.min()}, {out.max()}]")
+        result["gpix_s"]["clahe"] = float(side) ** 2 / clahe_s / 1e9
+        checks = stream_kernel_checks(clahe_src, dev, (side, side))
+        result.update(err=checks["err"], times=checks["times"], bounds=checks["bounds"])
+        print(f"stream clahe {side}^2: {result['gpix_s']['clahe']:.3f} GPix/s; stream kernels == plain on "
+              f"{list(checks['err'])}; timed on {checks['batch']}")
+        del clahe_slide, out
+
+        frames = {
+            "gray": np.random.default_rng(21).integers(0, 256, (STREAM_DIGEST_SIDE,) * 2, dtype=np.uint8),
+            "bgr": np.random.default_rng(22).integers(0, 256, (STREAM_DIGEST_SIDE,) * 2 + (3,), dtype=np.uint8),
+        }
+        chains = {"flagship": preprocess_steps, "clahe": stream_clahe_steps}
+        for kind, array in frames.items():
+            check_digest(f"stream_{kind}_input", array)
+            for tiles, tile in STREAM_DIGEST_TILES.items():
+                src = write_slide(tmp, f"digest_{kind}_{tiles}", array, tile)
+                for chain, make_steps in chains.items():
+                    check_digest(f"stream_{chain}_{kind}_{tiles}", PipelineManager(make_steps(), device=dev).apply(src))
+        print(f"stream digests: flagship and clahe chains, gray and BGR {STREAM_DIGEST_SIDE}^2, tiles "
+              f"{list(STREAM_DIGEST_TILES)} == the JAX package's streamed output")
+
+        scene = dense_scene(STREAM_SEG_SIDE, seed=3)
+        seg_src = write_slide(tmp, "segmentation", scene)
+        seg_out, seg_s = host_s(lambda: PipelineManager(segmentation_steps(), device=dev).apply(seg_src))
+        seg_dense = segmentation_forward(torch.from_numpy(scene).to(dev)[None])[0].cpu()
+        exact("stream segmentation (dense branch) == the port's dense chain", torch.from_numpy(seg_out), seg_dense)
+        print(f"stream segmentation {STREAM_SEG_SIDE}^2 through the dense branch == the port's dense chain "
+              f"({seg_s * 1e3:.1f} ms)")
+    result["transfer_gb_s"] = transfer_rates(dev)
+    print(f"transfer 256 MiB GB/s: {json.dumps(result['transfer_gb_s'])}")
+    print(f"stream phase: {time.perf_counter() - begin:.1f} s")
+    return result
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--times-of"]:
         times_of(sys.argv[2])
@@ -3103,6 +3453,12 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--texture-times-one"]:
         texture_times_one(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--streaming"]:
+        phase_device()
+        phase_build()
+        stm = phase_stream(torch.device("cuda", 0))
+        print(json.dumps({k: stm[k] for k in ("launches", "err", "times", "bounds")}))
         return
     begin = time.perf_counter()
     smi = phase_device()
@@ -3126,6 +3482,10 @@ def main() -> None:
     shp = phase_shape(dev)
     launches.update(shp["launches"])
     print(f"elapsed after phase_shape: {time.perf_counter() - begin:.1f} s")
+    stm = phase_stream(dev)
+    for name, count in stm["launches"].items():
+        launches[name] = launches.get(name, 0) + count
+    print(f"elapsed after phase_stream: {time.perf_counter() - begin:.1f} s")
     loaded = sorted(
         k for k in sys.modules
         if k == "jax" or k.startswith("jax.") or k == "yamimageprocessor_tpu" or k.startswith("yamimageprocessor_tpu.")
@@ -3213,6 +3573,23 @@ def main() -> None:
          "none: no PyTorch call gives the distance to a polygon's edges; ms: frame 0's 64 contours x 20 "
          "candidates (a launch a table); by_input: the 4001-row disk's 20"),
     ]
+    rows += [
+        ("stream_grid_histogram", "yamimageprocessor_tpu_torch/csrc/clahe.cu",
+         "yamimageprocessor_tpu/ops/clahe.py:408 clahe_grid_hist_tile_j (XLA segment_sum in the streaming stats "
+         "pass, not a pallas_call; the stream instance of pallas_kernels.py:457's tile histograms)",
+         "none: no single PyTorch call counts weighted levels by grid cell (index_add_ needs the cell and weight "
+         "planes formed first); ms: 7 tiles of 2048^2 of the 16380^2 CLAHE slide's fourth row (also checked on "
+         "the last row's mirror rows and the corner tile)"),
+        ("clahe_stream_blend", "yamimageprocessor_tpu_torch/csrc/clahe.cu",
+         "yamimageprocessor_tpu/ops/clahe.py:440 clahe_apply_from_hist_j (XLA 256-pass fori_loop in the streaming "
+         "apply pass, not a pallas_call; the stream instance of ops/clahe_pallas.py:137's blend)",
+         "none: no single PyTorch call blends four table lookups a pixel; ms: the same 7 tiles"),
+    ]
+    for name in STREAM_KERNELS:
+        kern["err"][name] = max(v for k, v in stm["err"].items() if k.startswith("hist" if "hist" in name else "blend"))
+        kern["times"][name] = stm["times"][name]
+        kern["bounds"][name] = stm["bounds"][name]
+        kern["library"][name] = None
     for name in SHAPE_KERNELS:
         for key in ("err", "times", "bounds", "library"):
             kern[key][name] = shp[key][name]
@@ -3297,6 +3674,8 @@ def main() -> None:
     print(f"extraction rates: {json.dumps(ext['rates'])}")
     print(f"texture chains: {json.dumps(tex['chains'])}; tables host ms a frame: {json.dumps(tex['tables_ms'])}")
     print(f"fourier chain: {json.dumps(shp['chains'])}; shape tables host ms a frame: {json.dumps(shp['tables_ms'])}")
+    print(f"streaming GPix/s: {json.dumps(stm['gpix_s'])}; sweep parts ms: {json.dumps(stm['breakdown'])}; "
+          f"transfer GB/s: {json.dumps(stm['transfer_gb_s'])}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(

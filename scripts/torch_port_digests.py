@@ -40,7 +40,12 @@ the spectral lines).  ``chip_smoke.py`` keeps these as constants.  Takes
 about 10 min and a few GB of memory on an 8-core CPU (the approximate
 shape's host loop, ~30 s a frame, most of it); ``--texture`` prints only
 the texture digests (about 1 min), ``--shape`` only the shape digests
-(about 5 min).
+(about 5 min).  ``--stream`` prints only the streaming digests: the JAX
+package's ``apply_steps_tiled`` output of the flagship chain and of the
+stream CLAHE chain (CLAHE grid 8, clip 40, then normalize) on a 2048^2
+gray frame and a 2048^2 x 3 BGR frame from ``np.random.default_rng``
+(seeds 21 and 22), in 512^2 tiles (an exact grid) and in 500 x 300 tiles
+(a non-exact one); about 2 min.
 """
 from __future__ import annotations
 
@@ -265,6 +270,56 @@ def bilateral_steps():
                          params={"method": "Bilateral", "ksize": 5})]
 
 
+STREAM_SIDE = 2048
+STREAM_TILES = {"512": (512, 512), "500x300": (500, 300)}  # (width, height)
+
+
+class _Frame:
+    """A tiled source over an in-memory frame (regions only, never whole)."""
+
+    def __init__(self, array: np.ndarray) -> None:
+        self._array = array
+        self.shape = array.shape
+        self.dtype = array.dtype
+
+    def read_region(self, box):
+        left, top, right, bottom = box
+        return np.array(self._array[top:bottom, left:right, ...])
+
+
+def stream_frames() -> dict:
+    """The streaming digests' gray and BGR frames."""
+
+    side = STREAM_SIDE
+    return {
+        "gray": np.random.default_rng(21).integers(0, 256, (side, side), dtype=np.uint8),
+        "bgr": np.random.default_rng(22).integers(0, 256, (side, side, 3), dtype=np.uint8),
+    }
+
+
+def stream_clahe_steps(step_cls, stage_cls):
+    return [
+        step_cls(name="clahe", op_id="preprocessing.clahe", stage=stage_cls.PREPROCESSING,
+                 params={"clip_limit": 40.0, "grid_size": 8}),
+        step_cls(name="IntensityNormalization", stage=stage_cls.PREPROCESSING, params={}),
+    ]
+
+
+def stream_digests(result: dict) -> None:
+    from yamimageprocessor_tpu.models.stages import preprocess_steps
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.parallel.tiling import apply_steps_tiled
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    chains = {"flagship": preprocess_steps(), "clahe": stream_clahe_steps(PipelineStep, Stage)}
+    for kind, array in stream_frames().items():
+        result[f"stream_{kind}_input"] = digest(array)
+        for chain, steps in chains.items():
+            for tiles, tile_size in STREAM_TILES.items():
+                out = apply_steps_tiled(steps, _Frame(array), tile_size=tile_size)
+                result[f"stream_{chain}_{kind}_{tiles}"] = digest(out)
+
+
 def main() -> None:
     import jax
     import jax.numpy as jnp
@@ -274,9 +329,10 @@ def main() -> None:
     from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
 
     start = time.perf_counter()
-    if sys.argv[1:] in (["--texture"], ["--shape"]):
+    only = {"--texture": texture_digests, "--shape": shape_digests, "--stream": stream_digests}
+    if len(sys.argv) == 2 and sys.argv[1] in only:
         result = {"backend": jax.default_backend()}
-        (texture_digests if sys.argv[1:] == ["--texture"] else shape_digests)(result)
+        only[sys.argv[1]](result)
         result["seconds"] = round(time.perf_counter() - start, 1)
         print(json.dumps(result))
         return
@@ -326,6 +382,7 @@ def main() -> None:
     extraction_digests(result)
     texture_digests(result)
     shape_digests(result)
+    stream_digests(result)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

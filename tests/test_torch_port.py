@@ -77,6 +77,11 @@ def test_records_and_flags_match_jax(identifier):
     assert impl.lut_needs_image == jimpl.lut_needs_image
     assert tuple(impl.lut_ndims) == tuple(jimpl.lut_ndims)
     assert (impl.data_fn is not None) == (jimpl.data_fn is not None)
+    # the streaming flags and decompositions
+    assert (impl.global_stats, impl.reshapes) == (jimpl.global_stats, jimpl.reshapes)
+    assert impl.streamable_global == jimpl.streamable_global
+    assert (impl.stream_gate is not None) == (jimpl.stream_gate is not None)
+    assert (impl.stats_lut_fn is not None) == (jimpl.stats_lut_fn is not None)
 
 
 @pytest.mark.parametrize("identifier", PORTED)
@@ -350,3 +355,74 @@ def test_moments_and_hu_moments_match_jax(kind):
     assert list(ours) == list(ref)
     assert np.array(list(ours.values())).tobytes() == np.array(list(ref.values())).tobytes()
     assert hu_moments(ours).tobytes() == SH.hu_moments(ref).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the streaming runtime's host code
+
+
+@pytest.mark.parametrize("width, height, tile", [(100, 50, (32, 32)), (64, 64, (64, 64)), (7, 5, (2, 3)), (9, 4, None)])
+def test_tile_boxes_match_jax(width, height, tile):
+    from yamimageprocessor_tpu.parallel import tiling as JT
+
+    from yamimageprocessor_tpu_torch.parallel import tiling as TT
+
+    assert list(TT.iter_tile_boxes(width, height, tile)) == list(JT.iter_tile_boxes(width, height, tile))
+    for box in TT.iter_tile_boxes(width, height, tile):
+        for halo in (0, 1, 9):
+            assert TT._expand_box(box, halo, width, height) == JT._expand_box(box, halo, width, height)
+
+
+def test_grid_gates_match_jax():
+    from yamimageprocessor_tpu.parallel import tiling as JT
+
+    from yamimageprocessor_tpu_torch.parallel import tiling as TT
+
+    for width, height in [(128, 96), (123, 90), (64, 64), (16384, 16384), (16380, 16380), (40, 40)]:
+        for tw, th in [(32, 32), (2048, 2048), (64, 47), (40, 40), (0, 8)]:
+            for halo in (0, 2, 11, 30):
+                assert TT._exact_grid(width, height, tw, th, halo) == JT._exact_grid(width, height, tw, th, halo)
+
+
+@pytest.mark.parametrize(
+    "make_steps", [S.preprocess_steps, S.segmentation_steps, S.full_pipeline_steps], ids=["flagship", "segmentation", "full"]
+)
+def test_chain_routing_matches_jax(make_steps):
+    from yamimageprocessor_tpu.parallel import tiling as JT
+
+    from yamimageprocessor_tpu_torch.parallel import tiling as TT
+
+    ours = make_steps()
+    ref = [JaxStep.from_dict(s.to_dict()) for s in ours]
+    crop = {"name": "Crop", "stage": "preprocessing", "params": {"width": 8, "height": 8}}
+    clahe = {"name": "clahe", "stage": "preprocessing", "params": {"grid_size": 8}}
+    for extra in ([], [crop], [clahe]):
+        o = ours + [PipelineStep.from_dict(e) for e in extra]
+        r = ref + [JaxStep.from_dict(e) for e in extra]
+        assert TT.chain_halo(o) == JT.chain_halo(r)
+        assert TT.chain_tileable(o) == JT.chain_tileable(r)
+        for shape in [(96, 128), (10, 10), (2048, 2048, 3)]:
+            assert TT.chain_streamable(o, shape) == JT.chain_streamable(r, shape)
+        for tile in [(32, 32), (7, 9), None]:
+            assert TT._uniform_candidate(o, None, tile, 128, 96) == JT._uniform_candidate(r, None, tile, 128, 96)
+
+
+@pytest.mark.parametrize("shape", [(4, 5), (4, 5, 3), (4, 5, 4), (2, 3, 2)])
+def test_rgb_to_bgr_matches_jax(shape):
+    from yamimageprocessor_tpu.io.tiled_image import rgb_to_bgr as ref
+
+    from yamimageprocessor_tpu_torch.io.tiled_image import rgb_to_bgr
+
+    array = np.arange(int(np.prod(shape)), dtype=np.uint8).reshape(shape)
+    assert np.array_equal(rgb_to_bgr(array), ref(array))
+
+
+def test_clahe_stream_gate_matches_jax():
+    from yamimageprocessor_tpu.ops.clahe import clahe_stream_gate as ref
+
+    from yamimageprocessor_tpu_torch.ops.clahe import clahe_stream_gate
+
+    for h in (8, 10, 17, 94, 123, 1000, 16380, 16384):
+        for w in (8, 9, 33, 128, 16380):
+            for grid in (2, 3, 8, 13, 64):
+                assert clahe_stream_gate(grid, (h, w)) == ref(grid, (h, w))

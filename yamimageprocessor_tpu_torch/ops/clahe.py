@@ -373,6 +373,287 @@ def clahe(y: torch.Tensor, clip_limit: float = 40.0, grid: Tuple[int, int] = (8,
     return clahe_blend(work, luts, interp_tensors(h, w, (gh, gw), h0, w0, y.device))
 
 
+# ---------------------------------------------------------------------------
+# the streaming decomposition (ops/clahe.py:383-504 of the JAX package)
+#
+# A frame streamed in tiles never exists whole, so CLAHE runs in two passes:
+# the stats pass counts each stream tile's pixels into the (gh, gw, 256)
+# histograms of the grid cells they fall in (:func:`grid_hist_stream`,
+# merged by an integer sum), and the apply pass clips the merged histograms
+# into tables once and blends them at each window's absolute coordinates
+# (:func:`clahe_stream_blend`).  The dense path pads the frame reflect-101
+# to the grid; in the stream the rows and columns that padding copies count
+# twice instead, which holds while the padding stays inside the last cell
+# (:func:`clahe_stream_gate`).
+
+
+def clahe_stream_gate(grid_size: int, frame_shape) -> bool:
+    """True when the reflect-101 grid padding stays inside the last grid
+    cell, so stream tiles can fold the mirror copies locally (a copy of
+    ``ops/clahe.py:clahe_stream_gate``; tiny frames take the dense path)."""
+
+    h, w = int(frame_shape[0]), int(frame_shape[1])
+    gh = gw = int(grid_size)
+    ph = (-h) % gh
+    pw = (-w) % gw
+    th = (h + ph) // gh
+    tw = (w + pw) // gw
+    return th >= 2 * ph + 1 and tw >= 2 * pw + 1
+
+
+def stream_cells(frame_shape, grid: Tuple[int, int]) -> Tuple[int, int, int, int]:
+    """``(ph, pw, th, tw)``: the grid padding of an ``(h, w, ...)`` frame and
+    the side of its grid cells."""
+
+    h, w = int(frame_shape[0]), int(frame_shape[1])
+    gh, gw = grid
+    ph, pw = (-h) % gh, (-w) % gw
+    return ph, pw, (h + ph) // gh, (w + pw) // gw
+
+
+def _mirror_runs(start: int, stop: int, size: int, pad: int, cell: int, count: int):
+    """``(a, b, cell index, weight)`` runs of absolute positions ``[start,
+    stop)`` of an axis of ``size`` positions padded by ``pad``: each run in
+    one cell, positions ``size - 1 - pad .. size - 2`` (the sources of the
+    reflect-101 copies) weighing 2, the others 1."""
+
+    cuts = {start, stop}
+    for k in range(1, count):
+        cuts.add(k * cell)
+    if pad > 0:
+        cuts.update((size - 1 - pad, size - 1))
+    points = sorted(p for p in cuts if start <= p <= stop)
+    runs = []
+    for a, b in zip(points, points[1:]):
+        if a == b:
+            continue
+        weight = 2 if pad > 0 and size - 1 - pad <= a <= size - 2 else 1
+        runs.append((a, b, min(a // cell, count - 1), weight))
+    return runs
+
+
+def _check_stream_tiles(name: str, tiles: torch.Tensor, origins) -> None:
+    if tiles.dtype != torch.uint8 or tiles.ndim != 3:
+        raise ValueError(f"{name} takes (N, H, W) uint8, got {tuple(tiles.shape)} {tiles.dtype}")
+    if len(origins) != tiles.shape[0]:
+        raise ValueError(f"{name}: {len(origins)} origins for {tiles.shape[0]} tiles")
+
+
+def grid_hist_stream_plain(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of :func:`grid_hist_stream` (``clahe_grid_hist_tile_j``
+    summed over the batch)."""
+
+    _check_stream_tiles("grid_hist_stream", tiles, origins)
+    h, w = int(frame_shape[0]), int(frame_shape[1])
+    gh, gw = grid
+    ph, pw, th, tw = stream_cells(frame_shape, grid)
+    n, bh, bw = tiles.shape
+    dev = tiles.device
+    org = torch.tensor([[int(t), int(l)] for t, l in origins], dtype=torch.int64, device=dev).reshape(n, 2)
+    r = org[:, 0:1] + torch.arange(bh, device=dev)  # (n, bh)
+    c = org[:, 1:2] + torch.arange(bw, device=dev)  # (n, bw)
+    wr = torch.where((ph > 0) & (r >= h - 1 - ph) & (r <= h - 2), 2, 1)
+    wc = torch.where((pw > 0) & (c >= w - 1 - pw) & (c <= w - 2), 2, 1)
+    weight = wr[:, :, None] * wc[:, None, :]
+    cell = (r // th).clamp(max=gh - 1)[:, :, None] * gw + (c // tw).clamp(max=gw - 1)[:, None, :]
+    seg = cell * 256 + tiles.to(torch.int64)
+    hist = torch.zeros(gh * gw * 256, dtype=torch.int64, device=dev)
+    hist.index_add_(0, seg.reshape(-1), weight.reshape(-1))
+    return hist.to(torch.int32).reshape(gh, gw, 256)
+
+
+#: blocks the stream histogram aims for
+_STREAM_TARGET_BLOCKS = 4096
+
+
+def _to_card(array: np.ndarray, device) -> torch.Tensor:
+    """A small host array on the card without waiting for the stream: the
+    copy goes from pinned memory, queued behind the stream's work (a copy
+    from pageable memory would block the host until the stream drains)."""
+
+    return torch.from_numpy(array).pin_memory().to(device, non_blocking=True)
+
+
+def _stream_hist_items(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]) -> np.ndarray:
+    """The stream histogram's work items, ``(M, 8)`` int32: each a rectangle
+    of one tile in one grid cell with one weight (``csrc/clahe.cu``:
+    StreamItem), with the widest loads its columns allow (a 16- or 4-byte
+    body between byte-wise ends)."""
+
+    h, w = int(frame_shape[0]), int(frame_shape[1])
+    gh, gw = grid
+    ph, pw, th, tw = stream_cells(frame_shape, grid)
+    _, bh, bw = tiles.shape
+    vec = next((v for v in (16, 4) if bw % v == 0 and tiles.data_ptr() % v == 0), 1)
+    items = []
+    for k, (top, left) in enumerate(origins):
+        top, left = int(top), int(left)
+        rows = _mirror_runs(top, top + bh, h, ph, th, gh)
+        cols = []
+        for a, b, cj, wc in _mirror_runs(left, left + bw, w, pw, tw, gw):
+            a, b = a - left, b - left
+            lo, hi = min(-(-a // vec) * vec, b), max(b // vec * vec, a)
+            for c0, c1, v in ((a, lo, 1), (lo, hi, vec), (hi, b, 1)) if lo < hi else ((a, b, 1),):
+                if c0 < c1:
+                    cols.append((c0, c1, cj, wc, v))
+        for ra, rb, ci, wr in rows:
+            for c0, c1, cj, wc, v in cols:
+                items.append((k, ra - top, rb - top, c0, c1, ci * gw + cj, wr * wc, v))
+    return np.asarray(items, dtype=np.int32).reshape(-1, 8)
+
+
+def grid_hist_stream(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]) -> torch.Tensor:
+    """Stats pass: ``(N, H, W)`` uint8 stream tiles whose top-left pixels
+    lie at ``origins`` ``[(top, left), ...]`` of a frame of ``frame_shape``
+    -> the ``(gh, gw, 256)`` int32 histogram contributions of the whole
+    batch: each pixel counts in cell ``(min(r // th, gh - 1), min(c // tw,
+    gw - 1))`` with weight 2 on each of its row and column that the
+    reflect-101 grid padding copies."""
+
+    if not _build.on_card("grid_hist_stream", tiles):
+        return grid_hist_stream_plain(tiles, origins, frame_shape, grid)
+    _check_stream_tiles("grid_hist_stream", tiles, origins)
+    if not tiles.is_contiguous():
+        raise ValueError("grid_hist_stream takes a contiguous tensor")
+    gh, gw = grid
+    out = torch.zeros((gh, gw, 256), dtype=torch.int32, device=tiles.device)
+    items = _stream_hist_items(tiles, origins, frame_shape, grid)
+    if len(items) == 0:
+        return out
+    dev_items = _to_card(items, tiles.device)
+    max_rows = int((items[:, 2] - items[:, 1]).max())
+    parts = min(max_rows, max(1, -(-_STREAM_TARGET_BLOCKS // len(items))))
+    _build.launch(
+        "yam_stream_grid_histogram_u8",
+        tiles.device,
+        tiles.data_ptr(),
+        out.data_ptr(),
+        dev_items.data_ptr(),
+        len(items),
+        tiles.shape[1],
+        tiles.shape[2],
+        parts,
+    )
+    grid_hist_stream.launches += 1
+    return out
+
+
+grid_hist_stream.launches = 0
+
+
+def stream_axis(pos: torch.Tensor, cell: int, count: int):
+    """``(lo, hi, f, g, g_fused)`` of absolute positions ``pos`` (int64) on
+    an axis of ``count`` cells of side ``cell``: the reference's
+    exact-integer interpolation (``q = floor((2 pos - cell) / (2 cell))``
+    and its remainder), the fraction ``f = rem * (1 / (2 cell))`` as XLA
+    rewrites the division by a constant, ``g = 1 - f`` rounded, and
+    ``g_fused = fma(-rem, 1 / (2 cell), 1)`` as XLA contracts it where the
+    fraction feeds one factor only."""
+
+    num = 2 * pos - cell
+    q = torch.div(num, 2 * cell, rounding_mode="floor")
+    rem = (num - q * 2 * cell).to(torch.float32)
+    recip = torch.full_like(rem, float(np.float32(1.0) / np.float32(2 * cell)))
+    f = rem * recip
+    g = torch.ones_like(f) - f
+    g_fused = fma32(-rem, recip, torch.ones_like(rem))
+    return q.clamp(0, count - 1), (q + 1).clamp(0, count - 1), f, g, g_fused
+
+
+def clahe_stream_blend_plain(
+    windows: torch.Tensor, luts: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]
+) -> torch.Tensor:
+    """Plain version of :func:`clahe_stream_blend`."""
+
+    _check_stream_tiles("clahe_stream_blend", windows, origins)
+    gh, gw = grid
+    _, _, th, tw = stream_cells(frame_shape, grid)
+    n, hh, ww = windows.shape
+    dev = windows.device
+    org = torch.tensor([[int(t), int(l)] for t, l in origins], dtype=torch.int64, device=dev).reshape(n, 2)
+    y0, y1, fy, gy, gyf = stream_axis(org[:, 0:1] + torch.arange(hh, device=dev), th, gh)  # (n, hh)
+    x0, x1, fx, gx, gxf = stream_axis(org[:, 1:2] + torch.arange(ww, device=dev), tw, gw)  # (n, ww)
+    vals = windows.to(torch.int64)
+    tables = luts.to(torch.float32)
+
+    def corner(ys, xs):
+        return tables[ys[:, :, None], xs[:, None, :], vals]
+
+    t00, t01, t10, t11 = corner(y0, x0), corner(y0, x1), corner(y1, x0), corner(y1, x1)
+    fused = vals != 0  # the loop body's weights; level 0 is the loop's initial value
+    gy2 = torch.where(fused, gyf[:, :, None], gy[:, :, None])
+    gx2 = torch.where(fused, gxf[:, None, :], gx[:, None, :])
+    fy2, fx2 = fy[:, :, None], fx[:, None, :]
+    w00, w01, w10, w11 = gy2 * gx2, gy2 * fx2, fy2 * gx2, fy2 * fx2
+    out = fma32(w11, t11, fma32(w10, t10, fma32(w00, t00, w01 * t01)))
+    return to_uint8(out)
+
+
+def clahe_stream_blend(
+    windows: torch.Tensor, luts: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]
+) -> torch.Tensor:
+    """Apply pass: ``(N, H, W)`` uint8 windows whose top-left pixels lie at
+    ``origins`` ``[(top, left), ...]`` of a frame of ``frame_shape``, and the
+    ``(gh, gw, 256)`` uint8 tables of the merged histograms -> ``(N, H, W)``
+    uint8: each pixel blends the four tables around its absolute position
+    at its own value, in the float32 order of the JAX package's streaming
+    program (``clahe_apply_from_hist_j`` as XLA's CPU backend runs it)."""
+
+    if not _build.on_card("clahe_stream_blend", windows):
+        return clahe_stream_blend_plain(windows, luts, origins, frame_shape, grid)
+    _check_stream_tiles("clahe_stream_blend", windows, origins)
+    gh, gw = grid
+    if luts.shape != (gh, gw, 256) or luts.dtype != torch.uint8 or luts.device != windows.device:
+        raise ValueError(f"clahe_stream_blend takes ({gh}, {gw}, 256) uint8 tables on {windows.device}")
+    if not windows.is_contiguous():
+        raise ValueError("clahe_stream_blend takes a contiguous tensor")
+    _, _, th, tw = stream_cells(frame_shape, grid)
+    n, hh, ww = windows.shape
+    out = torch.empty_like(windows)
+    if windows.numel() == 0:
+        return out
+    luts = luts.contiguous()
+    org = _to_card(np.asarray([[int(t), int(l)] for t, l in origins], dtype=np.int32), windows.device)
+    vec = 16 if (windows.data_ptr() % 16 == 0 and ww % 16 == 0) else 1
+    need = blend_table_bytes(th * gh, tw * gw, grid)
+    shared = need if need <= _shared_optin(windows.device) - _BLEND_STATIC_SHARED and luts.data_ptr() % 16 == 0 else 0
+    if hh > _MAX_GRID_YZ * BLEND_ROWS:
+        raise ValueError(f"clahe_stream_blend: windows of {hh} rows exceed one launch")
+    for f0, f1 in slices(n, _MAX_GRID_YZ):
+        _build.launch(
+            "yam_clahe_stream_blend_u8",
+            windows.device,
+            windows[f0].data_ptr(),
+            out[f0].data_ptr(),
+            luts.data_ptr(),
+            org[f0].data_ptr(),
+            f1 - f0,
+            hh,
+            ww,
+            th,
+            tw,
+            gh,
+            gw,
+            BLEND_ROWS,
+            BLEND_COLS,
+            shared,
+            vec,
+        )
+    clahe_stream_blend.launches += 1
+    return out
+
+
+clahe_stream_blend.launches = 0
+
+
+def clahe_stream_luts(hist: torch.Tensor, clip_limit: float, frame_shape, grid: Tuple[int, int]) -> torch.Tensor:
+    """The ``(gh, gw, 256)`` uint8 tables of merged stream histograms
+    (``_clip_and_lut_j`` at the padded frame's cell area)."""
+
+    _, _, th, tw = stream_cells(frame_shape, grid)
+    return clip_and_lut(hist, clip_limit, th * tw).to(torch.uint8)
+
+
 __all__ = [
     "BLEND_COLS",
     "BLEND_ROWS",
@@ -382,6 +663,14 @@ __all__ = [
     "clahe",
     "clahe_blend",
     "clahe_blend_plain",
+    "clahe_stream_blend",
+    "clahe_stream_blend_plain",
+    "clahe_stream_gate",
+    "clahe_stream_luts",
+    "grid_hist_stream",
+    "grid_hist_stream_plain",
+    "stream_axis",
+    "stream_cells",
     "clip_and_lut",
     "interp_tensors",
     "interp_weights",

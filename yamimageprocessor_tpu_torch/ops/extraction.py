@@ -113,6 +113,7 @@ def region_properties_data(image: np.ndarray, *, device="cuda") -> Dict[str, np.
 
 register_op(
     "extraction.region_properties",
+    global_stats=True,
     device_fn=region_properties_device_fn,
     data_fn=region_properties_data,
 )
@@ -185,7 +186,7 @@ def hu_moments_data(image: np.ndarray, *, device="cuda") -> Dict[str, np.ndarray
     return {f"hu_{i + 1}": hu[i : i + 1] for i in range(7)}
 
 
-register_op("extraction.hu_moments", device_fn=None, data_fn=hu_moments_data)
+register_op("extraction.hu_moments", global_stats=True, device_fn=None, data_fn=hu_moments_data)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +217,7 @@ def histogram_data(image: np.ndarray, *, device="cuda") -> Dict[str, np.ndarray]
     return {k: np.array([v], dtype=np.float64) for k, v in histogram_stats(hist).items()}
 
 
-register_op("extraction.histogram", device_fn=None, data_fn=histogram_data)
+register_op("extraction.histogram", global_stats=True, device_fn=None, data_fn=histogram_data)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +269,7 @@ def lbp_data(image: np.ndarray, P: int = 8, R: float = 1.0, *, device="cuda") ->
 
 register_op(
     "extraction.lbp",
+    global_stats=True,
     device_fn=lbp_device,
     data_fn=lbp_data,
     split=lambda p: ({"P": int(p.get("P", 8)), "R": float(p.get("R", 1.0))}, {}),
@@ -293,7 +295,7 @@ def _all_static(params):
     return dict(params), {}
 
 
-register_op("extraction.haralick", device_fn=None, data_fn=haralick_data, split=_all_static)
+register_op("extraction.haralick", global_stats=True, device_fn=None, data_fn=haralick_data, split=_all_static)
 
 
 def gabor_device(imgs: torch.Tensor, dyn) -> torch.Tensor:
@@ -345,6 +347,7 @@ def gabor_data(
 
 register_op(
     "extraction.gabor",
+    global_stats=True,
     device_fn=gabor_device,
     data_fn=gabor_data,
     split=_gabor_split,
@@ -389,6 +392,7 @@ def hog_data(
 
 register_op(
     "extraction.hog",
+    global_stats=True,
     device_fn=hog_device,
     data_fn=hog_data,
     split=lambda p: (
@@ -412,7 +416,7 @@ def fractal_data(image: np.ndarray, min_box_size: int = 2, *, device="cuda") -> 
     return Table({"fractal_dimension": np.array([HG.fractal_dimension(sizes, counts)])}, counts=counts)
 
 
-register_op("extraction.fractal", device_fn=None, data_fn=fractal_data, split=_all_static)
+register_op("extraction.fractal", global_stats=True, device_fn=None, data_fn=fractal_data, split=_all_static)
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +520,7 @@ def fourier_data(image: np.ndarray, num_coeff: int = 10, *, device="cuda") -> Di
 
 register_op(
     "extraction.fourier",
+    global_stats=True,
     device_fn=fourier_device,
     data_fn=fourier_data,
     split=_all_static,
@@ -585,7 +590,7 @@ def approximate_shape_data(image: np.ndarray, error_threshold: float = 1.0, *, d
     }
 
 
-register_op("extraction.approximate_shape", device_fn=None, data_fn=approximate_shape_data, split=_all_static)
+register_op("extraction.approximate_shape", global_stats=True, device_fn=None, data_fn=approximate_shape_data, split=_all_static)
 
 
 __all__ = [

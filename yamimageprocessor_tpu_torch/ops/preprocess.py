@@ -39,6 +39,12 @@ import torch
 
 from yamimageprocessor_tpu_torch.ops.bilateral import bilateral_filter, bilateral_plain
 from yamimageprocessor_tpu_torch.ops.clahe import clahe as clahe_planes
+from yamimageprocessor_tpu_torch.ops.clahe import (
+    clahe_stream_blend,
+    clahe_stream_gate,
+    clahe_stream_luts,
+    grid_hist_stream,
+)
 from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray, bgr_to_ycrcb, ycrcb_to_bgr
 from yamimageprocessor_tpu_torch.ops.filters import convert, fma32, sep_filter_fma, to_uint8
 from yamimageprocessor_tpu_torch.ops.lutops import apply_lut, histogram256_batch
@@ -165,6 +171,45 @@ def histogram_equalization(imgs, dyn):
     return _on_luma(imgs, _equalize)
 
 
+def _equalized_channel(tiles):
+    """The plane equalization reads: a gray item itself, a BGR item's luma."""
+
+    return tiles if tiles.ndim == 3 else bgr_to_ycrcb(tiles)[..., 0]
+
+
+def batch_histogram(planes):
+    """The ``(256,)`` int32 level counts of a whole batch of planes (the
+    per-tile histograms of the JAX package's stats pass, merged)."""
+
+    return histogram256_batch(planes.reshape(1, -1))[0]
+
+
+def histeq_tile_stats(tiles, dyn):
+    """Streaming stats pass: the histogram of the equalized channel."""
+
+    return batch_histogram(_equalized_channel(tiles))
+
+
+def histeq_stats_lut(stats, dyn):
+    """The ``(256,)`` equalization table of a merged histogram."""
+
+    return equalization_lut(stats.unsqueeze(0))[0]
+
+
+def histeq_apply_stats(imgs, stats, dyn):
+    """Streaming apply pass: the table of the merged histogram on the gray
+    plane, or on a BGR item's luma."""
+
+    lut = histeq_stats_lut(stats, dyn)
+    if imgs.ndim == 3:
+        return apply_lut(imgs, lut)
+    return _on_luma(imgs, lambda y: apply_lut(y, lut))
+
+
+def _sum_stats(a, b):
+    return a + b
+
+
 register_op(
     "preprocessing.histogram_equalization",
     device_fn=histogram_equalization,
@@ -172,6 +217,11 @@ register_op(
     lut_needs_image=True,
     lut_ndims=(2,),
     out_item=_uint8_item,
+    global_stats=True,
+    tile_stats_fn=histeq_tile_stats,
+    merge_stats_fn=_sum_stats,
+    apply_stats_fn=histeq_apply_stats,
+    stats_lut_fn=histeq_stats_lut,
 )
 
 
@@ -186,6 +236,39 @@ def clahe(imgs, dyn, *, clip_limit: float = 40.0, grid_size: int = 8):
     return _on_luma(imgs, lambda y: clahe_planes(y, float(clip_limit), grid))
 
 
+def _origins(box):
+    """``(top, left)`` of each ``(left, top, right, bottom)`` box."""
+
+    return [(int(b[1]), int(b[0])) for b in box]
+
+
+def clahe_tile_stats(tiles, dyn, *, clip_limit: float = 40.0, grid_size: int = 8, box=None, frame_shape=None):
+    """Streaming stats pass: the grid-cell histogram contributions of the
+    batch's stream tiles (:func:`.clahe.grid_hist_stream`); colour tiles
+    count their YCrCb luma, as the dense path equalizes it."""
+
+    grid = (int(grid_size), int(grid_size))
+    return grid_hist_stream(_equalized_channel(tiles).contiguous(), _origins(box), frame_shape, grid)
+
+
+def clahe_apply_stats(imgs, stats, dyn, *, clip_limit: float = 40.0, grid_size: int = 8, box=None, frame_shape=None):
+    """Streaming apply pass: the merged histograms' tables blended at each
+    window's absolute coordinates (:func:`.clahe.clahe_stream_blend`)."""
+
+    grid = (int(grid_size), int(grid_size))
+    luts = clahe_stream_luts(stats, float(clip_limit), frame_shape, grid)
+    origins = _origins(box)
+
+    def blend(y):
+        return clahe_stream_blend(y.contiguous(), luts, origins, frame_shape, grid)
+
+    return blend(imgs) if imgs.ndim == 3 else _on_luma(imgs, blend)
+
+
+def clahe_stream_gate_op(static, frame_shape) -> bool:
+    return clahe_stream_gate(int(static.get("grid_size", 8)), frame_shape)
+
+
 register_op(
     "preprocessing.clahe",
     device_fn=clahe,
@@ -197,6 +280,11 @@ register_op(
         {},
     ),
     out_item=_uint8_item,
+    global_stats=True,
+    tile_stats_fn=clahe_tile_stats,
+    merge_stats_fn=_sum_stats,
+    apply_stats_fn=clahe_apply_stats,
+    stream_gate=clahe_stream_gate_op,
 )
 
 
@@ -352,8 +440,12 @@ def _normalize_scale_shift(imgs, dyn):
     flat = imgs.reshape(imgs.shape[0], -1)
     if not flat.is_floating_point():
         flat = flat.to(torch.int32)  # exact, and torch reduces few uint16 ops
-    smin = flat.amin(dim=1).to(torch.float32)
-    smax = flat.amax(dim=1).to(torch.float32)
+    return _scale_shift(flat.amin(dim=1).to(torch.float32), flat.amax(dim=1).to(torch.float32), dyn)
+
+
+def _scale_shift(smin, smax, dyn):
+    """``(scale, shift)`` float32 from the range ``[smin, smax]``."""
+
     lo = torch.minimum(dyn["alpha"], dyn["beta"])
     hi = torch.maximum(dyn["alpha"], dyn["beta"])
     span = smax - smin
@@ -367,19 +459,62 @@ def normalize_luts(imgs, dyn):
     arithmetic of a pixel of value ``v``, ``to_uint8(fma(v, scale, shift))``
     (``normalize_stats_lut_j``)."""
 
-    scale, shift = _normalize_scale_shift(imgs, dyn)
-    levels = torch.arange(256, dtype=torch.float32, device=imgs.device).expand(imgs.shape[0], 256)
+    return _luts_of(*_normalize_scale_shift(imgs, dyn))
+
+
+def _luts_of(scale, shift):
+    levels = torch.arange(256, dtype=torch.float32, device=scale.device).expand(scale.shape[0], 256)
     return to_uint8(fma32(levels, scale[:, None].expand_as(levels), shift[:, None].expand_as(levels)))
+
+
+def _normalized(imgs, scale, shift):
+    """``convert(fma(x, scale, shift), dtype)`` with one ``(scale, shift)``
+    per frame."""
+
+    view = (-1,) + (1,) * (imgs.ndim - 1)
+    x = imgs.to(torch.float32)
+    out = fma32(x, scale.view(view).expand_as(x), shift.view(view).expand_as(x))
+    return convert(out, imgs.dtype)
 
 
 def normalize(imgs, dyn):
     if imgs.dtype == torch.uint8:
         return apply_lut(imgs, normalize_luts(imgs, dyn))
     scale, shift = _normalize_scale_shift(imgs, dyn)
-    view = (-1,) + (1,) * (imgs.ndim - 1)
-    x = imgs.to(torch.float32)
-    out = fma32(x, scale.view(view).expand_as(x), shift.view(view).expand_as(x))
-    return convert(out, imgs.dtype)
+    return _normalized(imgs, scale, shift)
+
+
+def normalize_tile_stats(tiles, dyn):
+    """Streaming stats pass: the batch's ``[min, max]`` as float32 (whole
+    frames' extremes are XLA reductions in the reference, not a Pallas
+    kernel)."""
+
+    flat = tiles if tiles.is_floating_point() else tiles.to(torch.int32)
+    return torch.stack([flat.amin().to(torch.float32), flat.amax().to(torch.float32)])
+
+
+def normalize_merge_stats(a, b):
+    return torch.stack([torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1])])
+
+
+def normalize_stats_lut(stats, dyn):
+    """The ``(256,)`` uint8 table of the merged range: per level ``v``,
+    ``to_uint8(fma(v, scale, shift))`` (``normalize_stats_lut_j``)."""
+
+    scale, shift = _scale_shift(stats[0:1], stats[1:2], dyn)
+    return _luts_of(scale, shift)[0]
+
+
+def normalize_apply_stats(imgs, stats, dyn):
+    """Streaming apply pass: the merged range's scale and shift on every
+    pixel (uint8 items through the table of :func:`normalize_stats_lut`,
+    the same arithmetic per level)."""
+
+    if imgs.dtype == torch.uint8:
+        return apply_lut(imgs, normalize_stats_lut(stats, dyn))
+    scale, shift = _scale_shift(stats[0:1], stats[1:2], dyn)
+    n = imgs.shape[0]
+    return _normalized(imgs, scale.expand(n), shift.expand(n))
 
 
 register_op(
@@ -392,6 +527,11 @@ register_op(
             "beta": np.float32(params.get("beta", 255.0)),
         },
     ),
+    global_stats=True,
+    tile_stats_fn=normalize_tile_stats,
+    merge_stats_fn=normalize_merge_stats,
+    apply_stats_fn=normalize_apply_stats,
+    stats_lut_fn=normalize_stats_lut,
 )
 
 
@@ -540,6 +680,7 @@ register_op(
     device_fn=crop,
     split=_crop_split,
     out_item=_crop_item,
+    reshapes=True,
 )
 
 

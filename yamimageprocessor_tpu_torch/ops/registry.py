@@ -18,9 +18,26 @@ to.  ``out_item(item_shape, dtype, **static)`` gives the item shape and
 numpy dtype a step produces, which the chain runner tracks from step to
 step.  ``data_fn`` is an extraction op's table function (the reference's
 ``*_data``).
+
+The streaming fields are the JAX package's (``ops/registry.py:41-161``):
+``global_stats`` marks an op whose output depends on the whole frame,
+``reshapes`` one whose output has another shape (crop).  A global op that
+streams has a two-pass decomposition: ``tile_stats_fn(tiles, dyn,
+**static)`` counts the statistics of a batch of stream tiles, already
+merged over the batch; ``merge_stats_fn(a, b)`` merges two such
+statistics; ``apply_stats_fn(imgs, stats, dyn, **static)`` applies the
+merged statistics pointwise; ``stats_lut_fn(stats, dyn, **static)`` is
+the same action as a ``(256,)`` uint8 table, where there is one.  The
+functions may also declare ``box=`` (the batch's ``(left, top, right,
+bottom)`` boxes in the frame, host integers) and ``frame_shape=``;
+:func:`call_with_position` passes them only to those that do.
+``stream_gate(static, frame_shape)`` refuses the decomposition for a
+frame it does not hold on.  Statistics are torch tensors on the images'
+device: a histogram, a (min, max) pair, CLAHE's ``(gh, gw, 256)`` grid.
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -56,15 +73,45 @@ class OpImpl:
     lut_ndims: Tuple[int, ...] = (2, 3)
     out_item: Callable[..., Tuple[Tuple[int, ...], np.dtype]] = field(default=_same_item)
     data_fn: Optional[Callable[..., Any]] = None
+    global_stats: bool = False
+    reshapes: bool = False
+    tile_stats_fn: Optional[Callable[..., Any]] = None
+    merge_stats_fn: Optional[Callable[..., Any]] = None
+    apply_stats_fn: Optional[Callable[..., Any]] = None
+    stats_lut_fn: Optional[Callable[..., Any]] = None
+    stream_gate: Optional[Callable[..., bool]] = None
 
     @property
     def identifier(self) -> str:
         return self.schema.identifier
 
+    @property
+    def streamable_global(self) -> bool:
+        """True when this global-stats op has a two-pass tile decomposition."""
+
+        return (
+            self.tile_stats_fn is not None
+            and self.merge_stats_fn is not None
+            and self.apply_stats_fn is not None
+        )
+
     def halo_for(self, params: Mapping[str, Any]) -> int:
         if callable(self.halo):
             return int(self.halo(dict(params)))
         return int(self.halo)
+
+
+def call_with_position(fn: Callable[..., Any], *args: Any, box=None, frame_shape=None, **kwargs: Any):
+    """Call a streaming function, passing ``box`` and ``frame_shape`` only
+    when its signature declares them (most ops do not depend on where a
+    tile lies)."""
+
+    params = inspect.signature(fn).parameters
+    if "box" in params:
+        kwargs["box"] = box
+    if "frame_shape" in params:
+        kwargs["frame_shape"] = frame_shape
+    return fn(*args, **kwargs)
 
 
 _REGISTRY: Dict[str, OpImpl] = {}
@@ -100,4 +147,15 @@ def dyn_to_torch(dyn: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in dyn.items()}
 
 
-__all__ = ["OpImpl", "SplitResult", "register_op", "get_impl", "dyn_to_torch"]
+def stats_to_torch(stats: Any, device) -> Any:
+    """Merged streaming statistics from host values (the JAX package's, as
+    numpy: a histogram, a (min, max) pair, CLAHE's ``(gh, gw, 256)`` grid;
+    or tuples and lists of them) as tensors on ``device``, dtypes kept, so
+    one package's statistics can feed the other's apply pass."""
+
+    if isinstance(stats, (tuple, list)):
+        return type(stats)(stats_to_torch(s, device) for s in stats)
+    return torch.tensor(np.array(stats), device=device)
+
+
+__all__ = ["OpImpl", "SplitResult", "call_with_position", "register_op", "get_impl", "dyn_to_torch", "stats_to_torch"]

@@ -24,7 +24,8 @@ from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
 from yamimageprocessor_tpu_torch.ops.distance import distance_transform
 from yamimageprocessor_tpu_torch.ops.labeling import label_seeds
 from yamimageprocessor_tpu_torch.ops.registry import register_op
-from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_threshold
+from yamimageprocessor_tpu_torch.ops.lutops import histogram256_batch
+from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_from_hist, otsu_threshold
 from yamimageprocessor_tpu_torch.ops.watershed import flood, paint_boundaries
 
 
@@ -55,7 +56,27 @@ def otsu(imgs, dyn):
     return binary(gray, otsu_threshold(gray))
 
 
-register_op("segmentation.otsu", device_fn=otsu, out_item=_gray_item)
+def otsu_tile_stats(tiles, dyn):
+    """Streaming stats pass: the gray histogram of the batch."""
+
+    return histogram256_batch(bgr_to_gray(tiles).reshape(1, -1))[0]
+
+
+def otsu_apply_stats(imgs, stats, dyn):
+    """Streaming apply pass: the threshold of the merged histogram."""
+
+    return binary(bgr_to_gray(imgs), otsu_from_hist(stats.unsqueeze(0))[0])
+
+
+register_op(
+    "segmentation.otsu",
+    device_fn=otsu,
+    out_item=_gray_item,
+    global_stats=True,
+    tile_stats_fn=otsu_tile_stats,
+    merge_stats_fn=lambda a, b: a + b,
+    apply_stats_fn=otsu_apply_stats,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +111,7 @@ def watershed_seg(imgs, dyn, **static):
 register_op(
     "segmentation.watershed",
     device_fn=watershed_seg,
+    global_stats=True,
     split=lambda p: (
         {
             "kernel_size": int(p.get("kernel_size", 3)),

@@ -126,13 +126,16 @@ def compose_luts(lut: torch.Tensor, composed: Optional[torch.Tensor]) -> torch.T
 class _DeviceSegment:
     """``fn(images, dyn_list)`` for one device segment: one output per step.
     A composed table run yields only its last step's output (the one
-    table application); the outputs of its other steps are None."""
+    table application); the outputs of its other steps are None, or with
+    ``every_output`` the run's input through each prefix of the composed
+    table."""
 
-    def __init__(self, impls, statics, lut_runs: Dict[int, int], batched: bool) -> None:
+    def __init__(self, impls, statics, lut_runs: Dict[int, int], batched: bool, every_output: bool = False) -> None:
         self.impls = impls
         self.statics = statics
         self.lut_runs = lut_runs
         self.batched = batched
+        self.every_output = every_output
 
     def __call__(self, images: torch.Tensor, dyn_list: Sequence[Dict[str, torch.Tensor]]) -> Tuple:
         x = images if self.batched else images.unsqueeze(0)
@@ -145,8 +148,12 @@ class _DeviceSegment:
                 for j in range(pos, pos + length):
                     lut = self.impls[j].lut_fn(x, dyn_list[j], **self.statics[j])
                     composed = compose_luts(lut.to(torch.uint8), composed)
+                    if self.every_output and j < pos + length - 1:
+                        outs.append(apply_lut(x, composed))
                 x = apply_lut(x, composed)
-                outs.extend([None] * (length - 1) + [x])
+                if not self.every_output:
+                    outs.extend([None] * (length - 1))
+                outs.append(x)
                 pos += length
                 continue
             impl = self.impls[pos]
@@ -220,24 +227,26 @@ class CompiledChain:
             dyns.append(dyn)
         return statics, dyns
 
-    def _segment(self, seg_idx: int, steps, item_shape, dtype):
+    def _segment(self, seg_idx: int, steps, item_shape, dtype, every_output: bool = False):
         """(segment fn, host dyn list) for device segment ``seg_idx`` on
         input items of ``item_shape`` and ``dtype``."""
 
         impls = self._impls[seg_idx]
         statics, dyns = self._split(seg_idx, steps)
         runs = lut_runs_for(impls, item_specs(impls, statics, item_shape, dtype))
-        return _DeviceSegment(impls, statics, runs, bool(self.batch)), dyns
+        return _DeviceSegment(impls, statics, runs, bool(self.batch), every_output), dyns
 
     def run(
         self,
         image,
         steps: Optional[Sequence[PipelineStep]] = None,
+        *,
+        every_output: bool = False,
     ) -> List[Any]:
         """Run the chain on an array or tensor; one output per step (device
         tensors for device steps, arrays for host steps, None inside a
-        composed table run).  ``steps`` (same structure) supplies the
-        parameter values of this call."""
+        composed table run unless ``every_output``).  ``steps`` (same
+        structure) supplies the parameter values of this call."""
 
         active = self.steps if steps is None else list(steps)
         outputs: List[Any] = [None] * len(active)
@@ -255,7 +264,7 @@ class CompiledChain:
                 continue
             x = torch.as_tensor(cur).to(self.device)
             fn, dyns = self._segment(
-                seg_idx, active, self._item_shape(x.shape), _numpy_dtype(x.dtype)
+                seg_idx, active, self._item_shape(x.shape), _numpy_dtype(x.dtype), every_output
             )
             outs = fn(x, [dyn_to_torch(d, self.device) for d in dyns])
             for i, out in zip(plan.indices, outs):

@@ -5,10 +5,15 @@ An ordered list of steps, run by the torch chain runner on ``device``
 (``"cuda"`` unless the caller asks for another): ``apply`` takes a 2-D
 frame or an ``(H, W, 3|4)`` colour frame, and deeper N-D stacks batch
 every leading axis through one chain when all enabled steps are op steps,
-else go plane by plane.  A failure propagates: the reference's fall back
-to its numpy host path (``manager.py:288-298, 405-406``) is not ported,
-and neither are its step editing, undo/redo history, change events,
-persistence and recovery yet.
+else go plane by plane.  A tiled source (a record with ``iter_tiles``,
+such as :class:`~yamimageprocessor_tpu_torch.pipeline.tiled_records.
+TiledPipelineImage`) streams through
+:func:`~yamimageprocessor_tpu_torch.parallel.tiling.apply_steps_tiled`,
+or, when a step declares ``supports_tiled_input``, goes through the steps
+one at a time (``manager.py:346-357``).  A failure propagates: the
+reference's fall back to its numpy host path (``manager.py:288-298,
+405-406``) is not ported, and neither are its step editing, undo/redo
+history, change events, persistence and recovery yet.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ class PipelineManager:
         ``device``; returns a host array."""
 
         if hasattr(image, "iter_tiles"):
-            raise NotImplementedError("tiled images: streaming is not ported to torch yet")
+            return self._apply_tiled(image)
         array = np.asarray(image)
         if array.ndim > 2 and not _is_colour_array(array):
             return self._apply_nd(array)
@@ -53,6 +58,29 @@ class PipelineManager:
             return array.copy()
         chain = get_compiled_chain(enabled, array.shape, array.dtype, device=self.device)
         return chain.run_final(array, enabled)
+
+    def _apply_tiled(self, image: Any) -> Any:
+        from yamimageprocessor_tpu_torch.parallel.tiling import apply_steps_tiled
+
+        enabled = [s for s in self._steps if s.enabled]
+        if not enabled:
+            return image
+        if any(s.supports_tiled_input for s in enabled):
+            result: Any = image
+            for step in enabled:
+                result = self._run_step(step, result)
+            return result
+        return apply_steps_tiled(enabled, image, device=self.device)
+
+    def _run_step(self, step: PipelineStep, image: Any) -> Any:
+        """One step: a host step's own function (which sees a tiled source
+        only when it declares ``supports_tiled_input``), an op step as a
+        one-step chain on the device on the source read whole."""
+
+        if not step.is_device_capable():
+            return step.apply(image)
+        array = np.asarray(image.to_array() if hasattr(image, "to_array") else image)
+        return PipelineManager([step], device=self.device).apply(array)
 
     def _apply_nd(self, array: np.ndarray) -> np.ndarray:
         """N-D stacks: every leading axis flattened into one batch when all

@@ -78,6 +78,12 @@ class PipelineStep:
 
         return get_impl(self.op_id)
 
+    def halo(self) -> int:
+        """The op's stencil radius at these parameters (0 for a host step)."""
+
+        impl = self.impl
+        return impl.halo_for(self.params) if impl is not None else 0
+
     def is_device_capable(self) -> bool:
         """True for an op step (it runs on the chain's torch device)."""
 

@@ -8,9 +8,10 @@ gigapixel slides.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --streaming   # build, then the stream phase alone
-    python3 chip_smoke.py --times-of DIR   # CC, the blend, histogram256, the median and bilateral of checkout DIR
-    python3 chip_smoke.py --extraction-times-of DIR   # the hull and annotation kernels of checkout DIR
-    python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter and LBP kernels, three tables: DIRs and this
+    python3 chip_smoke.py --times-of DIR [DIR ...]   # CC, the blend, histogram256, the median and bilateral
+    python3 chip_smoke.py --extraction-times-of DIR [DIR ...]   # the hull and annotation kernels
+    python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter, LBP, HOG and GLCM kernels, three tables
+    python3 chip_smoke.py --shape-times-of DIR [DIR ...]   # the trace, the lines, the Fourier chain's host clock
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -187,22 +188,22 @@ Every kernel's launch count is set to 0 just before each main path and
 read just after; a kernel of the path that did not launch fails the run.
 The digests come from ``scripts/torch_port_digests.py`` (the JAX package
 on a CPU).  The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  With
-``--times-of DIR`` the script only times CC, the blend, histogram256, the
-median (every ksize above) and the bilateral filter (likewise) of the port
-in checkout DIR (an older one, unpacked with ``git archive``) on the same
-inputs, prints SHA-256 digests of their outputs, an empty
-launch's time, and the kernels a call and the back-to-back time of the
-flagship and segmentation chains: run it on two checkouts in one call to
-compare them.  ``--extraction-times-of DIR`` likewise times the hull and
-annotation kernels of checkout DIR on the seven extraction label sets,
-with digests of their outputs and the blobs frame's peak memory.
-``--texture-times-of DIR [DIR ...]`` times the dense filter, the LBP
-codes, HOG cells and GLCM counts of each checkout DIR and of this one on the texture phase's inputs,
-in turns (the DIRs, this, this, the DIRs backwards, each in a process of
-its own), and fails unless their outputs' digests agree; it also times the
-HOG, Gabor and Hu-moments tables (host ms a frame, not compared: an
-older checkout's float64 columns need not be the reference's bits).
+kernel; the last line is ``{"ok": true, "device": {...}}``.  The
+``--*-times-of DIR [DIR ...]`` modes (:func:`times_in_turns`) time one
+phase's cases (:data:`TIMED_PHASES`) on the port of each checkout DIR (an
+older one, unpacked with ``git archive``) and of this one, in turns (the
+DIRs, this, this, the DIRs backwards, each in a process of its own), fail
+unless the outputs' SHA-256 digests agree, and print the mean of each
+checkout's two runs: ``--times-of`` CC, the blend, histogram256, the
+median and the bilateral filter at every ksize, an empty launch, and the
+flagship and segmentation chains' kernels a call and back-to-back ms;
+``--extraction-times-of`` the hull and annotation kernels on the seven
+extraction label sets and the blobs frame's peak memory;
+``--texture-times-of`` the dense filter, the LBP codes, HOG cells and GLCM
+counts, and the HOG, Gabor and Hu-moments tables' host ms a frame (not
+compared: an older checkout's float64 columns need not be the reference's
+bits); ``--shape-times-of`` the trace and the lines with their split by
+launch, and the Fourier chain's host clock on the 32 scenes.
 Nothing falls back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
@@ -335,14 +336,13 @@ SHAPE_BATCHES = (1, 8, 32)  # the Fourier chain's host-clock batches (the first 
 SHAPE_KERNELS = ("trace_contours", "fourier_lines", "polygon_mean_errors")
 FOURIER_LINE_TOL = 1e-10  # |lines - plain| <= FOURIER_LINE_TOL * max(1, max|c|) a contour
 FOURIER_RECON_TOL = 1e-8  # |reconstruction - plain| in pixels
-#: a floor of one step of a contour walk: one dependent L1-hit load (about 32
-#: clocks at 1.98 GHz); a walk of n points takes at least n such steps
-DEPENDENT_STEP_S = 32 / 1.98e9
 #: FP64 instructions: a complex multiply-add (4), a radix-2 butterfly (a
 #: complex multiply, 4 with two FMAs, and two complex adds, 4), a sincospi
 #: (a floor of 20), a (candidate, point, edge) of the boundary error with
 #: its hypot (a floor of 35, a division and a square root one each)
 FOURIER_F64_PER_MAC, FFT_F64_PER_BUTTERFLY, SINCOSPI_F64, POLYGON_F64_PER_EDGE = 4, 8, 20, 35
+SPLIT_RUNS = 20  # calls a profiler session of a kernel's per-launch split spans
+SHAPE_CHAIN_CALLS = 10  # back-to-back calls of the Fourier chain's host-clock time in --shape-times-of
 
 DIGESTS = {
     "segmentation_input": "789006ca990ec8e56fe63d5aa294f3853622819e9d010fb70d302ba9730050c0",
@@ -876,21 +876,13 @@ def time_filters(dev, digests: dict) -> dict:
     return times
 
 
-def times_of(root: str) -> None:
-    """Time CC, the blend, histogram256, the median and the bilateral
-    filter of the port in the checkout ``root`` (an older one, unpacked with
-    ``git archive``) on :func:`cc_inputs`, the bench's Y planes,
-    :func:`histogram_cases` and the denoise path's frames
-    (:func:`time_filters`), and print the times with a SHA-256 of every
-    output (two checkouts whose digests agree computed the same function),
-    an empty launch's time, and the kernels a call and back-to-back time of
-    the flagship and segmentation chains."""
+def filter_cases(dev) -> dict:
+    """CC, the blend, histogram256, the median and the bilateral filter on
+    :func:`cc_inputs`, the bench's Y planes, :func:`histogram_cases` and
+    the denoise path's frames (:func:`time_filters`): device ms and a
+    SHA-256 of every output, an empty launch's time, and the kernels a call
+    and back-to-back ms of the flagship and segmentation chains."""
 
-    sys.path.insert(0, root)
-    smi = phase_device()
-    dev = torch.device("cuda", 0)
-    phase_build()
-    import yamimageprocessor_tpu_torch as port
     from yamimageprocessor_tpu_torch import cuda_kernels as ck
     from yamimageprocessor_tpu_torch.ops.clahe import clahe_blend
     from yamimageprocessor_tpu_torch.ops.labeling import cc_min_index
@@ -907,35 +899,20 @@ def times_of(root: str) -> None:
     filters = time_filters(dev, digests)
     times.update({f"median k{k} (8,2048,2048)": ms for k, ms in filters["median"].items()})
     times.update({f"bilateral k{k} (8,2048,2048,3)": ms for k, ms in filters["bilateral"].items()})
-    for name, ms in times.items():
-        print(f"time {name}: {ms if ms is None else f'{ms:.4f}'} ms")
     profiles = chain_profiles(dev)
     for name, split in profiles.items():
         print_profile(name, split)
-        print(f"{name}: {split['back_to_back_ms']:.4f} ms a call back to back")
-    print(f"card: {smi}")
-    print(json.dumps({
-        "package": port.__file__,
-        "times": times,
-        "digests": digests,
-        "kernels_a_call": {name: split["kernels"] for name, split in profiles.items()},
-        "back_to_back_ms": {name: split["back_to_back_ms"] for name, split in profiles.items()},
-    }))
+    return {"times": times, "digests": digests,
+            "kernels_a_call": {name: split["kernels"] for name, split in profiles.items()},
+            "back_to_back_ms": {name: split["back_to_back_ms"] for name, split in profiles.items()}}
 
 
-def extraction_times_of(root: str) -> None:
-    """Time the hull and annotation kernels of the port in the checkout
-    ``root`` (an older one, unpacked with ``git archive``) on every
-    extraction label set of the extraction phase, and print the times with
-    a SHA-256 of every output (two checkouts whose digests agree computed
-    the same function), each set's tallest region, and the peak device
-    memory of ``region_tables`` on the blobs frame."""
+def extraction_cases(dev) -> dict:
+    """The hull and annotation kernels on every extraction label set:
+    device ms and a SHA-256 of every output, each set's tallest region's
+    rows, and the peak device memory of ``region_tables`` on the blobs
+    frame."""
 
-    sys.path.insert(0, root)
-    smi = phase_device()
-    dev = torch.device("cuda", 0)
-    phase_build()
-    import yamimageprocessor_tpu_torch as port
     from yamimageprocessor_tpu_torch.ops import extraction_device as XD
     from yamimageprocessor_tpu_torch.ops import regionprops as RP
 
@@ -943,35 +920,27 @@ def extraction_times_of(root: str) -> None:
     sets = extraction_label_sets(dev, extraction_frame(), {n: [extraction_frame(seed=s) for s in range(n)]
                                                              for n in EXTRACT_BATCHES},
                                  extraction_frame(EXTRACT_WIDE_SIDE), blobs)
-    times, digests = {}, {}
+    times, digests, rows = {}, {}, {}
     for name, (labels, imgs) in sets.items():
         case = measured_case(labels, imgs)
         digests[f"hull_areas {name}"] = sha256(hull_of(RP, case))
         digests[f"annotate {name}"] = sha256(XD.region_annotate(imgs, case["boxes"]))
-        times[name] = {"hull_areas": time_ms(lambda: hull_of(RP, case)),
-                       "annotate": time_ms(lambda: XD.region_annotate(imgs, case["boxes"])),
-                       "longest_rows": longest_rows(case)}
-        print(f"time on {name} (tallest {times[name]['longest_rows']} rows): hull_areas "
-              f"{times[name]['hull_areas']:.4f} ms, annotate {times[name]['annotate']:.4f} ms")
+        times[f"hull_areas {name}"] = time_ms(lambda: hull_of(RP, case))
+        times[f"annotate {name}"] = time_ms(lambda: XD.region_annotate(imgs, case["boxes"]))
+        rows[name] = longest_rows(case)
     del case, sets
-    peak = blobs_peak_memory(blobs)
-    print(f"card: {smi}")
-    print(json.dumps({"package": port.__file__, "times": times, "digests": digests, "blobs_peak_memory": peak}))
+    return {"times": times, "digests": digests, "longest_rows": rows, "blobs_peak_memory": blobs_peak_memory(blobs)}
 
 
-def texture_times_one(root: str) -> None:
-    """Time the dense filter, the LBP codes, HOG cells (9 bins 8x8 on the 32
+def texture_cases(dev) -> dict:
+    """The dense filter, the LBP codes, HOG cells (9 bins 8x8 on the 32
     gray scenes and a 2048^2 frame, 32 bins 2x2) and GLCM counts (one scene
-    and a flat frame at (1, 0), distance 64, 8 scenes) of the port in the
-    checkout ``root`` on the texture phase's 32 gray scenes (and 4 as float32), and
-    its HOG, Gabor and Hu-moments tables on :data:`TEXTURE_TIMED_TABLE_FRAMES`
-    scenes (host clock), and print one JSON line: each kernel case's device
-    ms and the SHA-256 of its output, each table's host ms a frame."""
+    and a flat frame at (1, 0), distance 64, 8 scenes) on the texture
+    phase's 32 gray scenes (and 4 as float32): device ms and a SHA-256 of
+    every output; the HOG, Gabor and Hu-moments tables' host ms a frame on
+    :data:`TEXTURE_TIMED_TABLE_FRAMES` scenes (not compared: an older
+    checkout's float64 columns need not be the reference's bits)."""
 
-    sys.path.insert(0, root)
-    dev = torch.device("cuda", 0)
-    phase_build()
-    import yamimageprocessor_tpu_torch as port
     from yamimageprocessor_tpu_torch.ops import hogf as HG
     from yamimageprocessor_tpu_torch.ops import texture as TX
     from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
@@ -1023,15 +992,93 @@ def texture_times_one(root: str) -> None:
             fn(f)
         torch.cuda.synchronize()
         tables_ms[op] = (time.perf_counter() - start) * 1e3 / TEXTURE_TIMED_TABLE_FRAMES
-    print(json.dumps({"package": port.__file__, "times": times, "digests": digests, "tables_ms": tables_ms}))
+    return {"times": times, "digests": digests, "tables_ms": tables_ms}
 
 
-def texture_times_of(roots) -> None:
-    """Time the dense filter, the LBP codes, HOG cells and GLCM counts, and
-    three tables, of the checkouts ``roots`` (older ones, unpacked with ``git archive``) and of
-    this one on the same inputs, in turns (the roots, this, this, the roots
-    backwards; each a process of its own), check that each kernel case's
-    output digests agree, and print the mean of each checkout's two runs."""
+def shape_cases(dev) -> dict:
+    """The contour trace (the 32 scenes' labels, the blobs, the 4001-row
+    disk) and the Fourier lines (the 32 scenes' largest contours and the
+    disk's, at num_coeff 10 and 512), each the wrapper's launch object:
+    device ms and each case's split by launch (:func:`launch_split`), the
+    trace's output digests and the rounded reconstructions' digests (the
+    lines themselves may differ in their last bits between designs; each is
+    held to its own plain version here); the host-clock ms of a whole
+    ``trace_contours`` call (its launch object built, its reads back) and
+    its host split (:func:`host_split`); and
+    the Fourier chain's host-clock ms on the 32 scenes (labels, trace,
+    lines, paint and reads back)."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction as EXT
+    from yamimageprocessor_tpu_torch.ops.contours import TraceLaunch, trace_contours
+    from yamimageprocessor_tpu_torch.ops.extraction_device import region_count_bound, region_labels
+    from yamimageprocessor_tpu_torch.ops.fourier import LinesLaunch, fourier_lines
+    from yamimageprocessor_tpu_torch.ops.labeling import label
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    frames = np.stack([extraction_frame(seed=s) for s in range(TEXTURE_FRAMES)])
+    sets = {"32 scenes": region_labels(torch.from_numpy(frames).to(dev)).contiguous(),
+            f"blobs {BLOBS_SIDE}^2": region_labels(torch.from_numpy(blobs_frame())[None].to(dev)).contiguous(),
+            f"tall disk {TALL_SIDE}^2": label(torch.from_numpy(np.ascontiguousarray(tall_disk_mask())).to(dev)
+                                              ).contiguous()}
+    times, digests, splits, traced, host = {}, {}, {}, {}, {}
+    for name, lab in sets.items():
+        n = region_count_bound(lab)
+        traced[name] = trace_contours(lab, n)
+        digests[f"trace_contours {name}"] = sha256(torch.cat([t.reshape(-1).to(torch.int64) for t in traced[name]]))
+        launch = TraceLaunch(lab, n)
+        times[f"trace_contours {name}"] = time_ms(launch.run)
+        splits[f"trace_contours {name}"] = launch_split(launch.run)
+        host[f"trace_contours {name}"] = wall_ms(lambda: trace_contours(lab, n), calls=RUNS)
+        splits[f"trace_contours {name} on the host"] = host_split(lambda: trace_contours(lab, n))
+    cont = traced["32 scenes"]
+    offsets = cont.offsets.cpu().numpy()
+    largest = EXT._largest(cont.frames.cpu().numpy(), cont.area2.cpu().numpy(), len(frames))
+    main_pts, main_offs = EXT._gather(cont.points, offsets, largest[largest >= 0])
+    disk = traced[f"tall disk {TALL_SIDE}^2"]
+    for name, pts, offs in (("32 scenes", main_pts, main_offs), ("tall disk", disk.points, disk.offsets.cpu().tolist())):
+        for k in SHAPE_COEFFS:
+            fourier_kernel_vs_plain(name, pts, offs, k)
+            digests[f"fourier_lines {name} {k} rounded"] = sha256(torch.round(fourier_lines(pts, offs, k)[2]))
+            launch = LinesLaunch(pts, offs, k)
+            times[f"fourier_lines {name}, num_coeff {k}"] = time_ms(launch.run)
+            splits[f"fourier_lines {name}, num_coeff {k}"] = launch_split(launch.run)
+    manager = PipelineManager(fourier_steps(SHAPE_COEFFS[0]), device=dev)
+    digests["fourier chain"] = sha256(manager.apply(frames))
+    chain = {f"{len(frames)} frames, num_coeff {SHAPE_COEFFS[0]}": wall_ms(lambda: manager.apply(frames),
+                                                                           calls=SHAPE_CHAIN_CALLS)}
+    return {"times": times, "digests": digests, "trace_host_ms": host, "chain_host_ms": chain, "split": splits}
+
+
+#: each timed phase's cases, by the name ``--times-one`` takes
+TIMED_PHASES = {"filters": filter_cases, "extraction": extraction_cases, "texture": texture_cases,
+                "shape": shape_cases}
+#: the command-line flag of each timed phase
+TIMES_FLAGS = {"--times-of": "filters", "--extraction-times-of": "extraction", "--texture-times-of": "texture",
+               "--shape-times-of": "shape"}
+
+
+def times_one(phase: str, root: str) -> None:
+    """Build the port of the checkout ``root`` and run the timed phase's
+    cases (:data:`TIMED_PHASES`) on it; print their JSON as the last line."""
+
+    sys.path.insert(0, root)
+    dev = torch.device("cuda", 0)
+    phase_build()
+    import yamimageprocessor_tpu_torch as port
+
+    print(json.dumps({"package": port.__file__, **TIMED_PHASES[phase](dev)}))
+
+
+def _mean(values):
+    return None if any(v is None for v in values) else sum(values) / len(values)
+
+
+def times_in_turns(phase: str, roots) -> None:
+    """Time the phase's cases on the checkouts ``roots`` (older ones,
+    unpacked with ``git archive``) and on this one, in turns (the roots,
+    this, this, the roots backwards; each a process of its own, its output
+    printed), fail unless every output digest agrees, and print the mean of
+    each checkout's two runs of every number (``times``, host ms, counts)."""
 
     import os
 
@@ -1040,27 +1087,29 @@ def texture_times_of(roots) -> None:
     order = list(roots) + [here, here] + list(reversed(roots))
     runs = []
     for tree in order:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--texture-times-one", tree],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--times-one", phase, tree],
                              capture_output=True, text=True, check=True, timeout=1200)
+        print(f"== {phase} on {tree}")
         print(out.stdout.strip())
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     for name, digest in runs[0]["digests"].items():
-        if any(run["digests"][name] != digest for run in runs[1:]):
-            raise AssertionError(f"texture times: {name} differs between {order} ")
+        if any(run["digests"].get(name) != digest for run in runs[1:]):
+            raise AssertionError(f"{phase} times: {name} differs between {order}")
     trees = list(roots) + [here]
-
-    def mean_of(tree, key, name):
-        values = [run[key][name] for t, run in zip(order, runs) if t == tree]
-        return sum(values) / len(values)
-
-    summary = {key: {name: {tree: mean_of(tree, key, name) for tree in trees} for name in runs[0][key]}
-               for key in ("times", "tables_ms")}
-    for key, unit in (("times", "device ms"), ("tables_ms", "host ms a frame")):
+    summary = {}
+    for key, table in runs[0].items():
+        if key in ("package", "digests") or not isinstance(table, dict):
+            continue
+        if not all(v is None or isinstance(v, (int, float)) for run in runs for v in run[key].values()):
+            continue  # nested tables (splits, kernels a call): printed above with each run
+        summary[key] = {name: {tree: _mean([run[key][name] for t, run in zip(order, runs) if t == tree])
+                               for tree in trees} for name in table}
         for name, row in summary[key].items():
-            print(f"time {name} ({unit}): " + ", ".join(f"{tree} {v:.4f}" for tree, v in row.items())
-                  + f" (runs {', '.join(f'{run[key][name]:.4f}' for run in runs)})")
+            each = ", ".join("None" if run[key][name] is None else f"{run[key][name]:.4f}" for run in runs)
+            print(f"{key} {name}: " + ", ".join(f"{tree} {'None' if v is None else f'{v:.4f}'}"
+                                                for tree, v in row.items()) + f" (runs {each})")
     print(f"card: {smi}")
-    print(json.dumps({"order": order, **summary}))
+    print(json.dumps({"phase": phase, "order": order, **summary}))
 
 
 def phase_kernels(dev) -> dict:
@@ -2855,28 +2904,95 @@ def fourier_kernel_vs_plain(name: str, pts: torch.Tensor, offs, k: int) -> tuple
 
 def trace_bound(labels: torch.Tensor, cont) -> tuple:
     """(bound ms, by): the label map read and the points and areas written
-    once, or the longest contour's chain of dependent steps."""
+    once.  Every move's successor is formed at once, so the trace has no
+    inherent chain of dependent steps."""
 
-    lengths = cont.offsets[1:] - cont.offsets[:-1]
-    nbytes = labels.numel() * 4 + cont.points.numel() * 4 + cont.area2.numel() * 8
-    longest = int(lengths.max()) if len(lengths) else 0
-    t_bytes, t_chain = nbytes / HBM_BYTES_PER_S, longest * DEPENDENT_STEP_S
-    return max(t_bytes, t_chain) * 1e3, ("bytes" if t_bytes >= t_chain else "operations")
+    return bound_ms(labels.numel() * 4 + cont.points.numel() * 4 + cont.area2.numel() * 8)
 
 
 def fourier_bound(offs, k: int) -> tuple:
     """(bound ms, by) of the 2k lines and the reconstruction of each
     contour: its points read, lines and reconstruction written; in FP64
-    instructions the n sincospi of the twiddles and the lesser of the
-    direct sums (2 x 2k x n complex multiply-adds) and an FFT pair (2 x
-    (n / 2) log2 n radix-2 butterflies), whichever a contour needs fewer
-    of."""
+    instructions the n sincospi of the twiddles and the least work the
+    function needs, the lesser of the direct sums (2 x 2k x n complex
+    multiply-adds) and an FFT pair (2 x (n / 2) log2 n radix-2
+    butterflies), whatever route the kernel takes."""
 
     ns = [b - a for a, b in zip(offs[:-1], offs[1:])]
-    inst = sum(min(2 * 2 * min(k, n) * n * FOURIER_F64_PER_MAC, 2 * (n / 2) * math.log2(n) * FFT_F64_PER_BUTTERFLY)
+    inst = sum(min(2 * 2 * min(k, n) * n * FOURIER_F64_PER_MAC,
+                   2 * (n / 2) * (math.log2(n) if n > 1 else 0.0) * FFT_F64_PER_BUTTERFLY)
                + SINCOSPI_F64 * n for n in ns)
     nbytes = sum(8 * n + 16 * n + 32 * min(k, n) for n in ns)
     return bound_ms(nbytes, f64_inst=inst)
+
+
+def route_macs_taken(offs, k: int) -> int:
+    """The complex multiply-adds, both ways, of the routes the kernel takes
+    (``ops/fourier.py:route``, ``route_macs``): a diagnostic of the chosen
+    routes beside the bound, not a bound."""
+
+    from yamimageprocessor_tpu_torch.ops.fourier import route, route_macs
+
+    ns = [b - a for a, b in zip(offs[:-1], offs[1:])]
+    return sum(2 * route_macs(n, k)[route(n, k) == "direct"] for n in ns)
+
+
+def forced_route_ms(pts: torch.Tensor, offs, k: int) -> dict:
+    """Device ms of the lines with every contour forced onto each route
+    (``ops/fourier.py:route`` replaced for the launch object's plan), each
+    held to the plain version first: the measurement behind the route's
+    cost model (``STAGE_COST``)."""
+
+    from yamimageprocessor_tpu_torch.ops import fourier as FO
+
+    chosen, out = FO.route, {}
+    try:
+        for forced in ("fft", "direct"):
+            FO.route = lambda n, kk, forced=forced: forced
+            fourier_kernel_vs_plain(f"every contour {forced}", pts, offs, k)
+            out[forced] = time_ms(FO.LinesLaunch(pts, offs, k).run)
+    finally:
+        FO.route = chosen
+    return out
+
+
+def launch_split(fn) -> dict:
+    """Each kernel's device ms a call of ``fn`` and its launches a call,
+    from one ``torch.profiler`` session of :data:`SPLIT_RUNS` calls; the
+    rest of the event pair (launch gaps) is ``time_ms(fn)`` less their sum."""
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(SPLIT_RUNS):
+            fn()
+        torch.cuda.synchronize()
+    ms, count = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0][:60]
+            ms[name] += e.device_time_total / 1e3 / SPLIT_RUNS
+            count[name] += 1
+    return {name: [round(ms[name], 5), count[name] / SPLIT_RUNS] for name in sorted(ms, key=ms.get, reverse=True)}
+
+
+def host_split(fn, top: int = 12) -> dict:
+    """The host's ms a call of ``fn`` by profiler event, its own time (a
+    wait for the card inside the CUDA call that waits), the ``top``
+    largest, with their count a call, from one ``torch.profiler`` session
+    of :data:`SPLIT_RUNS` calls; the rest of a call's host clock is Python
+    between them."""
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(SPLIT_RUNS):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    return {e.key[:60]: [round(e.self_cpu_time_total / 1e3 / SPLIT_RUNS, 5), e.count / SPLIT_RUNS] for e in rows}
 
 
 def polygon_bound(offs, vert_offsets, owner) -> tuple:
@@ -3016,15 +3132,24 @@ def phase_shape(dev) -> dict:
         "polygon_mean_errors": polygon_bound(args0[1], args0[3], args0[4]),
     }
     by_input = {"trace_contours": {}, "fourier_lines": {}, "polygon_mean_errors": {}}
-    for name in (f"blobs {BLOBS_SIDE}^2", f"tall disk {TALL_SIDE}^2"):
-        lab, n, c = traced[name]
-        by_input["trace_contours"][name] = {"ms": time_ms(TraceLaunch(lab, n).run), "bound_ms": trace_bound(lab, c)[0],
-                                            "bound_by": trace_bound(lab, c)[1]}
-    for name, pts, offs, k in (("32 scenes, num_coeff 512", main_pts, main_offs, 512),
+    for name, (lab, n, c) in traced.items():
+        launch = TraceLaunch(lab, n)
+        ms = times["trace_contours"][0] if name == "32 scenes" else time_ms(launch.run)
+        launch.run()
+        by_input["trace_contours"][name] = {"ms": ms, "bound_ms": trace_bound(lab, c)[0],
+                                            "bound_by": trace_bound(lab, c)[1], **launch.stats(),
+                                            "split": launch_split(launch.run)}
+    for name, pts, offs, k in (("32 scenes, num_coeff 10", main_pts, main_offs, k0),
+                               ("32 scenes, num_coeff 512", main_pts, main_offs, 512),
                                ("tall disk, num_coeff 10", disk_pts, disk_offs, 10),
                                ("tall disk, num_coeff 512", disk_pts, disk_offs, 512)):
-        by_input["fourier_lines"][name] = {"ms": time_ms(LinesLaunch(pts, offs, k).run),
-                                           "bound_ms": fourier_bound(offs, k)[0], "bound_by": fourier_bound(offs, k)[1]}
+        launch = LinesLaunch(pts, offs, k)
+        by_input["fourier_lines"][name] = {
+            "ms": times["fourier_lines"][0] if k == k0 and pts is main_pts else time_ms(launch.run),
+            "bound_ms": fourier_bound(offs, k)[0], "bound_by": fourier_bound(offs, k)[1], "routes": launch.counts(),
+            "route_macs": route_macs_taken(offs, k), "split": launch_split(launch.run)}
+        if pts is main_pts:
+            by_input["fourier_lines"][name]["forced_route_ms"] = forced_route_ms(pts, offs, k)
     by_input["polygon_mean_errors"]["tall disk"] = {
         "ms": time_ms(PG.ErrorsLaunch(*disk_args).run, runs=5),
         "bound_ms": polygon_bound(disk_offs, vert_offsets, disk_args[4])[0]}
@@ -3048,11 +3173,15 @@ def phase_shape(dev) -> dict:
 
     library = {"trace_contours": None, "fourier_lines": time_ms(library_fourier(spectra(main_pts, main_offs, k0))),
                "polygon_mean_errors": None}
-    by_input["fourier_lines"]["tall disk, num_coeff 512"]["library_ms"] = time_ms(
-        library_fourier(spectra(disk_pts, disk_offs, 512)))
+    for name, pts, offs, k in (("32 scenes, num_coeff 512", main_pts, main_offs, 512),
+                               ("tall disk, num_coeff 10", disk_pts, disk_offs, 10),
+                               ("tall disk, num_coeff 512", disk_pts, disk_offs, 512)):
+        by_input["fourier_lines"][name]["library_ms"] = time_ms(library_fourier(spectra(pts, offs, k)))
     for k in SHAPE_KERNELS:
         print(f"time {k}: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f}, library {library[k]}, "
-              f"bound {bounds[k][0]:.4f} ({bounds[k][1]}); by input {json.dumps(by_input[k])}")
+              f"bound {bounds[k][0]:.4f} ({bounds[k][1]})")
+        for name, row in by_input[k].items():
+            print(f"  {k} {name}: {json.dumps(row)}")
 
     # the Fourier chain on the host clock (labels, trace, the largest contours'
     # lines, the paint, the reads back), and its device time by kernel
@@ -3442,17 +3571,11 @@ def phase_stream(dev) -> dict:
 
 
 def main() -> None:
-    if sys.argv[1:2] == ["--times-of"]:
-        times_of(sys.argv[2])
+    if sys.argv[1:2] == ["--times-one"]:
+        times_one(sys.argv[2], sys.argv[3])
         return
-    if sys.argv[1:2] == ["--extraction-times-of"]:
-        extraction_times_of(sys.argv[2])
-        return
-    if sys.argv[1:2] == ["--texture-times-of"]:
-        texture_times_of(sys.argv[2:])
-        return
-    if sys.argv[1:2] == ["--texture-times-one"]:
-        texture_times_one(sys.argv[2])
+    if sys.argv[1:2] and sys.argv[1] in TIMES_FLAGS:
+        times_in_turns(TIMES_FLAGS[sys.argv[1]], sys.argv[2:])
         return
     if sys.argv[1:2] == ["--streaming"]:
         phase_device()
@@ -3556,17 +3679,19 @@ def main() -> None:
     rows += [
         ("trace_contours", "yamimageprocessor_tpu_torch/csrc/contour.cu",
          "yamimageprocessor_tpu/ops/shape.py:107 trace_external_contours (host numpy and Python, not a pallas_call)",
-         "none: PyTorch has no contour tracing; ms: the 32 scenes' labels (4 CUDA launches: seeds with the "
-         "packed mask, neighbour bytes, count walk, write walk, with the seeds' fill and the counts' scan); "
-         "by_input: the blobs, the 4001-row disk"),
+         "none: PyTorch has no contour tracing; ms: the 32 scenes' labels (7 CUDA launches: the starts' fill, "
+         "the seeds with the packed mask, the states, the moves, the links, the cooperative ranking, the points; "
+         "and two torch.cumsum scans); by_input: every input with its states, entries, rounds, the ranking's "
+         "phase times and the per-launch split"),
         ("fourier_lines", "yamimageprocessor_tpu_torch/csrc/shape.cu",
          "yamimageprocessor_tpu/ops/extraction_device.py:254 fourier_dft_j (XLA, not a pallas_call); CPU golden "
          "ops/shape.py:278 fourier_reconstruct",
          "torch.fft.fft, the kept lines selected, torch.fft.ifft (cuFFT) of each of the 32 scenes' largest "
          "contours in one event pair: a ragged batch has no single library call, so 96 calls, mostly launches "
-         "(by_input's disk at num_coeff 512: one contour's pair); ms: num_coeff 10 on those contours; bound: the "
-         "lesser of the direct sums and an FFT pair; max_abs_err: the reconstruction's pixels (lines: "
-         "max_rel_line_err of the largest line)"),
+         "(by_input's disk: one contour's pair); ms: num_coeff 10 on those contours (one launch: a block a "
+         "contour); bound: the lesser of the direct sums and an FFT pair's n log2 n; by_input: the routes, "
+         "their multiply-adds (route_macs), the per-launch split and, on the 32 contours, each route forced; max_abs_err: the reconstruction's pixels (lines: max_rel_line_err of the "
+         "largest line)"),
         ("polygon_mean_errors", "yamimageprocessor_tpu_torch/csrc/shape.cu",
          "yamimageprocessor_tpu/ops/extraction_device.py:339 polygon_mean_errors_j (XLA, not a pallas_call); CPU "
          "golden ops/shape.py:218 point_polygon_distance averaged by np.mean",

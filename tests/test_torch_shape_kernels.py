@@ -18,8 +18,10 @@ On the CPU (numpy only):
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
 card (the trace and the errors bit for bit, the lines within the same
-tolerance) and the two ops' card runs against their CPU runs; they skip
-where there is no card::
+tolerance; the trace also on one-row and one-column frames, regions on the
+frame's edges and isolated pixels; the lines on both routes, in one block
+and through L2) and the two ops' card runs against their CPU runs; they
+skip where there is no card::
 
     python -m pytest --noconftest tests/test_torch_shape_kernels.py -m cuda
 """
@@ -166,6 +168,15 @@ def _fourier_cases():
     return cases
 
 
+def _long_fourier_cases():
+    """Contours longer than a block's shared memory holds on either route
+    (the disk's 11312 points: FFT at num_coeff 512, direct at 10; the prime
+    10007: direct)."""
+
+    rng = np.random.default_rng(6)
+    return {f"random {n}": rng.integers(0, 4096, (n, 2)) for n in (11312, 10007)}
+
+
 @pytest.mark.parametrize("name, c", list(_fourier_cases().items()))
 def test_fourier_lines_plain_match_numpy_fft(name, c):
     for k in (1, 4, 10, 512):
@@ -225,8 +236,18 @@ def _masks():
 @needs_card
 def test_trace_kernel_matches_plain():
     masks, disk = _masks()
+    rng = np.random.default_rng(8)
+    edges = np.zeros((3, 37, 70), bool)
+    edges[0, 0, :] = edges[0, -1, 5:9] = edges[0, 10:20, 0] = edges[0, 3:30, -1] = True  # along every edge
+    edges[1, 0, 0] = edges[1, -1, -1] = edges[1, 0, -1] = edges[1, -1, 0] = True  # isolated corner pixels
+    edges[1, 18, 35] = True  # an isolated pixel
+    edges[2] = rng.random((37, 70)) < 0.6
+    edges[2, 1:-1, 1:-1] &= rng.random((35, 68)) < 0.8  # regions cut by the frame's edges
     cases = [torch.from_numpy(np.stack(masks)), torch.from_numpy(disk)[None], torch.ones((1, 1, 1), dtype=torch.bool),
-             torch.from_numpy(np.tile(np.array([[0, 1, 1, 0]] * 2 + [[0, 0, 0, 0]] * 2, bool), (50, 60)))[None]]
+             torch.from_numpy(np.tile(np.array([[0, 1, 1, 0]] * 2 + [[0, 0, 0, 0]] * 2, bool), (50, 60)))[None],
+             torch.from_numpy(rng.random((3, 1, 300)) < 0.5),  # one-row frames
+             torch.from_numpy(rng.random((3, 300, 1)) < 0.5),  # one-column frames
+             torch.from_numpy(edges)]
     for fg in cases:
         labels = label(fg)
         nseg = int(labels.max()) + 1
@@ -276,10 +297,15 @@ def test_polygon_errors_kernel_matches_plain():
 @cuda
 @needs_card
 def test_fourier_kernel_matches_plain():
-    cases = list(_fourier_cases().values())
+    from yamimageprocessor_tpu_torch.ops.fourier import LinesLaunch
+
+    cases = list(_fourier_cases().values()) + list(_long_fourier_cases().values())
     pts = torch.from_numpy(np.concatenate(cases).astype(np.int32))
     offs = [0] + np.cumsum([len(c) for c in cases]).tolist()
+    layouts = set()
     for k in (1, 10, 512):
+        counts = LinesLaunch(pts.cuda(), offs, k).counts()
+        layouts |= {name for name in ("fft", "direct", "block", "long_fft", "long_direct") if counts[name]}
         want_c, want_o, want_r = fourier_lines_plain(pts, offs, k)
         before = fourier_lines.launches
         got_c, got_o, got_r = fourier_lines(pts.cuda(), offs, k)
@@ -289,6 +315,7 @@ def test_fourier_kernel_matches_plain():
             assert float((got_c[a:b].cpu() - want_c[a:b]).abs().max()) <= LINE_TOL * scale
         assert float((got_r.cpu() - want_r).abs().max()) <= RECON_TOL
         assert torch.equal(torch.round(got_r.cpu()), torch.round(want_r))
+    assert layouts == {"fft", "direct", "block", "long_fft", "long_direct"}
 
 
 @cuda

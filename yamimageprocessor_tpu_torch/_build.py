@@ -76,9 +76,12 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_glcm_counts": (_P, _P, _I, _I, _I, _I, _I, _P),
     "yam_lbp_codes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_hog_cells": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-    "yam_contour_seed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "yam_contour_walk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "yam_fourier_lines": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "yam_contour_seed": (*(_P,) * 8, _I, _I, _I, _I, _P),
+    "yam_contour_rank_blocks": (ctypes.POINTER(_I),),
+    "yam_contour_rank": (*(_P,) * 24, _I, _I, _I, _I, _I, _I, _P),
+    "yam_contour_write": (*(_P,) * 7, _I, _I, _I, _I, _P),
+    "yam_fourier_shared_limit": (ctypes.POINTER(_I),),
+    "yam_fourier_lines": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P),
     "yam_polygon_errors": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 

@@ -16,8 +16,8 @@ order:
   which is ``2 * contour_area`` of the reference's points bit for bit
   (every float64 product and sum of ``contour_area`` is an exact integer).
 
-On the card it is the Moore walk kernel of ``csrc/contour.cu``; on the
-CPU its plain version, :func:`trace_contours_plain`, a lock-step walk in
+On the card it is the pointer-jumping trace of ``csrc/contour.cu``; on
+the CPU its plain version, :func:`trace_contours_plain`, a lock-step walk in
 plain torch: at each step every region still walking reads its 8
 neighbours, takes the first of its own clockwise after the backtrack
 direction, applies Jacob's stop and the ``8 * (pixels + 1)`` step bound,
@@ -141,10 +141,12 @@ class TraceLaunch:
     """The trace's buffers and launches on the card (``csrc/contour.cu``),
     shared by :func:`trace_contours` and by timers, so that both run the
     same device work.  Building it validates the labels, allocates, runs
-    :meth:`count` and sizes the points from the counts' total (one read
-    back); :meth:`write` is the walk writing the points and the doubled
-    areas; :meth:`run`, a call's device work into the same buffers, is
-    :meth:`count` then :meth:`write`."""
+    :meth:`states` and sizes the state arrays from their total (the one
+    read back before the points), and the points for at most every state's
+    pixel and every region's isolated one; :meth:`rank` ranks, :meth:`write`
+    writes the points; :meth:`run`, a call's device work into the same
+    buffers, is the three in turn.  :meth:`contours` reads which regions
+    have points and how many there are, once the work is done."""
 
     def __init__(self, labels: torch.Tensor, nseg: int):
         if labels.ndim != 3 or labels.dtype != torch.int32 or not labels.is_contiguous():
@@ -152,60 +154,119 @@ class TraceLaunch:
                 f"trace_contours takes contiguous (N, H, W) int32 labels, got {labels.dtype} {tuple(labels.shape)}")
         n, h, w = labels.shape
         dev = labels.device
+        wpr = (w + 31) // 32
         self.labels, self.nseg = labels, nseg
         self.start = torch.empty((n, nseg), dtype=torch.int32, device=dev)
-        self.pixels = torch.empty((n, nseg), dtype=torch.int32, device=dev)
-        self.counts = torch.zeros((n, nseg), dtype=torch.int32, device=dev)
-        self.mask = torch.empty((n, h, (w + 31) // 32), dtype=torch.int32, device=dev)
-        self.nb = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
-        self.offsets = torch.zeros(n * nseg + 1, dtype=torch.int64, device=dev)
-        self.count()
-        self.points = torch.empty((int(self.offsets[-1]), 2), dtype=torch.int32, device=dev)
+        self.mask = torch.empty((n, h, wpr), dtype=torch.int32, device=dev)
+        self.keep = torch.empty((n * h * wpr, 32), dtype=torch.uint8, device=dev)
+        self.nbr = torch.empty((n * h * wpr, 32), dtype=torch.uint8, device=dev)
+        self.wordcount = torch.empty(n * h * wpr, dtype=torch.int32, device=dev)
+        self.wordbase = torch.empty(n * h * wpr, dtype=torch.int32, device=dev)
+        self.active = torch.empty(n * h * wpr, dtype=torch.int32, device=dev)
+        # the kernels clear ctrl (the seeds' first launch) and counts and acc
+        # (the ranking) themselves
+        self.counts = torch.empty((n, nseg), dtype=torch.int32, device=dev)
+        self.acc = torch.empty(n * nseg, dtype=torch.int64, device=dev)
         self.area2 = torch.empty(n * nseg, dtype=torch.int64, device=dev)
+        self.offsets = torch.zeros(n * nseg + 1, dtype=torch.int64, device=dev)
+        self.ctrl = torch.empty(11, dtype=torch.int32, device=dev)
+        if not self.launching:
+            self.counts.zero_()
+        self.states()
+        self.total = int(self.wordbase[-1]) if self.launching else 0
+        s = max(self.total, 1)
+        self.next0, self.region, self.src, self.entry_flag, self.tgt, self.dist, self.entries, self.ranks = (
+            torch.empty(s, dtype=torch.int32, device=dev) for _ in range(8))
+        self.dir = torch.empty(s, dtype=torch.uint8, device=dev)
+        self.succ = torch.empty(s, dtype=torch.uint8, device=dev)
+        self.e0 = torch.empty((s, 2), dtype=torch.int32, device=dev)
+        self.e1 = torch.empty((s, 2), dtype=torch.int32, device=dev)
+        self.points = torch.empty((self.total + n * nseg if self.launching else 0, 2), dtype=torch.int32,
+                                  device=dev)
 
     @property
     def launching(self) -> bool:
         return self.labels.numel() > 0
 
-    def count(self) -> None:
-        """The seeds (each region's raster-first pixel and its pixel count),
-        every pixel's neighbour byte, the counting walk, the scan of the
-        counts into the offsets."""
+    def states(self) -> None:
+        """Each region's start, the packed foreground, each boundary
+        pixel's kept states, and the scan of the words' state counts."""
 
         n, h, w = self.labels.shape
-        dev = self.labels.device
         if self.launching:
-            self.start.fill_(_INT32_MAX)
-            self.pixels.zero_()
             _build.launch(
-                "yam_contour_seed", dev, self.labels.data_ptr(), self.start.data_ptr(), self.pixels.data_ptr(),
-                self.mask.data_ptr(), self.nb.data_ptr(), n, h, w, self.nseg,
+                "yam_contour_seed", self.labels.device, self.labels.data_ptr(), self.start.data_ptr(),
+                self.mask.data_ptr(), self.keep.data_ptr(), self.nbr.data_ptr(), self.wordcount.data_ptr(),
+                self.active.data_ptr(), self.ctrl.data_ptr(), n, h, w, self.nseg,
             )
+            torch.cumsum(self.wordcount, 0, dtype=torch.int32, out=self.wordbase)
+
+    def rank(self) -> None:
+        """The links, the ranking (counts and doubled areas) and the scan
+        of the counts into the offsets."""
+
+        n, h, w = self.labels.shape
+        if self.launching:
             _build.launch(
-                "yam_contour_walk", dev, self.nb.data_ptr(), self.start.data_ptr(), self.pixels.data_ptr(),
-                self.counts.data_ptr(), None, None, None, n, h, w, self.nseg,
+                "yam_contour_rank", self.labels.device, self.labels.data_ptr(), self.start.data_ptr(),
+                self.mask.data_ptr(), self.keep.data_ptr(), self.nbr.data_ptr(), self.wordcount.data_ptr(), self.wordbase.data_ptr(),
+                self.active.data_ptr(), self.next0.data_ptr(), self.succ.data_ptr(), self.src.data_ptr(),
+                self.dir.data_ptr(),
+                self.entry_flag.data_ptr(), self.tgt.data_ptr(), self.dist.data_ptr(), self.entries.data_ptr(),
+                self.e0.data_ptr(), self.e1.data_ptr(), self.ranks.data_ptr(), self.region.data_ptr(),
+                self.counts.data_ptr(), self.acc.data_ptr(), self.area2.data_ptr(), self.ctrl.data_ptr(),
+                self.total, rank_blocks(self.labels.device), n, h, w, self.nseg,
             )
-        torch.cumsum(self.counts.reshape(-1), 0, dtype=torch.int64, out=self.offsets[1:])
+            torch.cumsum(self.counts.reshape(-1), 0, dtype=torch.int64, out=self.offsets[1:])
 
     def write(self) -> None:
-        """The walk writing the points at the offsets and the doubled areas."""
+        """Each outer state's pixel at its place in its region's walk."""
 
         n, h, w = self.labels.shape
-        if self.points.shape[0]:
+        if self.launching:
             _build.launch(
-                "yam_contour_walk", self.labels.device, self.nb.data_ptr(), self.start.data_ptr(),
-                self.pixels.data_ptr(), None, self.offsets.data_ptr(), self.points.data_ptr(), self.area2.data_ptr(),
-                n, h, w, self.nseg,
+                "yam_contour_write", self.labels.device, self.ranks.data_ptr(), self.region.data_ptr(),
+                self.src.data_ptr(), self.start.data_ptr(), self.counts.data_ptr(), self.offsets.data_ptr(),
+                self.points.data_ptr(), self.total, n, w, self.nseg,
             )
 
     def run(self) -> None:
-        self.count()
+        self.states()
+        self.rank()
         self.write()
+
+    def stats(self) -> dict:
+        """The last run's state count, entries (states another chunk's
+        pointers end at), the most ranking rounds a chunk took in shared
+        memory, the entries' rounds, and the ranking's phases' ends in ms
+        from its start (the chunks, the entries, the ranks and sums, the
+        areas; the card's global timer, a read back)."""
+
+        ctrl = self.ctrl.tolist()
+        return {"states": self.total, "entries": ctrl[0], "chunk_rounds": ctrl[1], "entry_rounds": ctrl[2],
+                "rank_phase_ends_ms": [t / 1e6 for t in ctrl[6:10]]}
 
     def contours(self) -> Contours:
         slots = torch.nonzero(self.counts.reshape(-1) > 0).reshape(-1)
-        return Contours(self.points, torch.cat([self.offsets[slots], self.offsets[-1:]]), slots // self.nseg,
-                        self.area2[slots])
+        return Contours(self.points[: int(self.offsets[-1])], torch.cat([self.offsets[slots], self.offsets[-1:]]),
+                        slots // self.nseg, self.area2[slots])
+
+
+_RANK_BLOCKS = {}
+
+
+def rank_blocks(device) -> int:
+    """Blocks of the ranking's cooperative launch: as many as the card
+    holds at once (the occupancy API), once a device."""
+
+    key = torch.device(device).index
+    if key not in _RANK_BLOCKS:
+        import ctypes
+
+        blocks = ctypes.c_int(0)
+        _build.call("yam_contour_rank_blocks", device, ctypes.byref(blocks))
+        _RANK_BLOCKS[key] = blocks.value
+    return _RANK_BLOCKS[key]
 
 
 def trace_contours(labels: torch.Tensor, nseg: int) -> Contours:
@@ -214,20 +275,28 @@ def trace_contours(labels: torch.Tensor, nseg: int) -> Contours:
     label of the batch.
 
     On the card (``csrc/contour.cu``, for the host walk of
-    ``yamimageprocessor_tpu/ops/shape.py:107``; :class:`TraceLaunch`):
-    four launches, the seeds (each region's raster-first pixel by atomicMin
-    and its pixel count, atomics a row run, and the foreground packed as
-    bits), every pixel's 8-bit mask of foreground neighbours (one byte; a
-    foreground neighbour of a region's pixel is of that region), the walk
-    counting each region's points, then, after the scan of the counts and
-    one read of their total, the walk writing the points and the doubled
-    areas.  A thread walks one region, a step one byte load; the bound is
-    the label map's bytes and the longest contour's chain of dependent
-    steps."""
+    ``yamimageprocessor_tpu/ops/shape.py:107``; :class:`TraceLaunch`): the
+    walk as a cycle of moves, every move's successor formed at once and the
+    cycle ranked by pointer jumping.  The seeds (each region's raster-first
+    pixel by atomicMin a row run, the foreground packed as bits); each
+    boundary pixel's kept states (a move out of it, named by the direction
+    it came from, kept where the pixels it comes from and goes to are
+    boundary pixels and its search passes a direction that is not the
+    region's: the outer walk takes no other), as bit planes a 32-pixel
+    word; after a scan of the states' counts and one read of their total,
+    each state's move and successor, then one cooperative launch that ranks
+    chunks of states in shared memory, then the chunks' entries across the
+    grid, and gives each region's point count and doubled area; after the
+    scan of the counts, each outer state writes its pixel into points sized
+    beforehand for every state and every region's isolated pixel, whose
+    total is read once the work is done.  The bound is the label map's
+    bytes.
+    """
 
     if not _build.on_card("trace_contours", labels):
         return trace_contours_plain(labels, nseg)
     trace = TraceLaunch(labels, nseg)
+    trace.rank()
     trace.write()
     if trace.launching:
         trace_contours.launches += 1
@@ -237,4 +306,4 @@ def trace_contours(labels: torch.Tensor, nseg: int) -> Contours:
 trace_contours.launches = 0
 
 
-__all__ = ["Contours", "MOORE", "TraceLaunch", "trace_contours", "trace_contours_plain"]
+__all__ = ["Contours", "MOORE", "TraceLaunch", "rank_blocks", "trace_contours", "trace_contours_plain"]

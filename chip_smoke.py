@@ -390,16 +390,23 @@ DIGESTS = {
     "stream_flagship_bgr_500x300": "647ae31ba21c005da14b7a23e3064a4fb80656b1222a08c31275a89b726e7d86",
     "stream_clahe_bgr_512": "b8d2301e565701a4dfa4ccd9b116fbb0b93f8927010e90bab162782ede1f07bd",
     "stream_clahe_bgr_500x300": "b8d2301e565701a4dfa4ccd9b116fbb0b93f8927010e90bab162782ede1f07bd",
+    "stream_float32_input": "cd2e0cdfd9a80f48d611e5510259e12a1554a07ea8e1148847c03d97e28f20ee",
+    "stream_clahe_float32_512": "a30a11041d3fe36d397b82b19d23560818c5aa76dce6ad295cbec76e0cae2de7",
+    "stream_clahe_float32_500x300": "a30a11041d3fe36d397b82b19d23560818c5aa76dce6ad295cbec76e0cae2de7",
+    "stream_uint16_input": "c7fe580a47ed22a92b3fa900dce8c0abccd018bb7320ee8eb0bd70cdebc5b1e8",
+    "stream_clahe_uint16_512": "e3b00dd19255355c6da5e091decd1d2e126fd5b11af86ee6565bac311b7696c9",
+    "stream_clahe_uint16_500x300": "e3b00dd19255355c6da5e091decd1d2e126fd5b11af86ee6565bac311b7696c9",
 }
 
 
-def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
+def time_ms(fn, runs: int = RUNS, warmup: int = 3, before=None) -> float:
     """Median device time of one ``fn()`` in ms, one CUDA event pair a run.
 
     Each run first queues a ~1 ms sleep on the stream, so the host has
     queued the start event, ``fn``'s launches and the end event before the
     device reaches them: the pair measures device time, not the host's
-    launch latency (unless ``fn`` waits for the device itself)."""
+    launch latency (unless ``fn`` waits for the device itself).  ``before``,
+    if given, is queued ahead of each run's sleep (outside the pair)."""
 
     for _ in range(warmup):
         fn()
@@ -408,6 +415,8 @@ def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
@@ -1049,12 +1058,102 @@ def shape_cases(dev) -> dict:
     return {"times": times, "digests": digests, "trace_host_ms": host, "chain_host_ms": chain, "split": splits}
 
 
+def l2_flush(dev):
+    """A function that evicts the card's 50 MB L2 by writing a 128 MiB
+    buffer: called before a run's sleep, it leaves the run's inputs in
+    device memory only (the write is outside the event pair)."""
+
+    junk = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    return lambda: junk.fill_(1)
+
+
+def stream_tile_cases(dev) -> dict:
+    """The stream kernels' inputs on the 16380^2 CLAHE slide's geometry
+    (grid 8, 2048^2 stream tiles), as the generic route batches them: name
+    -> (tiles, origins).  The middle row's 7 tiles (its fourth row), the last
+    row's 7 (the mirror rows: 2044 rows), the corner tile (2044^2: the
+    mirror rows and columns), and the middle row as float32 (uint8 levels
+    plus a fraction in [0, 1)) and as uint16 (uint8 levels): both with one
+    pixel in 4096 outside 0..255 (-3.7 or 300.5 in float32, 300 or 65535
+    in uint16), which the histogram adds straight to the output and the
+    blend gives level 0's entry.  Seeded on the card."""
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    side, (tw, th) = STREAM_CLAHE_SIDE, STREAM_TILE
+    per_row, last = -(-side // tw) - 1, (side // th) * th  # 7 full tiles a row; the last row's top
+    edge = side - last
+
+    def levels(n, h, w):
+        return torch.randint(0, 256, (n, h, w), generator=gen, device=dev, dtype=torch.uint8)
+
+    def sprinkle(shape):
+        return torch.randint(0, 4096, shape, generator=gen, device=dev) == 0
+
+    middle = levels(per_row, th, tw)
+    outside = sprinkle(middle.shape)
+    other = torch.randint(0, 2, middle.shape, generator=gen, device=dev).bool()
+    frac = torch.rand(middle.shape, generator=gen, device=dev)
+    f32 = middle.to(torch.float32) + frac
+    f32 = torch.where(outside, torch.where(other, -3.7, 300.5), f32).contiguous()
+    u16 = middle.to(torch.int32)
+    u16 = torch.where(outside, torch.where(other, 300, 65535), u16).to(torch.uint16).contiguous()
+    middle_o = [(3 * th, k * tw) for k in range(per_row)]
+    return {
+        "middle row": (middle, middle_o),
+        "last row": (levels(per_row, edge, tw), [(last, k * tw) for k in range(per_row)]),
+        "corner": (levels(1, edge, edge), [(last, last)]),
+        "middle row float32": (f32, middle_o),
+        "middle row uint16": (u16, middle_o),
+    }
+
+
+def stream_cases(dev) -> dict:
+    """The two stream kernels on :func:`stream_tile_cases`: device ms of
+    the histogram and of the blend (tables from the middle row's merged
+    histograms) on each case, the middle row also with the card's L2
+    evicted before each run (``cold``: its 29.4 MB fit the 50 MB L2, so the
+    plain runs repeat on a warm L2); a device-to-device copy of the middle
+    row's bytes (the rate the blend's bytes can reach); digests of every
+    output.  A case that a checkout's wrappers refuse (the uint8-only
+    stream kernels before float32 and uint16 frames) times None."""
+
+    from yamimageprocessor_tpu_torch.ops import clahe as CL
+
+    frame, grid = (STREAM_CLAHE_SIDE, STREAM_CLAHE_SIDE), (8, 8)
+    cases = stream_tile_cases(dev)
+    middle, middle_o = cases["middle row"]
+    luts = CL.clahe_stream_luts(CL.grid_hist_stream(middle, middle_o, frame, grid), 40.0, frame, grid)
+    flush = l2_flush(dev)
+    times, digests, counts = {}, {}, {}
+    for name, (t, o) in cases.items():
+        counts[name] = t.numel()
+        try:
+            hist = CL.grid_hist_stream(t, o, frame, grid)
+            blended = CL.clahe_stream_blend(t, luts, o, frame, grid)
+        except ValueError as err:
+            print(f"{name}: refused ({err})")
+            times[f"stream_grid_histogram {name}"] = times[f"clahe_stream_blend {name}"] = None
+            continue
+        digests[f"stream_grid_histogram {name}"] = sha256(hist)
+        digests[f"clahe_stream_blend {name}"] = sha256(blended)
+        times[f"stream_grid_histogram {name}"] = time_ms(lambda: CL.grid_hist_stream(t, o, frame, grid))
+        times[f"clahe_stream_blend {name}"] = time_ms(lambda: CL.clahe_stream_blend(t, luts, o, frame, grid))
+    copy = torch.empty_like(middle)
+    times["copy middle row"] = time_ms(lambda: copy.copy_(middle))
+    for kernel, fn in (("stream_grid_histogram", lambda: CL.grid_hist_stream(middle, middle_o, frame, grid)),
+                       ("clahe_stream_blend", lambda: CL.clahe_stream_blend(middle, luts, middle_o, frame, grid)),
+                       ("copy", lambda: copy.copy_(middle))):
+        times[f"{kernel} middle row, L2 evicted"] = time_ms(fn, before=flush)
+    return {"times": times, "digests": digests, "pixels": counts}
+
+
 #: each timed phase's cases, by the name ``--times-one`` takes
 TIMED_PHASES = {"filters": filter_cases, "extraction": extraction_cases, "texture": texture_cases,
-                "shape": shape_cases}
+                "shape": shape_cases, "stream": stream_cases}
 #: the command-line flag of each timed phase
 TIMES_FLAGS = {"--times-of": "filters", "--extraction-times-of": "extraction", "--texture-times-of": "texture",
-               "--shape-times-of": "shape"}
+               "--shape-times-of": "shape", "--stream-times-of": "stream"}
 
 
 def times_one(phase: str, root: str) -> None:
@@ -3270,6 +3369,21 @@ TRANSFER_BYTES = 256 << 20
 STREAM_KERNELS = ("stream_grid_histogram", "clahe_stream_blend")
 
 
+def stream_digest_frames() -> dict:
+    """The streaming digests' frames (``scripts/torch_port_digests.py``
+    makes the same): gray and BGR uint8, and gray float32 (uint8's range
+    and a little beyond, with fractions) and uint16 (levels to 299), which
+    only the CLAHE chain streams."""
+
+    side = STREAM_DIGEST_SIDE
+    return {
+        "gray": np.random.default_rng(21).integers(0, 256, (side, side), dtype=np.uint8),
+        "bgr": np.random.default_rng(22).integers(0, 256, (side, side, 3), dtype=np.uint8),
+        "float32": (np.random.default_rng(23).random((side, side), dtype=np.float32) * 270 - 5).astype(np.float32),
+        "uint16": np.random.default_rng(24).integers(0, 300, (side, side), dtype=np.uint16),
+    }
+
+
 def stream_clahe_steps():
     from yamimageprocessor_tpu_torch.ops.schema import Stage
     from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
@@ -3404,13 +3518,28 @@ def sweep_breakdown(image, dev) -> dict:
     }
 
 
+def stream_blend_least_ops() -> int:
+    """Least float32 instructions of a pixel of the stream blend in the
+    reference's order, whatever the design: the four weights (separate
+    products of a row's and a column's factor, which differ between a
+    pixel's two level forms, so none is shared), the product w01 * t01 and
+    three FMAs, and the rounding add: 9.  No clip: the sum lies in [0,
+    255.5) (``tests/test_torch_stream_schedule.py``:
+    ``test_blend_sums_need_no_clip``).  The table read, the level and the
+    corners' conversion to floats are the design's and are not counted."""
+
+    return 4 + 1 + 3 + 1
+
+
 def stream_kernel_checks(image, dev, frame_shape) -> dict:
     """The two stream kernels against their plain versions, bit for bit, on
     the CLAHE slide's windows as the generic route batches them: 7 tiles of
     a middle row, the last row's 7 (the mirror rows), the corner tile (the
-    mirror rows and columns); the tables from the slide's merged
-    histograms.  Then each kernel's and plain version's device time on the
-    middle row, with its bound."""
+    mirror rows and columns); and on the middle row's geometry as float32
+    and uint16 tiles (:func:`stream_tile_cases`: values outside 0..255
+    included); the tables from the slide's merged histograms.  Then each
+    kernel's and plain version's device time on the middle row, and on its
+    float32 and uint16 instances, with their bounds."""
 
     from yamimageprocessor_tpu_torch.ops import clahe as CL
     from yamimageprocessor_tpu_torch.parallel import tiling as TL
@@ -3431,32 +3560,35 @@ def stream_kernel_checks(image, dev, frame_shape) -> dict:
             hist += CL.grid_hist_stream(t, o, frame_shape, grid)
     luts = CL.clahe_stream_luts(hist, 40.0, frame_shape, grid)
     last = len(boxes) - 1
-    cases = {
-        "middle row": range(3 * per_row, 3 * per_row + per_row - 1),
-        "last row": range(last - per_row + 1, last),
-        "corner": [last],
-    }
+    cases = {name: tiles_of(sel) for name, sel in (
+        ("middle row", range(3 * per_row, 3 * per_row + per_row - 1)),
+        ("last row", range(last - per_row + 1, last)),
+        ("corner", [last]),
+    )}
+    made = stream_tile_cases(dev)
+    cases.update({name: made[name] for name in ("middle row float32", "middle row uint16")})
     err = {}
-    for name, sel in cases.items():
-        t, o = tiles_of(sel)
+    for name, (t, o) in cases.items():
         err[f"hist {name}"] = exact(f"grid_hist_stream {name}", CL.grid_hist_stream(t, o, frame_shape, grid),
                                     CL.grid_hist_stream_plain(t, o, frame_shape, grid))
         err[f"blend {name}"] = exact(f"clahe_stream_blend {name}", CL.clahe_stream_blend(t, luts, o, frame_shape, grid),
                                      CL.clahe_stream_blend_plain(t, luts, o, frame_shape, grid))
-    t, o = tiles_of(cases["middle row"])
-    nbytes = t.numel()
-    times = {
-        "stream_grid_histogram": paired_ms(lambda: CL.grid_hist_stream(t, o, frame_shape, grid),
-                                           lambda: CL.grid_hist_stream_plain(t, o, frame_shape, grid), plain_runs=3),
-        "clahe_stream_blend": paired_ms(lambda: CL.clahe_stream_blend(t, luts, o, frame_shape, grid),
-                                        lambda: CL.clahe_stream_blend_plain(t, luts, o, frame_shape, grid),
-                                        runs=RUNS, plain_runs=3),
-    }
-    bounds = {
-        "stream_grid_histogram": bound_ms(nbytes + 8 * 8 * 256 * 4),
-        "clahe_stream_blend": bound_ms(2 * nbytes + 8 * 8 * 256),
-    }
-    return {"err": err, "times": times, "bounds": bounds, "batch": tuple(t.shape)}
+    times, bounds = {}, {}
+    for name in ("middle row", "middle row float32", "middle row uint16"):
+        t, o = cases[name]
+        key = "" if name == "middle row" else f" {name.split()[-1]}"
+        px = t.numel()
+        times[f"stream_grid_histogram{key}"] = paired_ms(lambda: CL.grid_hist_stream(t, o, frame_shape, grid),
+                                                         lambda: CL.grid_hist_stream_plain(t, o, frame_shape, grid),
+                                                         plain_runs=3)
+        times[f"clahe_stream_blend{key}"] = paired_ms(lambda: CL.clahe_stream_blend(t, luts, o, frame_shape, grid),
+                                                      lambda: CL.clahe_stream_blend_plain(t, luts, o, frame_shape,
+                                                                                          grid),
+                                                      runs=RUNS, plain_runs=3)
+        bounds[f"stream_grid_histogram{key}"] = bound_ms(px * t.element_size() + 8 * 8 * 256 * 4)
+        bounds[f"clahe_stream_blend{key}"] = bound_ms(px * (t.element_size() + 1) + 8 * 8 * 256,
+                                                      f32_inst=stream_blend_least_ops() * px)
+    return {"err": err, "times": times, "bounds": bounds, "batch": tuple(cases["middle row"][0].shape)}
 
 
 def phase_stream(dev) -> dict:
@@ -3543,19 +3675,18 @@ def phase_stream(dev) -> dict:
               f"{list(checks['err'])}; timed on {checks['batch']}")
         del clahe_slide, out
 
-        frames = {
-            "gray": np.random.default_rng(21).integers(0, 256, (STREAM_DIGEST_SIDE,) * 2, dtype=np.uint8),
-            "bgr": np.random.default_rng(22).integers(0, 256, (STREAM_DIGEST_SIDE,) * 2 + (3,), dtype=np.uint8),
-        }
+        frames = stream_digest_frames()
         chains = {"flagship": preprocess_steps, "clahe": stream_clahe_steps}
         for kind, array in frames.items():
             check_digest(f"stream_{kind}_input", array)
             for tiles, tile in STREAM_DIGEST_TILES.items():
                 src = write_slide(tmp, f"digest_{kind}_{tiles}", array, tile)
                 for chain, make_steps in chains.items():
-                    check_digest(f"stream_{chain}_{kind}_{tiles}", PipelineManager(make_steps(), device=dev).apply(src))
-        print(f"stream digests: flagship and clahe chains, gray and BGR {STREAM_DIGEST_SIDE}^2, tiles "
-              f"{list(STREAM_DIGEST_TILES)} == the JAX package's streamed output")
+                    if kind in ("gray", "bgr") or chain == "clahe":
+                        check_digest(f"stream_{chain}_{kind}_{tiles}",
+                                     PipelineManager(make_steps(), device=dev).apply(src))
+        print(f"stream digests: flagship and clahe chains, gray and BGR {STREAM_DIGEST_SIDE}^2, the clahe chain "
+              f"on gray float32 and uint16, tiles {list(STREAM_DIGEST_TILES)} == the JAX package's streamed output")
 
         scene = dense_scene(STREAM_SEG_SIDE, seed=3)
         seg_src = write_slide(tmp, "segmentation", scene)
@@ -3704,11 +3835,12 @@ def main() -> None:
          "pass, not a pallas_call; the stream instance of pallas_kernels.py:457's tile histograms)",
          "none: no single PyTorch call counts weighted levels by grid cell (index_add_ needs the cell and weight "
          "planes formed first); ms: 7 tiles of 2048^2 of the 16380^2 CLAHE slide's fourth row (also checked on "
-         "the last row's mirror rows and the corner tile)"),
+         "the last row's mirror rows and the corner tile); by_input: the same geometry as float32 and uint16"),
         ("clahe_stream_blend", "yamimageprocessor_tpu_torch/csrc/clahe.cu",
          "yamimageprocessor_tpu/ops/clahe.py:440 clahe_apply_from_hist_j (XLA 256-pass fori_loop in the streaming "
          "apply pass, not a pallas_call; the stream instance of ops/clahe_pallas.py:137's blend)",
-         "none: no single PyTorch call blends four table lookups a pixel; ms: the same 7 tiles"),
+         "none: no single PyTorch call blends four table lookups a pixel; ms: the same 7 tiles; bound: the larger "
+         "of the bytes and stream_blend_least_ops' float32 instructions; by_input: float32 and uint16"),
     ]
     for name in STREAM_KERNELS:
         kern["err"][name] = max(v for k, v in stm["err"].items() if k.startswith("hist" if "hist" in name else "blend"))
@@ -3788,6 +3920,23 @@ def main() -> None:
                                "magnitudes in cell_order's order; a warp's outputs consecutive floats")
         if name in SHAPE_KERNELS:
             entry["by_input"] = shp["by_input"][name]
+        if name in STREAM_KERNELS:
+            entry["by_input"] = {f"middle row {kind}": {"ms": stm["times"][f"{name} {kind}"][0],
+                                                        "plain_ms": stm["times"][f"{name} {kind}"][1],
+                                                        "bound_ms": stm["bounds"][f"{name} {kind}"][0],
+                                                        "bound_by": stm["bounds"][f"{name} {kind}"][1]}
+                                 for kind in ("float32", "uint16")}
+        if name == "stream_grid_histogram":
+            entry["design"] = ("a persistent grid from the occupancy API over the batch's loads, whatever work item "
+                               "they lie in; raw counts in a lane-column table, count x weight flushed by one global "
+                               "atomic a bin where the cell or weight changes; uint16 and float32 levels outside "
+                               "0..255 straight to the output at the reference's wrapped flat index")
+        if name == "clahe_stream_blend":
+            entry["design"] = ("a persistent grid from the occupancy API over the strips' rows (strips of up to "
+                               "1024 columns) in chunks of up to 64; a chunk's pair entries (t00..t11 of a level as float16, 8 bytes) staged from the "
+                               "uint8 tables in shared memory; one entry a pixel; a lane 4 columns with the next "
+                               "step's loads in flight; no clip (the sum lies in [0, 255.5))")
+            entry["least_f32_instructions_a_pixel"] = stream_blend_least_ops()
         if name == "fourier_lines":
             entry["max_rel_line_err"] = shp["line_err"]
             entry["tolerance"] = {"lines": FOURIER_LINE_TOL, "reconstruction": FOURIER_RECON_TOL}

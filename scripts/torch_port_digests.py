@@ -44,8 +44,10 @@ the texture digests (about 1 min), ``--shape`` only the shape digests
 package's ``apply_steps_tiled`` output of the flagship chain and of the
 stream CLAHE chain (CLAHE grid 8, clip 40, then normalize) on a 2048^2
 gray frame and a 2048^2 x 3 BGR frame from ``np.random.default_rng``
-(seeds 21 and 22), in 512^2 tiles (an exact grid) and in 500 x 300 tiles
-(a non-exact one); about 2 min.
+(seeds 21 and 22), and of the stream CLAHE chain on a gray float32 frame
+(uint8's range and a little beyond, with fractions; seed 23) and a gray
+uint16 frame (levels to 299; seed 24), in 512^2 tiles (an exact grid) and
+in 500 x 300 tiles (a non-exact one); about 3 min.
 """
 from __future__ import annotations
 
@@ -288,12 +290,15 @@ class _Frame:
 
 
 def stream_frames() -> dict:
-    """The streaming digests' gray and BGR frames."""
+    """The streaming digests' frames: gray and BGR uint8, gray float32 and
+    uint16 (``chip_smoke.py:stream_digest_frames`` makes the same)."""
 
     side = STREAM_SIDE
     return {
         "gray": np.random.default_rng(21).integers(0, 256, (side, side), dtype=np.uint8),
         "bgr": np.random.default_rng(22).integers(0, 256, (side, side, 3), dtype=np.uint8),
+        "float32": (np.random.default_rng(23).random((side, side), dtype=np.float32) * 270 - 5).astype(np.float32),
+        "uint16": np.random.default_rng(24).integers(0, 300, (side, side), dtype=np.uint16),
     }
 
 
@@ -315,6 +320,8 @@ def stream_digests(result: dict) -> None:
     for kind, array in stream_frames().items():
         result[f"stream_{kind}_input"] = digest(array)
         for chain, steps in chains.items():
+            if kind not in ("gray", "bgr") and chain != "clahe":
+                continue  # float32 and uint16 frames: the CLAHE chain only
             for tiles, tile_size in STREAM_TILES.items():
                 out = apply_steps_tiled(steps, _Frame(array), tile_size=tile_size)
                 result[f"stream_{chain}_{kind}_{tiles}"] = digest(out)

@@ -202,6 +202,62 @@ def test_fourier_table_matches_jax(name, k):
     assert np.abs(lines - ref).max() <= 1e-10 * max(1.0, np.abs(ref).max())
 
 
+# The documented deviation of the Otsu-mask extraction ops (F15 adds
+# float32): on a 2-D uint16 frame past 255 the reference's golden Otsu
+# raises ValueError (its histogram is not 256 levels), on a 2-D float32
+# frame TypeError (``bincount`` of floats); the port thresholds both, and a
+# float32 frame of the uint8 frame's values gives the uint8 frame's output.
+OTSU_DEVIATION_FRAMES = {
+    "uint16 past 255": (lambda gray: gray.astype(np.uint16) * 200 + 7, ValueError),
+    "float32": (lambda gray: gray.astype(np.float32), TypeError),
+}
+OTSU_DEVIATION_OPS = {
+    "fourier_data": (lambda f: EX.fourier_data(f, 10), lambda f: fourier_data(f, 10, device="cpu")),
+    "approximate_shape_data": (lambda f: EX.approximate_shape_data(f, 1.0),
+                               lambda f: approximate_shape_data(f, 1.0, device="cpu")),
+    "Fourier chain": (lambda f: EX.fourier_descriptors_extraction(f, 10),
+                      lambda f: PipelineManager(_fourier_step(10), device="cpu").apply(f)),
+}
+
+
+@pytest.mark.parametrize("op", list(OTSU_DEVIATION_OPS))
+@pytest.mark.parametrize("kind", list(OTSU_DEVIATION_FRAMES))
+def test_otsu_mask_ops_on_2d_uint16_and_float32_frames(kind, op):
+    gray = _fourier_frames()["gray"]
+    make, error = OTSU_DEVIATION_FRAMES[kind]
+    frame = make(gray)
+    reference, port = OTSU_DEVIATION_OPS[op]
+    with pytest.raises(error):
+        reference(frame)
+    got, on_uint8 = port(frame), port(gray)
+    if isinstance(got, dict):
+        assert list(got) == list(on_uint8) and len(got) > 0
+        same = all(np.array_equal(np.asarray(got[k]), np.asarray(on_uint8[k])) for k in got)
+    else:
+        assert got.dtype == frame.dtype and got.shape == frame.shape
+        same = np.array_equal(got, on_uint8)
+    assert same == (kind == "float32")
+
+
+# F16: a BGRA frame in the painting chains raises ValueError in both
+# packages where something is painted, and comes back unchanged where
+# nothing is
+@pytest.mark.parametrize("op", ["extraction.fourier", "extraction.region_properties"])
+def test_painting_chains_on_bgra_frames(op):
+    from yamimageprocessor_tpu.pipeline.manager import PipelineManager as JaxManager
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
+
+    scene = _scene_bgr()
+    bgra = np.concatenate([scene, np.full(scene.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    steps = [PipelineStep(name=op, op_id=op, stage=Stage.ANALYSIS, params={})]
+    jax_steps = [JaxStep.from_dict(s.to_dict()) for s in steps]
+    for run in (lambda f: PipelineManager(steps, device="cpu").apply(f), lambda f: JaxManager(jax_steps).apply(f)):
+        with pytest.raises(ValueError):
+            run(bgra)
+        empty = np.zeros((20, 24, 4), np.uint8)
+        assert np.array_equal(run(empty), empty)
+
+
 def test_fourier_overlap_keeps_a_line_once():
     """n < 2k (``tests/test_extraction_device.py:301``): the square's 5
     points at k = 4; the table keeps both copies of a line, the

@@ -47,6 +47,8 @@ CHAINS = {
     "watershed": [("Otsu", "segmentation", {}, None), ("Watershed", "segmentation", {}, "segmentation.watershed")],
     "gaussian": [GAUSS],
     "crop": [GAUSS, ("Crop", "preprocessing", {"x_offset": 5, "y_offset": 7, "width": 40, "height": 30}, None)],
+    "clahe_only": [CLAHE],
+    "normalize_clahe": [NORMALIZE, CLAHE],
 }
 
 
@@ -103,23 +105,38 @@ class Unreadable(Source):
         raise AssertionError("a warm re-run must not read the source")
 
 
-def frame(shape, dtype=np.uint8, seed=11):
+#: values of the stream kernels' edge cases (F14), a few of them written
+#: over a frame at seeded places: the histogram's flat index wraps in int32,
+#: and the blend gives any value outside 1..255 level 0's entry
+SPECIALS = {np.float32: (-3.7, 300.0, np.nan, np.inf, -np.inf, 70000.0, 255.9, -0.5),
+            np.uint16: (300, 70000 % 65536, 65535, 256, 0)}
+
+
+def frame(shape, dtype=np.uint8, seed=11, specials=False):
     rng = np.random.default_rng(seed)
     if dtype == np.float32:
-        return (rng.random(shape, dtype=np.float32) * 300.0 - 20.0).astype(np.float32)
-    return rng.integers(0, 256, shape, dtype=np.uint8)
+        out = (rng.random(shape, dtype=np.float32) * 300.0 - 20.0).astype(np.float32)
+    elif dtype == np.uint16:
+        out = rng.integers(0, 320, shape, dtype=np.uint16)
+    else:
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if specials:
+        values = np.asarray(SPECIALS[dtype], dtype=dtype)
+        at = rng.choice(out.size, 6 * len(values), replace=False)
+        out.reshape(-1)[at] = np.resize(values, at.size)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def jax_stream(name, shape, tile, dtype=np.uint8, dense=False):
+def jax_stream(name, shape, tile, dtype=np.uint8, dense=False, specials=False):
     """The JAX package's streamed output of chain ``name`` on ``frame``."""
 
-    source = Source(frame(shape, dtype), materialize=dense)
+    source = Source(frame(shape, dtype, specials=specials), materialize=dense)
     return JT.apply_steps_tiled(steps_of(name, jax=True), source, tile_size=tile)
 
 
-def port_stream(name, shape, tile, dtype=np.uint8, dense=False, **kw):
-    source = Source(frame(shape, dtype), materialize=dense)
+def port_stream(name, shape, tile, dtype=np.uint8, dense=False, specials=False, **kw):
+    source = Source(frame(shape, dtype, specials=specials), materialize=dense)
     return T.apply_steps_tiled(steps_of(name, **kw), source, tile_size=tile, device="cpu")
 
 
@@ -153,6 +170,32 @@ CASES = {
 def test_streamed_output_equals_jax(case):
     name, shape, tile, dtype, dense = CASES[case]
     assert_same(port_stream(name, shape, tile, dtype, dense), jax_stream(name, shape, tile, dtype, dense))
+
+
+# F14: CLAHE streamed from gray float32 and uint16 frames (the stream
+# kernels read them in their own type); (chain, frame shape, tile (w, h),
+# dtype, with SPECIALS written over the frame)
+F14_CASES = {
+    f"{chain}-{dt.__name__}-{h}x{w}{'-specials' if sp else ''}": (chain, (h, w), (32, 32), dt, sp)
+    for chain, dt, (h, w), sp in (
+        ("clahe_only", np.float32, (64, 96), False),
+        ("clahe_only", np.float32, (62, 91), False),
+        ("clahe_only", np.uint16, (64, 96), False),
+        ("clahe_only", np.uint16, (62, 91), False),
+        ("normalize_clahe", np.float32, (64, 96), False),
+        ("clahe_only", np.float32, (64, 96), True),
+        ("clahe_only", np.float32, (62, 91), True),
+        ("clahe_only", np.uint16, (62, 91), True),
+    )
+}
+
+
+@pytest.mark.parametrize("case", list(F14_CASES))
+def test_clahe_streamed_from_float32_and_uint16(case):
+    name, shape, tile, dtype, specials = F14_CASES[case]
+    ours = port_stream(name, shape, tile, dtype, specials=specials)
+    assert_same(ours, jax_stream(name, shape, tile, dtype, specials=specials))
+    assert ours.dtype == np.uint8
 
 
 @pytest.mark.parametrize("case", ["flagship-uniform-gray", "flagship-generic-bgr", "gaussian-generic"])

@@ -66,8 +66,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_vminmax_rate": (_P, _I, _I, _P),
     "yam_bilateral_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_clahe_blend_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "yam_stream_grid_histogram_u8": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "yam_clahe_stream_blend_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yam_stream_grid_histogram": (_P, _P, _P, _I, _L, _I, _I, _P),
+    "yam_clahe_stream_blend": (_P, _P, _P, _P, *(_I,) * 12, _P),
     "yam_region_scan_resident_blocks": (ctypes.POINTER(_I),),
     "yam_region_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yam_hull_areas": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

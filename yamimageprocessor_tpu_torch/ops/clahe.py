@@ -432,11 +432,29 @@ def _mirror_runs(start: int, stop: int, size: int, pad: int, cell: int, count: i
     return runs
 
 
+#: the stream kernels' element types
+STREAM_DTYPES = (torch.uint8, torch.uint16, torch.float32)
+
+
 def _check_stream_tiles(name: str, tiles: torch.Tensor, origins) -> None:
-    if tiles.dtype != torch.uint8 or tiles.ndim != 3:
-        raise ValueError(f"{name} takes (N, H, W) uint8, got {tuple(tiles.shape)} {tiles.dtype}")
+    if tiles.dtype not in STREAM_DTYPES or tiles.ndim != 3:
+        raise ValueError(f"{name} takes (N, H, W) uint8, uint16 or float32, got {tuple(tiles.shape)} {tiles.dtype}")
     if len(origins) != tiles.shape[0]:
         raise ValueError(f"{name}: {len(origins)} origins for {tiles.shape[0]} tiles")
+
+
+def stream_levels(tiles: torch.Tensor) -> torch.Tensor:
+    """The values of stream tiles as the reference's streaming passes take
+    them, ``astype(int32)``: int64 tensors of int32 values, floats truncated
+    toward zero, NaN 0, out-of-range floats saturated (:func:`convert`)."""
+
+    return convert(tiles, torch.int32).to(torch.int64)
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 ``x`` wrapped to int32 as two's complement arithmetic wraps."""
+
+    return (x + 2**31) % 2**32 - 2**31
 
 
 def grid_hist_stream_plain(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]) -> torch.Tensor:
@@ -456,36 +474,53 @@ def grid_hist_stream_plain(tiles: torch.Tensor, origins, frame_shape, grid: Tupl
     wc = torch.where((pw > 0) & (c >= w - 1 - pw) & (c <= w - 2), 2, 1)
     weight = wr[:, :, None] * wc[:, None, :]
     cell = (r // th).clamp(max=gh - 1)[:, :, None] * gw + (c // tw).clamp(max=gw - 1)[:, None, :]
-    seg = cell * 256 + tiles.to(torch.int64)
+    # the flat index in int32, as the reference forms it: a value outside
+    # 0..255 lands in another cell's bins, or nowhere past either end
+    seg = wrap_int32(cell * 256 + stream_levels(tiles))
+    keep = (seg >= 0) & (seg < gh * gw * 256)
     hist = torch.zeros(gh * gw * 256, dtype=torch.int64, device=dev)
-    hist.index_add_(0, seg.reshape(-1), weight.reshape(-1))
-    return hist.to(torch.int32).reshape(gh, gw, 256)
+    hist.index_add_(0, torch.where(keep, seg, 0).reshape(-1), torch.where(keep, weight, 0).reshape(-1))
+    return wrap_int32(hist).to(torch.int32).reshape(gh, gw, 256)
 
 
-#: blocks the stream histogram aims for
-_STREAM_TARGET_BLOCKS = 4096
+#: the most work items a stream histogram launch and the most window
+#: origins a stream blend launch take in their kernel parameters
+#: (``csrc/clahe.cu``: PARAM_ITEMS, PARAM_WINDOWS); a larger batch takes
+#: several launches
+STREAM_PARAM_ITEMS, STREAM_PARAM_WINDOWS = 48, 64
 
 
-def _to_card(array: np.ndarray, device) -> torch.Tensor:
-    """A small host array on the card without waiting for the stream: the
-    copy goes from pinned memory, queued behind the stream's work (a copy
-    from pageable memory would block the host until the stream drains)."""
+def _load_elements(width: int, itemsize: int, pointer: int) -> int:
+    """The most elements a load of a stream kernel takes (16 bytes, 4 bytes
+    or one element) with every row of ``width`` elements from ``pointer``
+    starting aligned."""
 
-    return torch.from_numpy(array).pin_memory().to(device, non_blocking=True)
+    for nbytes in (16, 4):
+        v = nbytes // itemsize
+        if v > 1 and width % v == 0 and pointer % nbytes == 0:
+            return v
+    return 1
 
 
-def _stream_hist_items(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]) -> np.ndarray:
-    """The stream histogram's work items, ``(M, 8)`` int32: each a rectangle
-    of one tile in one grid cell with one weight (``csrc/clahe.cu``:
-    StreamItem), with the widest loads its columns allow (a 16- or 4-byte
-    body between byte-wise ends)."""
+#: the stream histogram's work item: 8 int64 (``csrc/clahe.cu``: HistItem)
+HIST_ITEM_FIELDS = ("base", "start", "loads", "per_row", "stride", "cell", "weight", "vec")
+
+
+def stream_hist_items(tile_shape, origins, frame_shape, grid: Tuple[int, int], vec: int) -> np.ndarray:
+    """The stream histogram's work items, ``(M, 8)`` int64 (fields
+    :data:`HIST_ITEM_FIELDS`): each a rectangle of one ``(bh, bw)`` tile in
+    one grid cell with one weight, loaded ``vec`` elements at a time between
+    element-wise ends (columns that are not a multiple of ``vec`` from the
+    tile's edge), its loads numbered from ``start`` in the batch's order; a
+    rectangle as wide as the tile is one contiguous run (``per_row ==
+    loads``)."""
 
     h, w = int(frame_shape[0]), int(frame_shape[1])
     gh, gw = grid
     ph, pw, th, tw = stream_cells(frame_shape, grid)
-    _, bh, bw = tiles.shape
-    vec = next((v for v in (16, 4) if bw % v == 0 and tiles.data_ptr() % v == 0), 1)
+    bh, bw = int(tile_shape[0]), int(tile_shape[1])
     items = []
+    start = 0
     for k, (top, left) in enumerate(origins):
         top, left = int(top), int(left)
         rows = _mirror_runs(top, top + bh, h, ph, th, gh)
@@ -498,17 +533,35 @@ def _stream_hist_items(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[in
                     cols.append((c0, c1, cj, wc, v))
         for ra, rb, ci, wr in rows:
             for c0, c1, cj, wc, v in cols:
-                items.append((k, ra - top, rb - top, c0, c1, ci * gw + cj, wr * wc, v))
-    return np.asarray(items, dtype=np.int32).reshape(-1, 8)
+                per_row = (c1 - c0) // v
+                loads = (rb - ra) * per_row
+                if c1 - c0 == bw:  # whole rows: one run
+                    per_row = loads
+                base = (k * bh + ra - top) * bw + c0
+                items.append((base, start, loads, per_row, bw, ci * gw + cj, wr * wc, v))
+                start += loads
+    return np.asarray(items, dtype=np.int64).reshape(-1, len(HIST_ITEM_FIELDS))
+
+
+def stream_hist_launches(items: np.ndarray, per_launch: int = STREAM_PARAM_ITEMS):
+    """The work items of each stream histogram launch: ``items`` cut into
+    runs of at most ``per_launch``, each run's loads numbered from 0."""
+
+    for k in range(0, len(items), per_launch):
+        part = items[k : k + per_launch].copy()
+        part[:, 1] -= part[0, 1]
+        yield part
 
 
 def grid_hist_stream(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]) -> torch.Tensor:
-    """Stats pass: ``(N, H, W)`` uint8 stream tiles whose top-left pixels
-    lie at ``origins`` ``[(top, left), ...]`` of a frame of ``frame_shape``
-    -> the ``(gh, gw, 256)`` int32 histogram contributions of the whole
-    batch: each pixel counts in cell ``(min(r // th, gh - 1), min(c // tw,
-    gw - 1))`` with weight 2 on each of its row and column that the
-    reflect-101 grid padding copies."""
+    """Stats pass: ``(N, H, W)`` uint8, uint16 or float32 stream tiles whose
+    top-left pixels lie at ``origins`` ``[(top, left), ...]`` of a frame of
+    ``frame_shape`` -> the ``(gh, gw, 256)`` int32 histogram contributions
+    of the whole batch: each pixel's level (:func:`stream_levels`) counts
+    in cell ``(min(r // th, gh - 1), min(c // tw, gw - 1))`` with weight 2
+    on each of its row and column that the reflect-101 grid padding copies;
+    a level outside 0..255 adds its weight at the reference's flat index
+    ``cell * 256 + v`` in int32, where that lies in the output."""
 
     if not _build.on_card("grid_hist_stream", tiles):
         return grid_hist_stream_plain(tiles, origins, frame_shape, grid)
@@ -516,25 +569,24 @@ def grid_hist_stream(tiles: torch.Tensor, origins, frame_shape, grid: Tuple[int,
     if not tiles.is_contiguous():
         raise ValueError("grid_hist_stream takes a contiguous tensor")
     gh, gw = grid
+    vec = _load_elements(tiles.shape[2], tiles.element_size(), tiles.data_ptr())
+    items = stream_hist_items(tiles.shape[1:], origins, frame_shape, grid, vec)
+    if len(items) and int(items[:, 2].max()) >= 2**31:
+        raise ValueError("grid_hist_stream: a tile's rectangle in one cell must take < 2**31 loads")
     out = torch.zeros((gh, gw, 256), dtype=torch.int32, device=tiles.device)
-    items = _stream_hist_items(tiles, origins, frame_shape, grid)
-    if len(items) == 0:
-        return out
-    dev_items = _to_card(items, tiles.device)
-    max_rows = int((items[:, 2] - items[:, 1]).max())
-    parts = min(max_rows, max(1, -(-_STREAM_TARGET_BLOCKS // len(items))))
-    _build.launch(
-        "yam_stream_grid_histogram_u8",
-        tiles.device,
-        tiles.data_ptr(),
-        out.data_ptr(),
-        dev_items.data_ptr(),
-        len(items),
-        tiles.shape[1],
-        tiles.shape[2],
-        parts,
-    )
-    grid_hist_stream.launches += 1
+    for part in stream_hist_launches(items):
+        _build.launch(
+            "yam_stream_grid_histogram",
+            tiles.device,
+            tiles.data_ptr(),
+            out.data_ptr(),
+            part.ctypes.data,
+            len(part),
+            int(part[-1, 1] + part[-1, 2]),
+            gh * gw * 256,
+            tiles.element_size(),
+        )
+        grid_hist_stream.launches += 1
     return out
 
 
@@ -573,14 +625,17 @@ def clahe_stream_blend_plain(
     org = torch.tensor([[int(t), int(l)] for t, l in origins], dtype=torch.int64, device=dev).reshape(n, 2)
     y0, y1, fy, gy, gyf = stream_axis(org[:, 0:1] + torch.arange(hh, device=dev), th, gh)  # (n, hh)
     x0, x1, fx, gx, gxf = stream_axis(org[:, 1:2] + torch.arange(ww, device=dev), tw, gw)  # (n, ww)
-    vals = windows.to(torch.int64)
+    levels = stream_levels(windows)
+    # the loop over levels 1..255 replaces a pixel of its level; any other
+    # value keeps the loop's initial value, level 0's blend
+    fused = (levels >= 1) & (levels <= 255)
+    vals = torch.where(fused, levels, 0)
     tables = luts.to(torch.float32)
 
     def corner(ys, xs):
         return tables[ys[:, :, None], xs[:, None, :], vals]
 
     t00, t01, t10, t11 = corner(y0, x0), corner(y0, x1), corner(y1, x0), corner(y1, x1)
-    fused = vals != 0  # the loop body's weights; level 0 is the loop's initial value
     gy2 = torch.where(fused, gyf[:, :, None], gy[:, :, None])
     gx2 = torch.where(fused, gxf[:, None, :], gx[:, None, :])
     fy2, fx2 = fy[:, :, None], fx[:, None, :]
@@ -589,15 +644,57 @@ def clahe_stream_blend_plain(
     return to_uint8(out)
 
 
+#: a stream blend block's largest chunk of rows and its widest strip of
+#: columns (``csrc/clahe.cu``: SB_CHUNK, SB_COLS), checked there
+STREAM_CHUNK_ROWS, STREAM_STRIP_COLS = 64, 1024
+
+
+def _floor_indices(positions: int, cell: int) -> int:
+    """The most floor indices ``q = floor((2 p - cell) / (2 cell))`` that
+    ``positions`` consecutive positions take: ``q`` steps where ``p``
+    passes an odd multiple of ``cell / 2``, and ``positions - 1`` steps of
+    one pass at most ``ceil((positions - 1) / cell)`` such points."""
+
+    return -(-(positions - 1) // cell) + 1
+
+
+def stream_chunk_rows(frame_shape, grid: Tuple[int, int], width: int, room: int) -> Tuple[int, int, int]:
+    """``(rows, strip, bytes)``: the rows a stream blend block stages at
+    once and the columns of its strips, for windows ``width`` wide: at most
+    :data:`STREAM_CHUNK_ROWS` rows, halved until the pair entries they and
+    a strip can touch (256 of 8 bytes a pair of a tile-row pair and a
+    tile-column pair) fit ``room`` bytes of shared memory, then, where one
+    row's do not, the strip halved from :data:`STREAM_STRIP_COLS`; and
+    those entries' bytes.  One row with every column pair of a grid of 128
+    takes 258 KB; a strip of 4 columns at most 4 KB."""
+
+    gh, gw = grid
+    _, _, th, tw = stream_cells(frame_shape, grid)
+    rows, strip = STREAM_CHUNK_ROWS, STREAM_STRIP_COLS
+    while True:
+        cols = min(gw + 1, _floor_indices(min(strip, width), tw))
+        need = min(gh + 1, _floor_indices(rows, th)) * cols * 256 * 8
+        if need <= room:
+            return rows, strip, need
+        if rows == 1 and strip == 4:
+            raise ValueError(f"clahe_stream_blend: {room} bytes of shared memory hold no chunk")
+        if rows > 1:
+            rows //= 2
+        else:
+            strip //= 2
+
+
 def clahe_stream_blend(
     windows: torch.Tensor, luts: torch.Tensor, origins, frame_shape, grid: Tuple[int, int]
 ) -> torch.Tensor:
-    """Apply pass: ``(N, H, W)`` uint8 windows whose top-left pixels lie at
-    ``origins`` ``[(top, left), ...]`` of a frame of ``frame_shape``, and the
-    ``(gh, gw, 256)`` uint8 tables of the merged histograms -> ``(N, H, W)``
-    uint8: each pixel blends the four tables around its absolute position
-    at its own value, in the float32 order of the JAX package's streaming
-    program (``clahe_apply_from_hist_j`` as XLA's CPU backend runs it)."""
+    """Apply pass: ``(N, H, W)`` uint8, uint16 or float32 windows whose
+    top-left pixels lie at ``origins`` ``[(top, left), ...]`` of a frame of
+    ``frame_shape``, and the ``(gh, gw, 256)`` uint8 tables of the merged
+    histograms -> ``(N, H, W)`` uint8: each pixel blends the four tables
+    around its absolute position at its level (:func:`stream_levels`; a
+    level outside 1..255 takes level 0's entries and weights), in the
+    float32 order of the JAX package's streaming program
+    (``clahe_apply_from_hist_j`` as XLA's CPU backend runs it)."""
 
     if not _build.on_card("clahe_stream_blend", windows):
         return clahe_stream_blend_plain(windows, luts, origins, frame_shape, grid)
@@ -609,37 +706,38 @@ def clahe_stream_blend(
         raise ValueError("clahe_stream_blend takes a contiguous tensor")
     _, _, th, tw = stream_cells(frame_shape, grid)
     n, hh, ww = windows.shape
-    out = torch.empty_like(windows)
+    out = torch.empty((n, hh, ww), dtype=torch.uint8, device=windows.device)
     if windows.numel() == 0:
         return out
-    luts = luts.contiguous()
-    org = _to_card(np.asarray([[int(t), int(l)] for t, l in origins], dtype=np.int32), windows.device)
-    vec = 16 if (windows.data_ptr() % 16 == 0 and ww % 16 == 0) else 1
-    need = blend_table_bytes(th * gh, tw * gw, grid)
-    shared = need if need <= _shared_optin(windows.device) - _BLEND_STATIC_SHARED and luts.data_ptr() % 16 == 0 else 0
-    if hh > _MAX_GRID_YZ * BLEND_ROWS:
-        raise ValueError(f"clahe_stream_blend: windows of {hh} rows exceed one launch")
-    for f0, f1 in slices(n, _MAX_GRID_YZ):
+    luts = luts.contiguous() if luts.data_ptr() % 4 == 0 else luts.clone()  # read as 32-bit words
+    org = np.asarray([[int(t), int(l)] for t, l in origins], dtype=np.int32).reshape(n, 2)
+    size = windows.element_size()
+    vec = int(ww % 4 == 0 and windows.data_ptr() % (4 * size) == 0 and out.data_ptr() % 4 == 0)
+    room = _shared_optin(windows.device) - _BLEND_STATIC_SHARED
+    chunk, strip, shared = stream_chunk_rows(frame_shape, grid, ww, room)
+    for k in range(0, n, STREAM_PARAM_WINDOWS):
+        part = org[k : k + STREAM_PARAM_WINDOWS]
         _build.launch(
-            "yam_clahe_stream_blend_u8",
+            "yam_clahe_stream_blend",
             windows.device,
-            windows[f0].data_ptr(),
-            out[f0].data_ptr(),
+            windows[k].data_ptr(),
+            out[k].data_ptr(),
             luts.data_ptr(),
-            org[f0].data_ptr(),
-            f1 - f0,
+            part.ctypes.data,
+            len(part),
             hh,
             ww,
             th,
             tw,
             gh,
             gw,
-            BLEND_ROWS,
-            BLEND_COLS,
+            chunk,
+            strip,
             shared,
             vec,
+            size,
         )
-    clahe_stream_blend.launches += 1
+        clahe_stream_blend.launches += 1
     return out
 
 
@@ -668,6 +766,10 @@ __all__ = [
     "clahe_stream_gate",
     "clahe_stream_luts",
     "grid_hist_stream",
+    "stream_hist_items",
+    "stream_hist_launches",
+    "stream_levels",
+    "stream_chunk_rows",
     "grid_hist_stream_plain",
     "stream_axis",
     "stream_cells",

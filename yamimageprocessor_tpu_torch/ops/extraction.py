@@ -63,6 +63,7 @@ from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
 from yamimageprocessor_tpu_torch.ops.contours import trace_contours
 from yamimageprocessor_tpu_torch.ops.extraction_device import (
     binary,
+    check_paintable,
     region_count_bound,
     region_labels,
     region_properties_device_fn,
@@ -480,6 +481,7 @@ def fourier_device(imgs: torch.Tensor, dyn, *, num_coeff: int = 10) -> torch.Ten
     out = imgs.clone(memory_format=torch.contiguous_format)
     if len(offs) == 1:
         return out
+    check_paintable("extraction.fourier", imgs)
     n, h, w = imgs.shape[:3]
     owner = torch.from_numpy(np.nonzero(largest >= 0)[0]).to(imgs.device)
     at = polyline_pixels(torch.round(recon).to(torch.int64), offs, owner, h, w, 2)

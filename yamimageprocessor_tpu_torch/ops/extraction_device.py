@@ -190,11 +190,25 @@ def region_annotate(imgs: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
 region_annotate.launches = 0
 
 
+def check_paintable(name: str, imgs: torch.Tensor, painted=lambda: True) -> None:
+    """The painting chains paint gray or BGR items: items of any other
+    channel count raise ``ValueError`` where ``painted()`` says something
+    is painted, as the reference's paint does (its colour of 3 values does
+    not broadcast over the pixels)."""
+
+    if imgs.ndim == 4 and imgs.shape[-1] != 3 and painted():
+        raise ValueError(f"{name} paints gray or BGR items, got {imgs.shape[-1]} channels")
+
+
 def region_properties_device_fn(imgs: torch.Tensor, dyn) -> torch.Tensor:
     """Batch of images -> annotated images, on the images' device."""
 
     _, box, sums, _ = labeled_measurements(imgs)
-    return region_annotate(imgs.contiguous(), annotation_boxes(box, sums))
+    boxes = annotation_boxes(box, sums)
+    if imgs.ndim == 4 and imgs.shape[-1] != 3:  # items left unchanged where nothing is painted
+        check_paintable("extraction.region_properties", imgs, lambda: bool(boxes[..., 0].any()))
+        return imgs.clone(memory_format=torch.contiguous_format)
+    return region_annotate(imgs.contiguous(), boxes)
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +433,7 @@ __all__ = [
     "region_count_bound",
     "region_labels",
     "region_pack",
+    "check_paintable",
     "region_properties_device_fn",
     "region_table",
     "region_tables",

@@ -11,7 +11,7 @@ gigapixel slides.
     python3 chip_smoke.py --times-of DIR [DIR ...]   # CC, the blend, histogram256, the median and bilateral
     python3 chip_smoke.py --extraction-times-of DIR [DIR ...]   # the hull and annotation kernels
     python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter, LBP, HOG and GLCM kernels, three tables
-    python3 chip_smoke.py --shape-times-of DIR [DIR ...]   # the trace, the lines, the Fourier chain's host clock
+    python3 chip_smoke.py --shape-times-of DIR [DIR ...]   # the trace, the lines, the errors, two tables' host clock
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -202,8 +202,9 @@ extraction label sets and the blobs frame's peak memory;
 ``--texture-times-of`` the dense filter, the LBP codes, HOG cells and GLCM
 counts, and the HOG, Gabor and Hu-moments tables' host ms a frame (not
 compared: an older checkout's float64 columns need not be the reference's
-bits); ``--shape-times-of`` the trace and the lines with their split by
-launch, and the Fourier chain's host clock on the 32 scenes.
+bits); ``--shape-times-of`` the trace, the lines and the boundary errors
+with their split by launch, the Fourier chain's host clock on the 32
+scenes and the approximate-shape table's split by part on 8 of them.
 Nothing falls back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
@@ -338,9 +339,26 @@ FOURIER_LINE_TOL = 1e-10  # |lines - plain| <= FOURIER_LINE_TOL * max(1, max|c|)
 FOURIER_RECON_TOL = 1e-8  # |reconstruction - plain| in pixels
 #: FP64 instructions: a complex multiply-add (4), a radix-2 butterfly (a
 #: complex multiply, 4 with two FMAs, and two complex adds, 4), a sincospi
-#: (a floor of 20), a (candidate, point, edge) of the boundary error with
-#: its hypot (a floor of 35, a division and a square root one each)
-FOURIER_F64_PER_MAC, FFT_F64_PER_BUTTERFLY, SINCOSPI_F64, POLYGON_F64_PER_EDGE = 4, 8, 20, 35
+#: (a floor of 20)
+FOURIER_F64_PER_MAC, FFT_F64_PER_BUTTERFLY, SINCOSPI_F64 = 4, 8, 20
+#: the boundary errors' floor in instructions (polygon_bound): ruling an
+#: edge out of a (candidate, point) takes its numerator (px - x0, py - y0, a
+#: product, an FMA) and a compare, 5, on the FP32 pipe where the candidate
+#: spans less than POLYGON_SPAN_LIMIT and the point lies within it of every
+#: vertex (every value exact in float32), else on the FP64 pipe; the
+#: nearest edge's exact distance (FP64) a
+#: (candidate, point) takes the nearest point (t dx, x0 + ., twice: 4), the
+#: differences (2) and glibc's hypot (the squares' sum 3, a root 6, the
+#: branch 2, the correction 8, its sum, 2 h, a division 6 and the last
+#: subtraction 9, the range checks 4: 32), 38; and where that edge's t is
+#: inside (0, 1) the quotient, 6 (a reciprocal seed and its Newton steps;
+#: the root likewise)
+POLYGON_RULE_OUT, POLYGON_F64_PER_POINT, POLYGON_F64_DIVISION = 5, 38, 6
+#: csrc/shape.cu FILTER_LIMIT: the coordinates the boundary errors' filter
+#: is proven for (past it every edge is evaluated exactly)
+POLYGON_FILTER_LIMIT = 1 << 24
+#: csrc/shape.cu SPAN_LIMIT: the reach of the float32 pass
+POLYGON_SPAN_LIMIT = 1 << 11
 SPLIT_RUNS = 20  # calls a profiler session of a kernel's per-launch split spans
 SHAPE_CHAIN_CALLS = 10  # back-to-back calls of the Fourier chain's host-clock time in --shape-times-of
 
@@ -1006,8 +1024,9 @@ def texture_cases(dev) -> dict:
 
 def shape_cases(dev) -> dict:
     """The contour trace (the 32 scenes' labels, the blobs, the 4001-row
-    disk) and the Fourier lines (the 32 scenes' largest contours and the
-    disk's, at num_coeff 10 and 512), each the wrapper's launch object:
+    disk), the Fourier lines (the 32 scenes' largest contours and the
+    disk's, at num_coeff 10 and 512) and the mean boundary errors (frame
+    0's 64 x 20 candidates, the disk's 20), each the wrapper's launch object:
     device ms and each case's split by launch (:func:`launch_split`), the
     trace's output digests and the rounded reconstructions' digests (the
     lines themselves may differ in their last bits between designs; each is
@@ -1015,9 +1034,12 @@ def shape_cases(dev) -> dict:
     ``trace_contours`` call (its launch object built, its reads back) and
     its host split (:func:`host_split`); and
     the Fourier chain's host-clock ms on the 32 scenes (labels, trace,
-    lines, paint and reads back)."""
+    lines, paint and reads back); the errors' output digests and routes;
+    the approximate-shape table's host split (:func:`approximate_shape_split`)."""
 
     from yamimageprocessor_tpu_torch.ops import extraction as EXT
+    from yamimageprocessor_tpu_torch.ops import polygon as PG
+    from yamimageprocessor_tpu_torch.ops import shape as SH
     from yamimageprocessor_tpu_torch.ops.contours import TraceLaunch, trace_contours
     from yamimageprocessor_tpu_torch.ops.extraction_device import region_count_bound, region_labels
     from yamimageprocessor_tpu_torch.ops.fourier import LinesLaunch, fourier_lines
@@ -1055,7 +1077,80 @@ def shape_cases(dev) -> dict:
     digests["fourier chain"] = sha256(manager.apply(frames))
     chain = {f"{len(frames)} frames, num_coeff {SHAPE_COEFFS[0]}": wall_ms(lambda: manager.apply(frames),
                                                                            calls=SHAPE_CHAIN_CALLS)}
-    return {"times": times, "digests": digests, "trace_host_ms": host, "chain_host_ms": chain, "split": splits}
+    disk_offs = disk.offsets.cpu().tolist()
+    disk_cands = SH.candidate_polygons(disk.points.cpu().numpy().astype(np.int64),
+                                       SH.farthest_pairs(disk.points, disk_offs)[0])
+    verts, vert_offsets = PG.pack_candidates(disk_cands)
+    cases = {"frame 0": EXT.shape_candidates(frames[0], device=dev)[2],
+             "tall disk": (disk.points, disk_offs, verts.to(dev), vert_offsets,
+                           torch.zeros(len(disk_cands), dtype=torch.int64))}
+    for name, args in cases.items():
+        launch = PG.ErrorsLaunch(*args)
+        launch.run()
+        digests[f"polygon_mean_errors {name}"] = sha256(launch.out)
+        times[f"polygon_mean_errors {name}"] = time_ms(launch.run)
+        splits[f"polygon_mean_errors {name}"] = launch_split(launch.run)
+        if hasattr(launch, "counts"):
+            splits[f"polygon_mean_errors {name} routes"] = launch.counts()
+    return {"times": times, "digests": digests, "trace_host_ms": host, "chain_host_ms": chain, "split": splits,
+            "table_host_ms": approximate_shape_split(frames[:SHAPE_TABLE_FRAMES], dev)}
+
+
+def approximate_shape_split(frames, dev) -> dict:
+    """The approximate-shape table's host-clock ms a frame by part, from
+    ``ops/extraction.py:approximate_shape_data`` itself: while it runs, the
+    functions it calls are wrapped by timers, each part its own time less
+    that of the parts it calls: ``trace`` (``_contours``: labels, the trace
+    and its reads back), ``gather`` and ``farthest_pairs`` (the kept
+    contours', on the card), ``douglas_peucker`` (``candidate_polygons``, 20
+    candidates a contour), ``pack``, the errors call's ``errors plan and
+    upload`` (``ErrorsLaunch``) and ``errors launch and wait`` (the launch,
+    then a wait for the card, which the read back would make), ``selection
+    and measures`` (``select_epsilon``, ``contour_area``, ``arc_length``);
+    ``rest``: the rest of ``whole``, the table's own call a frame (the
+    frame's upload, the read back, the edges' lengths, the columns)."""
+
+    from yamimageprocessor_tpu_torch.ops import extraction as EXT
+    from yamimageprocessor_tpu_torch.ops import polygon as PG
+    from yamimageprocessor_tpu_torch.ops import shape as SH
+
+    parts, inner = defaultdict(float), [0.0]
+
+    def timed(name, fn, wait=False):
+        def call(*args, **kwargs):
+            outer, inner[0] = inner[0], 0.0
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if wait:
+                torch.cuda.synchronize()
+            took = time.perf_counter() - start
+            parts[name] += (took - inner[0]) * 1e3
+            inner[0] = outer + took
+            return out
+        return call
+
+    wraps = [(EXT, "_contours", "trace"), (EXT, "_gather", "gather"), (SH, "farthest_pairs", "farthest_pairs"),
+             (SH, "candidate_polygons", "douglas_peucker"), (EXT, "pack_candidates", "pack"),
+             (PG, "ErrorsLaunch", "errors plan and upload"), (EXT, "polygon_mean_errors", "errors launch and wait"),
+             (SH, "select_epsilon", "selection and measures"), (SH, "contour_area", "selection and measures"),
+             (SH, "arc_length", "selection and measures")]
+    saved = [(module, attr, getattr(module, attr)) for module, attr, _ in wraps]
+    EXT.approximate_shape_data(frames[0], SHAPE_THRESHOLD, device=dev)  # warm
+    torch.cuda.synchronize()
+    try:
+        for (module, attr, name), (_, _, fn) in zip(wraps, saved):
+            setattr(module, attr, timed(name, fn, wait=attr == "polygon_mean_errors"))
+        start = time.perf_counter()
+        for f in frames:
+            EXT.approximate_shape_data(f, SHAPE_THRESHOLD, device=dev)
+        whole = (time.perf_counter() - start) * 1e3
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+    out = {name: ms / len(frames) for name, ms in parts.items()}
+    out["rest"] = (whole - sum(parts.values())) / len(frames)
+    out["whole"] = whole / len(frames)
+    return out
 
 
 def l2_flush(dev):
@@ -2111,6 +2206,62 @@ def tall_disk_mask(side: int = TALL_SIDE, radius: int = TALL_RADIUS) -> np.ndarr
     return ((yy - side // 2) ** 2 + (xx - side // 2) ** 2 <= radius * radius)[None]
 
 
+def disk_contour(radius: int) -> np.ndarray:
+    """The boundary pixels of a digital disk of ``radius`` (those with a
+    4-neighbour outside) by angle from the top, int64 ``(x, y)``: about 4
+    sqrt(2) radius points, a contour without a trace."""
+
+    r = np.arange(-radius, radius + 1)
+    yy, xx = np.meshgrid(r, r, indexing="ij")
+    inside = yy**2 + xx**2 <= radius * radius
+    pad = np.pad(inside, 1)
+    edge = inside & ~(pad[:-2, 1:-1] & pad[2:, 1:-1] & pad[1:-1, :-2] & pad[1:-1, 2:])
+    y, x = np.nonzero(edge)
+    order = np.argsort(np.arctan2(x - radius, -(y - radius)), kind="stable")
+    return np.stack([x[order], y[order]], axis=1).astype(np.int64) + 48
+
+
+def polygon_adversarial_cases() -> list:
+    """(contour, polygons) pairs where the boundary errors' filter, its
+    ties and its range matter: a square ring of lattice points and a
+    wobbling strip, each against a square (points on its edges and
+    vertices), its first one and two vertices, its vertices repeated
+    (denom == 0), a polygon with collinear runs, every fifth contour point,
+    the contour itself and one point thrice; the ring scaled by 3 and moved
+    so that its coordinates reach 2^24 (the filter's proven range), 2^24 +
+    1, -2^24 and -2^24 - 1, each against a square, a quadrilateral and a
+    two-vertex polygon half the range long."""
+
+    rng = np.random.default_rng(24)
+    square = np.array([[0, 0], [6, 0], [6, 6], [0, 6]])
+    ring = np.array([[x, 0] for x in range(7)] + [[6, y] for y in range(1, 7)] + [[x, 6] for x in range(5, -1, -1)]
+                    + [[0, y] for y in range(5, 0, -1)])
+    wobble = rng.integers(-3, 4, (300, 2)) + np.stack([np.arange(300) % 40, np.arange(300) // 40 * 3], 1)
+    cases = [(contour, [square, square[:1], square[:2], np.repeat(square, 2, axis=0),
+                        np.array([[0, 0], [2, 0], [4, 0], [6, 0], [6, 6], [3, 6], [0, 6]]), contour[::5], contour,
+                        np.array([[3, 3], [3, 3], [3, 3]])]) for contour in (ring, wobble)]
+    limit = POLYGON_FILTER_LIMIT
+    for base in (limit - 18, limit - 17, -limit, -limit - 1):
+        cases.append((ring * 3 + base, [square * 3 + base, np.array([[0, 0], [18, 1], [17, 18], [1, 17]]) + base,
+                                        np.array([[0, 0], [limit // 2, 0]]) + base]))
+    return cases
+
+
+def pack_polygon_cases(cases) -> tuple:
+    """The arguments of ``polygon_mean_errors`` for (contour, polygons)
+    pairs, as numpy: int32 points, offsets (a list), int32 vertices, int64
+    vertex offsets and owners."""
+
+    from yamimageprocessor_tpu_torch.ops.polygon import pack_candidates
+
+    contours = [c for c, _ in cases]
+    points = np.concatenate(contours).astype(np.int32)
+    offsets = [0] + np.cumsum([len(c) for c in contours]).tolist()
+    owner = np.array([r for r, (_, ps) in enumerate(cases) for _ in ps], np.int64)
+    verts, vert_offsets = pack_candidates([p for _, ps in cases for p in ps])
+    return points, offsets, verts.numpy(), vert_offsets.numpy(), owner
+
+
 def convex_chain_masks(side: int = CHAIN_SIDE):
     """(masks, vertices): two frames of one region each whose right (frame
     0) or left (frame 1) outline is a strictly convex lattice chain of
@@ -3094,15 +3245,54 @@ def host_split(fn, top: int = 12) -> dict:
     return {e.key[:60]: [round(e.self_cpu_time_total / 1e3 / SPLIT_RUNS, 5), e.count / SPLIT_RUNS] for e in rows}
 
 
-def polygon_bound(offs, vert_offsets, owner) -> tuple:
-    """(bound ms, by): the points and vertices read, the means written;
-    POLYGON_F64_PER_EDGE FP64 instructions a (candidate, point, edge)."""
+def polygon_work(points, offs, verts, vert_offsets, owner) -> tuple:
+    """(triples in float32 reach, pairs whose nearest edge needs the
+    division): the (candidate, point, edge) triples whose candidate spans
+    less than POLYGON_SPAN_LIMIT with the point within it of every vertex
+    (coordinates within POLYGON_FILTER_LIMIT), and the (candidate, point)
+    pairs whose nearest edge (the least squared distance to a segment,
+    exact in integers) has its nearest point inside the edge."""
+
+    pts, vs = (np.asarray(t.cpu() if torch.is_tensor(t) else t, np.int64) for t in (points, verts))
+    offs, vo, own = (np.asarray(t) for t in (offs, vert_offsets, owner))
+    near, inside = 0, 0
+    for c, r in enumerate(own):
+        p, v = pts[offs[r] : offs[r + 1]], vs[vo[c] : vo[c + 1]]
+        lo, hi = v.min(0), v.max(0)
+        reach = (np.abs(p - lo) < POLYGON_SPAN_LIMIT).all(1) & (np.abs(p - hi) < POLYGON_SPAN_LIMIT).all(1)
+        if (hi - lo < POLYGON_SPAN_LIMIT).all() and np.abs(v).max() <= POLYGON_FILTER_LIMIT:
+            near += int((reach & (np.abs(p).max(1) <= POLYGON_FILTER_LIMIT)).sum()) * len(v)
+        p, v = p.astype(np.float64), v.astype(np.float64)
+        d = np.roll(v, -1, axis=0) - v
+        den = (d * d).sum(1)
+        e = p[:, None, :] - v[None]
+        num = (e * d[None]).sum(2)
+        cross = e[..., 0] * d[None, :, 1] - e[..., 1] * d[None, :, 0]
+        first, second = num <= 0, num >= den[None]
+        with np.errstate(all="ignore"):
+            q = np.where(first, (e * e).sum(2), np.where(second, ((e - d[None]) ** 2).sum(2), cross * cross / den[None]))
+        nearest = np.argmin(q, axis=1)
+        rows = np.arange(len(p))
+        inside += int((~first[rows, nearest] & ~second[rows, nearest]).sum())
+    return near, inside
+
+
+def polygon_bound(points, offs, verts, vert_offsets, owner) -> tuple:
+    """(bound ms, by): the points and vertices read once, the means
+    written; POLYGON_RULE_OUT instructions a (candidate, point, edge) to
+    rule it out, FP32 within the float32 pass's reach and FP64 elsewhere
+    (:func:`polygon_work`), POLYGON_F64_PER_POINT FP64 a (candidate, point)
+    for its nearest edge's exact distance, and POLYGON_F64_DIVISION more
+    where that edge's nearest point is inside it; the pipes apart."""
 
     vo = np.asarray(vert_offsets)
     ns = np.diff(np.asarray(offs))[np.asarray(owner)]
     nv = np.diff(vo)
-    return bound_ms(8 * float(np.sum(ns)) + 8 * float(vo[-1]) + 8 * len(nv),
-                    f64_inst=POLYGON_F64_PER_EDGE * float(np.sum(ns * nv)))
+    near, inside = polygon_work(points, offs, verts, vert_offsets, owner)
+    return bound_ms(8 * float(np.asarray(offs)[-1]) + 8 * float(vo[-1]) + 8 * len(nv),
+                    f32_inst=POLYGON_RULE_OUT * float(near),
+                    f64_inst=POLYGON_RULE_OUT * float(np.sum(ns * nv) - near) + POLYGON_F64_PER_POINT * float(np.sum(ns))
+                    + POLYGON_F64_DIVISION * inside)
 
 
 def phase_shape(dev) -> dict:
@@ -3207,10 +3397,15 @@ def phase_shape(dev) -> dict:
     disk_args = (disk_pts, disk_offs, verts.to(dev), vert_offsets, torch.zeros(len(disk_cands), dtype=torch.int64))
     err["polygon_mean_errors"] = max(err["polygon_mean_errors"], exact(
         "polygon_mean_errors tall disk", PG.polygon_mean_errors(*disk_args), PG.polygon_mean_errors_plain(*disk_args)))
+    adv = pack_polygon_cases(polygon_adversarial_cases())
+    adv_args = (torch.from_numpy(adv[0]).to(dev), adv[1], torch.from_numpy(adv[2]).to(dev), adv[3], adv[4])
+    err["polygon_mean_errors"] = max(err["polygon_mean_errors"], exact(
+        "polygon_mean_errors adversarial", PG.polygon_mean_errors(*adv_args), PG.polygon_mean_errors_plain(*adv_args)))
     print(f"kernels: trace_contours bit-exact on the 32 scenes, the blobs and the tall disk; fourier_lines within "
           f"{err['fourier_lines']:.3g} pixels and {line_err:.3g} of the largest line at num_coeff {SHAPE_COEFFS} on "
           f"the 32 scenes' largest contours and the tall disk ({disk_offs[-1]} points); polygon_mean_errors "
-          f"bit-exact on {len(first)} frames' candidates and the tall disk's {len(disk_cands)}")
+          f"bit-exact on {len(first)} frames' candidates, the tall disk's {len(disk_cands)} and "
+          f"{len(adv[4])} adversarial polygons (ties, repeated vertices, 1 and 2 vertices, 2^24 and past it)")
 
     # times at the main paths' shapes: the trace and the lines on the 32-frame
     # chain, the errors on one frame's candidates (a launch a table); each the
@@ -3228,7 +3423,7 @@ def phase_shape(dev) -> dict:
     bounds = {
         "trace_contours": trace_bound(labels, cont),
         "fourier_lines": fourier_bound(main_offs, k0),
-        "polygon_mean_errors": polygon_bound(args0[1], args0[3], args0[4]),
+        "polygon_mean_errors": polygon_bound(*args0),
     }
     by_input = {"trace_contours": {}, "fourier_lines": {}, "polygon_mean_errors": {}}
     for name, (lab, n, c) in traced.items():
@@ -3249,9 +3444,14 @@ def phase_shape(dev) -> dict:
             "route_macs": route_macs_taken(offs, k), "split": launch_split(launch.run)}
         if pts is main_pts:
             by_input["fourier_lines"][name]["forced_route_ms"] = forced_route_ms(pts, offs, k)
+    by_input["polygon_mean_errors"]["frame 0"] = {
+        "ms": times["polygon_mean_errors"][0], "bound_ms": bounds["polygon_mean_errors"][0],
+        "bound_by": bounds["polygon_mean_errors"][1], "routes": PG.ErrorsLaunch(*args0).counts(),
+        "split": launch_split(PG.ErrorsLaunch(*args0).run)}
+    disk_bound = polygon_bound(*disk_args)
     by_input["polygon_mean_errors"]["tall disk"] = {
-        "ms": time_ms(PG.ErrorsLaunch(*disk_args).run, runs=5),
-        "bound_ms": polygon_bound(disk_offs, vert_offsets, disk_args[4])[0]}
+        "ms": time_ms(PG.ErrorsLaunch(*disk_args).run), "bound_ms": disk_bound[0], "bound_by": disk_bound[1],
+        "routes": PG.ErrorsLaunch(*disk_args).counts(), "split": launch_split(PG.ErrorsLaunch(*disk_args).run)}
     # the PyTorch yardstick: cuFFT's fft, the kept lines selected, its ifft. A
     # ragged batch of contours has no single library call, so the main path's
     # figure is 3 calls a contour, mostly launches; beside it one contour of
@@ -3827,7 +4027,10 @@ def main() -> None:
          "yamimageprocessor_tpu/ops/extraction_device.py:339 polygon_mean_errors_j (XLA, not a pallas_call); CPU "
          "golden ops/shape.py:218 point_polygon_distance averaged by np.mean",
          "none: no PyTorch call gives the distance to a polygon's edges; ms: frame 0's 64 contours x 20 "
-         "candidates (a launch a table); by_input: the 4001-row disk's 20"),
+         "candidates (one launch a table: the block route); bound: a numerator and a compare a (candidate, point, "
+         "edge), FP32 within the float32 pass's reach and FP64 elsewhere, one exact FP64 distance a (candidate, "
+         "point), the pipes apart; by_input: its plan and measured launches (split), the 4001-row disk's 20 (the "
+         "cluster route)"),
     ]
     rows += [
         ("stream_grid_histogram", "yamimageprocessor_tpu_torch/csrc/clahe.cu",

@@ -20,8 +20,10 @@ The tests marked ``cuda`` hold each kernel against its plain version on the
 card (the trace and the errors bit for bit, the lines within the same
 tolerance; the trace also on one-row and one-column frames, regions on the
 frame's edges and isolated pixels; the lines on both routes, in one block
-and through L2) and the two ops' card runs against their CPU runs; they
-skip where there is no card::
+and through L2; the errors on ``chip_smoke.py``'s adversarial polygons, on
+every route, past the 8192-point chunk and replayed from a CUDA graph) and
+the two ops' card runs against their CPU runs; they skip where there is no
+card::
 
     python -m pytest --noconftest tests/test_torch_shape_kernels.py -m cuda
 """
@@ -281,17 +283,109 @@ def _candidates(device):
     return pts.to(device), offs, verts.to(device), vert_offsets, torch.tensor(owner)
 
 
+def _adversarial():
+    """chip_smoke's adversarial polygons (ties, repeated vertices, 1 and 2
+    vertices, collinear runs, coordinates at 2^24 and past it) as tensors."""
+
+    from chip_smoke import pack_polygon_cases, polygon_adversarial_cases
+
+    points, offsets, verts, vert_offsets, owner = pack_polygon_cases(polygon_adversarial_cases())
+    return torch.from_numpy(points), offsets, torch.from_numpy(verts), torch.from_numpy(vert_offsets), torch.from_numpy(
+        owner)
+
+
+def _graph_kernels(fn) -> int:
+    """The CUDA kernels that a call of ``fn`` launches: its work captured in
+    a CUDA graph, the graph's kernel nodes counted through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``); copies and fills are
+    nodes of other types."""
+
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _errors_match_plain(pts, offs, verts, vert_offsets, owner, launches=1):
+    want = PG.polygon_mean_errors_plain(pts, offs, verts, vert_offsets, owner)
+    before = PG.polygon_mean_errors.launches
+    pts, verts = pts.cuda(), verts.cuda()
+    got = PG.polygon_mean_errors(pts, offs, verts, vert_offsets, owner)
+    assert PG.polygon_mean_errors.launches == before + 1
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    # the call's device work (ErrorsLaunch.run; its plan is uploaded before)
+    assert _graph_kernels(PG.ErrorsLaunch(pts, offs, verts, vert_offsets, owner).run) == launches
+    return want
+
+
 @cuda
 @needs_card
 def test_polygon_errors_kernel_matches_plain():
+    """The test masks' candidates and the adversarial set: one CUDA launch
+    a call (every contour short), bit for bit."""
+
     pts, offs, verts, vert_offsets, owner = _candidates("cpu")
-    want = PG.polygon_mean_errors_plain(pts, offs, verts, vert_offsets, owner)
-    before = PG.polygon_mean_errors.launches
-    got = PG.polygon_mean_errors(pts.cuda(), offs, verts.cuda(), vert_offsets, owner)
-    assert PG.polygon_mean_errors.launches == before + 1
-    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    want = _errors_match_plain(pts, offs, verts, vert_offsets, owner)
     on_card = PG.polygon_mean_errors_plain(pts.cuda(), offs, verts.cuda(), vert_offsets, owner)
     assert on_card.cpu().numpy().tobytes() == want.numpy().tobytes()
+    _errors_match_plain(*_adversarial())
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("stage_edges, cluster_points", [(4, PG.CLUSTER_POINTS), (PG.STAGE_EDGES, 100), (4, 100)])
+def test_polygon_errors_kernel_on_every_route(monkeypatch, stage_edges, cluster_points):
+    """Candidates too many edges to stage (formed from the vertices) and
+    short contours on the cluster route, bit for bit."""
+
+    monkeypatch.setattr(PG, "STAGE_EDGES", stage_edges)
+    monkeypatch.setattr(PG, "CLUSTER_POINTS", cluster_points)
+    _errors_match_plain(*_adversarial(), launches=2 if cluster_points == 100 else 1)
+
+
+@cuda
+@needs_card
+def test_polygon_errors_kernel_past_the_chunk_and_under_graph_capture():
+    """A contour of 8484 points (two chunks: the cluster route) beside
+    short ones, bit for bit; the launches captured in a CUDA graph and
+    replayed give the same bits."""
+
+    from chip_smoke import disk_contour
+
+    disk = disk_contour(1500)
+    pts, offs, verts, vert_offsets, owner = _adversarial()
+    pair = SH.farthest_pairs(torch.from_numpy(disk.astype(np.int32)), [0, len(disk)])[0]
+    cands = SH.candidate_polygons(disk, pair)
+    pts = torch.cat([pts, torch.from_numpy(disk.astype(np.int32))])
+    offs = offs + [offs[-1] + len(disk)]
+    dv, dvo = PG.pack_candidates(cands)
+    verts = torch.cat([verts, dv])
+    vert_offsets = torch.cat([vert_offsets, dvo[1:] + vert_offsets[-1]])
+    owner = torch.cat([owner, torch.full((len(cands),), len(offs) - 2, dtype=torch.int64)])
+    want = _errors_match_plain(pts, offs, verts, vert_offsets, owner, launches=2)
+    launch = PG.ErrorsLaunch(pts.cuda(), offs, verts.cuda(), vert_offsets, owner)
+    launch.run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch.run()
+    for _ in range(3):
+        launch.out.zero_()
+        graph.replay()
+        assert launch.out.cpu().numpy().tobytes() == want.numpy().tobytes()
 
 
 @cuda

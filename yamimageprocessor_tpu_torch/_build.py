@@ -82,7 +82,7 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_contour_write": (*(_P,) * 7, _I, _I, _I, _I, _P),
     "yam_fourier_shared_limit": (ctypes.POINTER(_I),),
     "yam_fourier_lines": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P),
-    "yam_polygon_errors": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "yam_polygon_errors": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

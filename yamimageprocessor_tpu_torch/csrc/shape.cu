@@ -50,21 +50,26 @@
 // bit the reference's float64 scalar code: every operation an explicitly
 // rounded intrinsic (__dmul_rn, __dadd_rn, __dsub_rn, __ddiv_rn: nothing is
 // contracted into an FMA), the clamp max(0, min(1, t)) with Python's
-// comparisons, the running minimum over the edges in order, the distance by
-// glibc 2.36's hypot as the x86_64 library is built (no FMA: the corrected
-// square root of Borges' MyHypot3, its scaling branches), and the sum in
-// numpy's pairwise order (chunks of 8192 added in order, each summed
-// pairwise down to leaves of at most 128 with 8 accumulators) divided by n.
-// Bound on the card: about 20 FP64 operations and a hypot a (candidate,
-// point, edge).  Design: two launches.  The distances over (candidate,
-// chunk of points), a thread a point walking the edges (every lane reads
-// the same vertex: one broadcast load), into a scratch row; then a block a
-// candidate sums its row in numpy's order, the tree's leaves (at most 128
-// elements each) by the block's threads at once and their combination in
-// the tree's order by one thread.
+// comparisons, the minimum over the edges, the distance by glibc 2.36's
+// hypot as the x86_64 library is built (no FMA: the corrected square root
+// of Borges' MyHypot3, its scaling branches), and the sum in numpy's
+// pairwise order (chunks of 8192 added in order, each summed pairwise down
+// to leaves of at most 128 with 8 accumulators) divided by n.  Bound on the
+// card (chip_smoke.py:polygon_bound): a compare and the numerator's
+// operations a (candidate, point, edge) to rule an edge out, one division
+// and hypot a (candidate, point).  Design: one launch of warps over
+// (candidate, leaf) work; each candidate's edge constants staged once; a
+// cheap pass over the edges picks the one edge whose exact distance is the
+// minimum (a margin proven below), so the division and the hypot run once
+// a point; the leaf summed where its distances are; no scratch in device
+// memory.  Details above the kernels.
 
+#include <cooperative_groups.h>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,10 +79,9 @@ constexpr int STAGE_THREADS = 512;  // a stage block: several lanes an output wh
 constexpr int PLAN = 34;            // a contour's plan: FFT or direct, the stage count, the radices
 constexpr int MAX_LONG_RADIX = 1024;  // a long contour's stage radix at most (ops/fourier.py:route keeps it below)
 constexpr int MAX_COEFF = 512;      // the schema's largest num_coeff
-constexpr int POLY_THREADS = 128;
 constexpr int PAIRWISE_BLOCK = 128;
 constexpr int REDUCE_CHUNK = 8192;
-constexpr int MAX_LEAVES = REDUCE_CHUNK / 64;  // a chunk's leaves hold at least 64 elements
+constexpr int MAX_LEAVES = REDUCE_CHUNK / 64;  // a chunk's leaves: each holds at least 64 elements
 
 // w_r = e^{2 pi i r / n}, r < n: 4r = q n + s, |s| <= n / 2, the angle
 // (s / n)(pi / 2) rotated by q quarter turns
@@ -477,162 +481,479 @@ __device__ __forceinline__ double glibc_hypot(double x, double y) {
   return hypot_kernel(ax, ay);
 }
 
-// one leaf of numpy's pairwise_sum: below 8 elements a plain sum from -0.0;
-// else 8 accumulators over whole 8-element rows, combined as a tree, then
-// the rest one by one
-__device__ double pairwise_leaf(const double* a, int m) {
-  if (m < 8) {
-    double res = -0.0;
-    for (int i = 0; i < m; ++i) res = __dadd_rn(res, a[i]);
-    return res;
-  }
-  double r[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) r[q] = a[q];
-  int i = 8;
-  for (; i < m - m % 8; i += 8) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) r[q] = __dadd_rn(r[q], a[i + q]);
-  }
-  double res = __dadd_rn(__dadd_rn(__dadd_rn(r[0], r[1]), __dadd_rn(r[2], r[3])),
-                         __dadd_rn(__dadd_rn(r[4], r[5]), __dadd_rn(r[6], r[7])));
-  for (; i < m; ++i) res = __dadd_rn(res, a[i]);
-  return res;
+// ---------------------------------------------------------------------------
+// The mean boundary errors.  Work: a warp takes a (candidate, leaf of
+// numpy's pairwise tree), a leaf's 64-128 points in rounds of 32 (lane l the
+// points l, l + 32, ...); the leaf's sum is formed where its distances are
+// (a warp's buffer in shared memory), and the leaves' sums of a chunk are
+// added level by level in the recursion's order (ops/polygon.py:leaf_plan,
+// a table a distinct chunk length built on the host).  Block route
+// (contours of at most ops/polygon.py:CLUSTER_POINTS points, one chunk): a
+// block of BLOCK_WARPS warps holds a run of consecutive candidates of one
+// leaf count, BLOCK_WARPS / L of them (ops/polygon.py:ErrorsLaunch), their
+// edge constants and combine programs staged once in shared memory, a warp
+// a leaf, then a warp a candidate's combine.
+// Cluster route (longer contours): a cluster of CLUSTER_BLOCKS blocks a
+// candidate, each staging the edges; chunk by chunk, every warp of the
+// cluster takes leaves and writes their sums into the leader's shared
+// memory (two buffers, alternate chunks), a cluster barrier, the leader's
+// first warp combines the chunk and adds it to the total in order.
+//
+// The distance of a point to its nearest edge, bit for bit the reference's
+// minimum over the edges of hypot(px - qx, py - qy): a cheap pass over the
+// edges, then the reference's operations on the one feature that holds the
+// minimum.  The cheap pass forms, for each edge, the reference's own
+// classification of t (num <= 0: t = 0, the edge's first vertex; num >=
+// denom: t = 1, its second; else the interior), a value q of the squared
+// distance (a vertex's (px - x)^2 + (py - y)^2, exact; the interior's
+// cross^2 * (1 / denom), three roundings) and a feature (2v for vertex v,
+// 2e + 1 for edge e's interior: the two edges at a vertex clamped to it
+// give one feature and one distance).  It keeps the least q (b1, feature
+// f1) and the least q of any other feature (b2).  Where b2 > T = b1 (1 +
+// 2^-18) + 2^-76 M^2 (M the largest coordinate magnitude of the point and
+// the candidate's vertices) only f1 can hold the minimum, and its exact
+// distance is the result; else (ties, such as a two-vertex polygon's two
+// edges) every edge is evaluated exactly.  The pass runs in float32 where
+// the candidate spans less than SPAN_LIMIT = 2^11 and each point of the
+// warp's round lies within 2^11 of every vertex (differences below 2^11:
+// the products below 2^22, num, cross, denom and the vertices' q below
+// 2^23, all exact in float32; the inside's q three roundings of 2^-24), in
+// float64 elsewhere.
+//
+// The margin, for |coordinates| <= M <= 2^24 (FILTER_LIMIT), u = 2^-53:
+// px - x0, dx, num = (px - x0) dx + (py - y0) dy, cross, denom and the
+// vertices' q are integers below 2^51, exact (FMAs or not), so the
+// classification is the reference's.  With D_e the true distance to the
+// segment, the reference's d_e is D_e (1 +- 2u) where t is clamped (hypot
+// of exact integers, glibc within an ulp); inside, t = num / denom (1 +
+// d1), qx = (x0 + t dx (1 + d2)) (1 + d3) is within 7.001 u M of x0 + (num
+// / denom) dx (|x0| <= M, |dx| <= 2M), px - qx rounds once more and hypot
+// once, so d_e lies in [D_e (1 - 3.0001u) - A, D_e (1 + 3.0001u) + A], A =
+// sqrt(2) 7.001 u M (1 + 3.0001u) <= 10 u M; and q_e = D_e^2 (1 +-
+// 3.0001u).  For e* with d_e* minimal and any edge f, d_e* <= d_f gives
+// D_e* <= (D_f (1 + r) + 2A) / (1 - r), r = 3.0001u; with (a + b)^2 <= (1
+// + g) a^2 + (1 + 1/g) b^2, g = 2^-20: q_e* <= (1 + 2^-19) q_f + 2^-77 M^2.
+// T doubles both terms, which covers its own two roundings (M^2 and the
+// power of two are exact), so q_e* <= T(q_f): the edge holding the minimum
+// has q within T of b1, and if no other feature's does, it is f1's.  In
+// float32 the inside's q is D_e^2 (1 +- 3.0001 2^-24), and the first
+// factor becomes (1 + 2^-20)(1 + 6.0003 2^-24 + 13u) <= 1 + 2^-19 still;
+// b1 and b2 convert to float64 exactly and T is formed as above.  A point
+// or candidate past 2^24 takes the exact loop over every edge.
+//
+// The division is skipped where the clamp decides t exactly: num <= 0
+// (denom == 0 included: then num is +-0) makes num / denom <= 0, so t =
+// max(0, min(1, .)) = 0; num >= denom > 0 makes num / denom >= 1, and
+// round-to-nearest is monotone with 1 representable, so the quotient
+// rounds to >= 1 and t = 1.  Otherwise t = num / denom as the reference.
+
+constexpr int BLOCK_WARPS = 4;  // a block route block's warps: ops/polygon.py:BLOCK_WARPS
+constexpr int CLUSTER_WARPS = 8;  // a cluster route block's warps
+constexpr int CLUSTER_BLOCKS = 8;  // ops/polygon.py:CLUSTER_BLOCKS
+constexpr int CAND_FIELDS = 8;     // ops/polygon.py:CAND_FIELDS
+// 64 registers a thread at most, so that an SM holds 32 warps of either route
+constexpr int BLOCK_MIN_BLOCKS = 8, CLUSTER_MIN_BLOCKS = 4;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned FILTER_LIMIT = 1u << 24;
+constexpr int SPAN_LIMIT = 1 << 11;  // the float32 pass: coordinates this close to every vertex
+constexpr double FILTER_REL = 1.0 + 0x1p-18;
+constexpr double FILTER_ABS = 0x1p-76;
+
+// an edge's constants, the reference's operations: 64 bytes (ops/polygon.py:EDGE_BYTES)
+struct Edge {
+  double dx, dy, den, inv, x0, y0;
+  float fdx, fdy, fden, finv;  // the same in float32: exact on a small candidate (SPAN_LIMIT)
+};
+
+__device__ __forceinline__ unsigned uabs(int v) { return v < 0 ? 0u - static_cast<unsigned>(v) : v; }
+
+// a candidate's record: the table holds the records field by field (field
+// k of record j at k * stride + j, stride the candidates)
+struct Rec {
+  const long long* p;
+  long long stride;
+  __device__ __forceinline__ long long operator[](int k) const { return p[k * stride]; }
+};
+
+// edge e of a polygon of nv vertices, (x0, y0) -> the next vertex
+__device__ __forceinline__ Edge form_edge(const int2* poly, int nv, int e) {
+  const int2 a = __ldg(poly + e), b = __ldg(poly + (e + 1 == nv ? 0 : e + 1));
+  Edge E;
+  E.x0 = a.x;
+  E.y0 = a.y;
+  E.dx = __dsub_rn(static_cast<double>(b.x), E.x0);
+  E.dy = __dsub_rn(static_cast<double>(b.y), E.y0);
+  E.den = __dadd_rn(__dmul_rn(E.dx, E.dx), __dmul_rn(E.dy, E.dy));
+  E.inv = __drcp_rn(E.den);
+  E.fdx = static_cast<float>(static_cast<long long>(b.x) - a.x);
+  E.fdy = static_cast<float>(static_cast<long long>(b.y) - a.y);
+  E.fden = __fmaf_rn(E.fdx, E.fdx, __fmul_rn(E.fdy, E.fdy));
+  E.finv = __frcp_rn(E.fden);
+  return E;
 }
 
-// numpy's pairwise_sum of a[0..n), n <= REDUCE_CHUNK, by the whole block:
-// the recursion halves a range at a multiple of 8 until it holds at most
-// PAIRWISE_BLOCK elements (a leaf, at least 64 elements unless n is
-// smaller, so at most MAX_LEAVES of them); thread 0 lists the leaves in
-// order, the threads sum them, thread 0 combines them as the recursion
-// does (an explicit stack, depth <= 7).  Every thread returns the sum.
-__device__ double pairwise_sum(const double* a, int n) {
-  __shared__ int leaf_start[MAX_LEAVES], leaf_len[MAX_LEAVES];
-  __shared__ double leaf_sum[MAX_LEAVES];
-  __shared__ int leaves;
-  __shared__ double result;
-  int start[32], len[32];
-  bool open[32];
-  if (threadIdx.x == 0) {  // the leaves, left to right
-    int sp = 1, count = 0;
-    start[0] = 0;
-    len[0] = n;
-    while (sp > 0) {
-      --sp;
-      const int s = start[sp], m = len[sp];
-      if (m <= PAIRWISE_BLOCK) {
-        leaf_start[count] = s;
-        leaf_len[count] = m;
-        ++count;
-      } else {
-        const int half = m / 2 - (m / 2) % 8;
-        start[sp] = s + half;  // the right half under the left
-        len[sp] = m - half;
-        ++sp;
-        start[sp] = s;
-        len[sp] = half;
-        ++sp;
-      }
-    }
-    leaves = count;
-  }
-  __syncthreads();
-  for (int l = threadIdx.x; l < leaves; l += blockDim.x) leaf_sum[l] = pairwise_leaf(a + leaf_start[l], leaf_len[l]);
-  __syncthreads();
-  if (threadIdx.x == 0) {  // the recursion again, the leaves' sums in order
-    double value[16];
-    int sp = 1, vp = 0, next = 0;
-    start[0] = 0;
-    len[0] = n;
-    open[0] = false;
-    while (sp > 0) {
-      --sp;
-      const int s = start[sp], m = len[sp];
-      if (m <= PAIRWISE_BLOCK) {
-        value[vp++] = leaf_sum[next++];
-      } else if (open[sp]) {  // both halves done: left below right
-        const double right = value[--vp];
-        const double left = value[--vp];
-        value[vp++] = __dadd_rn(left, right);
-      } else {
-        const int half = m / 2 - (m / 2) % 8;
-        open[sp] = true;  // revisit after the halves
-        ++sp;
-        start[sp] = s + half;
-        len[sp] = m - half;
-        open[sp] = false;
-        ++sp;
-        start[sp] = s;
-        len[sp] = half;
-        open[sp] = false;
-        ++sp;
-      }
-    }
-    result = value[0];
-  }
-  __syncthreads();
-  const double out = result;
-  __syncthreads();  // result is read before the next call writes it
-  return out;
+// the reference's distance of (px, py) to one edge, the division skipped
+// where the clamp decides t (the proof above)
+__device__ __forceinline__ double edge_distance(double px, double py, const Edge& E) {
+  const double num = __dadd_rn(__dmul_rn(__dsub_rn(px, E.x0), E.dx), __dmul_rn(__dsub_rn(py, E.y0), E.dy));
+  const double t = num <= 0.0 ? 0.0 : num >= E.den ? 1.0 : __ddiv_rn(num, E.den);
+  const double qx = __dadd_rn(E.x0, __dmul_rn(t, E.dx)), qy = __dadd_rn(E.y0, __dmul_rn(t, E.dy));
+  return glibc_hypot(__dsub_rn(px, qx), __dsub_rn(py, qy));
 }
 
-// each point's distance to its candidate's nearest edge: grid (candidates,
-// chunks of the longest contour), a thread a point walking the edges
-// (every lane reads the same vertex: one broadcast load)
-__global__ void __launch_bounds__(POLY_THREADS)
-polygon_distances_kernel(const int* __restrict__ points, const long long* __restrict__ offsets,
-                         const int* __restrict__ verts, const long long* __restrict__ vert_offsets,
-                         const long long* __restrict__ owner, const long long* __restrict__ scratch_offsets,
-                         double* __restrict__ scratch) {
-  const int c = blockIdx.x;
-  const long long r = owner[c];
-  const long long p0 = offsets[r];
-  const int n = static_cast<int>(offsets[r + 1] - p0);
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long v0 = vert_offsets[c];
-  const int nv = static_cast<int>(vert_offsets[c + 1] - v0);
-  const int2* poly = reinterpret_cast<const int2*>(verts) + v0;
-  const int2 p = reinterpret_cast<const int2*>(points)[p0 + i];
-  const double px = p.x, py = p.y;
+// glibc's hypot where neither scaling branch can be taken: ax <= 2^511,
+// and ay either 0 or at least 2^-459.  Both of the kernel's corrections are
+// formed and one selected, and ax + ay where ay <= ax 2^-54 (glibc's tiny
+// branch gives the same for ay == 0), so a warp's lanes never diverge.  The
+// root and the division never see 0 (their slow paths): where ax + ay is
+// the result the root takes 1, and a zero correction c leaves h (h - 0 /
+// 2h), so the division takes 1 there; where neither, ay > 0 and the
+// quotient is at least 2^-157 (ay >= 2^-104).
+__device__ __forceinline__ double hypot_in_range(double x, double y) {
+  x = fabs(x);
+  y = fabs(y);
+  const double ax = x < y ? y : x, ay = x < y ? x : y;
+  const bool plain = ay <= __dmul_rn(ax, 0x1p-54);
+  const double h = __dsqrt_rn(plain ? 1.0 : __dadd_rn(__dmul_rn(ax, ax), __dmul_rn(ay, ay)));
+  const double d1 = __dsub_rn(h, ay), twice = __dadd_rn(__dsub_rn(ax, ay), __dsub_rn(ax, ay));
+  const double near = __dadd_rn(__dmul_rn(__dsub_rn(__dadd_rn(d1, d1), ax), ax), __dmul_rn(__dsub_rn(d1, twice), d1));
+  const double d2 = __dsub_rn(h, ax);
+  const double far = __dadd_rn(__dmul_rn(__dadd_rn(d2, d2), __dsub_rn(ax, __dadd_rn(ay, ay))),
+                               __dadd_rn(__dmul_rn(__dsub_rn(__dmul_rn(4.0, d2), ay), ay), __dmul_rn(d2, d2)));
+  const double c = __dadd_rn(ay, ay) >= h ? near : far;
+  const double r = c == 0.0 ? h : __dsub_rn(h, __ddiv_rn(c == 0.0 ? 1.0 : c, __dadd_rn(h, h)));
+  return plain ? __dadd_rn(ax, ay) : r;
+}
+
+// The reference's distance for a feature of the cheap pass, within the
+// filter's range and without a branch: the inside of edge E (0 < num <
+// denom as the pass classified it, num exact there: t = num / denom), or
+// the vertex E begins (t = 0: qx = x0, the same bits as t = 1 on the edge
+// it ends, both exact integers; the quotient then formed from 1 / 2, so the
+// division's slow path for a zero quotient never runs).  The differences
+// px - qx are 0 or at least 2^-104 in magnitude (qx is x0 or x0 + t dx with
+// t >= 2^-51, rounded, at most 2^25) and at most 2^26, so hypot_in_range is
+// glibc's hypot on them.
+__device__ __forceinline__ double feature_distance(double px, double py, const Edge& E, bool inside) {
+  const double num = __dadd_rn(__dmul_rn(__dsub_rn(px, E.x0), E.dx), __dmul_rn(__dsub_rn(py, E.y0), E.dy));
+  const double v = __ddiv_rn(inside ? num : 1.0, inside ? E.den : 2.0);
+  const double t = inside ? v : 0.0;
+  const double qx = __dadd_rn(E.x0, __dmul_rn(t, E.dx)), qy = __dadd_rn(E.y0, __dmul_rn(t, E.dy));
+  return hypot_in_range(__dsub_rn(px, qx), __dsub_rn(py, qy));
+}
+
+// every edge in order, exactly (the running minimum): from the staged
+// constants, or formed from the vertices where the candidate is not staged
+__device__ double exact_distance(double px, double py, const Edge* edges, const int2* poly, int nv) {
   double best = __longlong_as_double(0x7ff0000000000000LL);
-  int2 a = __ldg(poly);
   for (int e = 0; e < nv; ++e) {
-    const int2 b = __ldg(poly + (e + 1 == nv ? 0 : e + 1));
-    const double x0 = a.x, y0 = a.y;
-    const double dx = __dsub_rn(static_cast<double>(b.x), x0), dy = __dsub_rn(static_cast<double>(b.y), y0);
-    const double denom = __dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy));
-    double t = 0.0;
-    if (denom != 0.0) {
-      const double v = __ddiv_rn(__dadd_rn(__dmul_rn(__dsub_rn(px, x0), dx), __dmul_rn(__dsub_rn(py, y0), dy)),
-                                 denom);
-      const double lo = v < 1.0 ? v : 1.0;  // min(1.0, v)
-      t = lo > 0.0 ? lo : 0.0;              // max(0.0, lo)
-    }
-    const double qx = __dadd_rn(x0, __dmul_rn(t, dx)), qy = __dadd_rn(y0, __dmul_rn(t, dy));
-    const double d = glibc_hypot(__dsub_rn(px, qx), __dsub_rn(py, qy));
+    const double d = edge_distance(px, py, edges != nullptr ? edges[e] : form_edge(poly, nv, e));
     if (d < best) best = d;
-    a = b;
   }
-  scratch[scratch_offsets[c] + i] = best;
+  return best;
 }
 
-// each candidate's mean: a block a candidate, its distances summed in
-// numpy's order (chunks of REDUCE_CHUNK added in order), divided by n
-__global__ void __launch_bounds__(POLY_THREADS)
-polygon_means_kernel(const long long* __restrict__ offsets, const long long* __restrict__ owner,
-                     const long long* __restrict__ scratch_offsets, const double* __restrict__ scratch,
-                     double* __restrict__ out) {
-  const int c = blockIdx.x;
-  const long long r = owner[c];
-  const int n = static_cast<int>(offsets[r + 1] - offsets[r]);
-  const double* dist = scratch + scratch_offsets[c];
-  double total = 0.0;
-  for (int s = 0; s < n; s += REDUCE_CHUNK) {
-    const double part = pairwise_sum(dist + s, n - s < REDUCE_CHUNK ? n - s : REDUCE_CHUNK);
-    total = s == 0 ? part : __dadd_rn(total, part);
+// The cheap pass over the edges for a lane's point, in T (float or
+// double): (ex, ey) = P - the edge's first vertex, carried to the next edge
+// exactly (ex - dx), and that vertex's q with it; each edge's
+// classification of t, q and feature (2v a vertex, 2e + 1 an edge's
+// inside); the least q (b1, feature f1) and the least q of any other
+// feature (b2), their compares on the bits (the integer order is the
+// floating order on values >= +0; num <= 0 is its sign or +0, and where
+// num is -0 against denom +0 the first test already decides).  In double
+// every value below is exact within FILTER_LIMIT but the inside's q; in
+// float within SPAN_LIMIT of every vertex (the products below 2^22, the
+// sums below 2^23), its q (3 roundings of 2^-24) within the same margin.
+template <typename T>
+struct Pass;
+template <>
+struct Pass<double> {
+  using Bits = long long;
+  static __device__ __forceinline__ double convert(double v) { return v; }
+  static __device__ __forceinline__ Bits bits(double v) { return __double_as_longlong(v); }
+  static __device__ __forceinline__ double value(Bits b) { return __longlong_as_double(b); }
+  static __device__ __forceinline__ double2 d(const Edge& E) { return make_double2(E.dx, E.dy); }
+  static __device__ __forceinline__ double2 r(const Edge& E) { return make_double2(E.den, E.inv); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) { return __fma_rn(a, b, c); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+};
+template <>
+struct Pass<float> {
+  using Bits = int;
+  static __device__ __forceinline__ float convert(double v) { return static_cast<float>(v); }
+  static __device__ __forceinline__ Bits bits(float v) { return __float_as_int(v); }
+  static __device__ __forceinline__ double value(Bits b) { return __int_as_float(b); }
+  static __device__ __forceinline__ float2 d(const Edge& E) { return make_float2(E.fdx, E.fdy); }
+  static __device__ __forceinline__ float2 r(const Edge& E) { return make_float2(E.fden, E.finv); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+};
+
+template <typename T>
+__device__ __forceinline__ void cheap_pass(const Edge* edges, int nv, double px, double py, double& b1, double& b2,
+                                           int& f1) {
+  using P = Pass<T>;
+  using Bits = typename P::Bits;
+  T ex = P::convert(__dsub_rn(px, edges[0].x0)), ey = P::convert(__dsub_rn(py, edges[0].y0));
+  T qv = P::fma(ex, ex, P::mul(ey, ey));
+  Bits l1 = P::bits(P::convert(__longlong_as_double(0x7ff0000000000000LL))), l2 = l1;  // +inf
+  f1 = -1;
+  for (int e = 0; e < nv; ++e) {
+    const auto d = P::d(edges[e]);  // dx, dy
+    const auto r = P::r(edges[e]);  // denom, 1 / denom
+    const int next = e + 1 == nv ? 0 : e + 1;
+    const T num = P::fma(ex, d.x, P::mul(ey, d.y));
+    const T cross = P::fma(ex, d.y, -P::mul(ey, d.x));
+    const T exn = P::sub(ex, d.x), eyn = P::sub(ey, d.y);
+    const T qn = P::fma(exn, exn, P::mul(eyn, eyn));
+    const T qi = P::mul(P::mul(cross, cross), r.y);
+    const Bits nb = P::bits(num);
+    const bool first = nb <= 0, second = nb >= P::bits(r.x);
+    const Bits q = P::bits(first ? qv : second ? qn : qi);
+    const int f = first ? 2 * e : second ? 2 * next : 2 * e + 1;
+    const bool other = f != f1, take = other && q < l1;
+    l2 = take ? l1 : other ? min(l2, q) : l2;
+    l1 = take ? q : l1;
+    f1 = take ? f : f1;
+    ex = exn;
+    ey = eyn;
+    qv = qn;
   }
-  if (threadIdx.x == 0) out[c] = __ddiv_rn(total, static_cast<double>(n));
+  b1 = P::value(l1);
+  b2 = P::value(l2);
+}
+
+// a warp: the distance of the leaf's point base + lane into buf (a round; m
+// the leaf's length): the cheap pass over the edges (in float where the
+// candidate spans less than SPAN_LIMIT and every point of the round lies
+// within it of each vertex, else in double), then one exact feature.
+// edges: the candidate's staged constants or nullptr; vmax: the largest
+// magnitude of its vertices' coordinates; box: their least and largest x
+// and y.
+__device__ __forceinline__ void round_distance(const int2* pts, int m, int base, const Edge* edges,
+                                               const int2* poly, int nv, unsigned vmax, int4 box, double* buf) {
+  const int i = base + (threadIdx.x & 31);
+  const int2 p = i < m ? __ldg(pts + i) : make_int2(0, 0);
+  const double px = p.x, py = p.y;
+  const bool filtered = i < m && edges != nullptr && max(max(uabs(p.x), uabs(p.y)), vmax) <= FILTER_LIMIT;
+  const bool near = static_cast<long long>(box.z) - box.x < SPAN_LIMIT &&
+                    static_cast<long long>(box.w) - box.y < SPAN_LIMIT &&
+                    (!filtered || (abs(p.x - box.x) < SPAN_LIMIT && abs(p.x - box.z) < SPAN_LIMIT &&
+                                   abs(p.y - box.y) < SPAN_LIMIT && abs(p.y - box.w) < SPAN_LIMIT));
+  double b1 = __longlong_as_double(0x7ff0000000000000LL), b2 = b1;
+  int f1 = -1;  // the least q's feature
+  if (__any_sync(FULL, filtered)) {
+    if (__all_sync(FULL, near))
+      cheap_pass<float>(edges, nv, px, py, b1, b2, f1);
+    else
+      cheap_pass<double>(edges, nv, px, py, b1, b2, f1);
+  }
+  // the one feature the filter decides, without a branch; else every edge
+  // exactly
+  const double big = fmax(fmax(fabs(px), fabs(py)), static_cast<double>(vmax));
+  const bool one = filtered && b2 > __dadd_rn(__dmul_rn(b1, FILTER_REL), __dmul_rn(FILTER_ABS, __dmul_rn(big, big)));
+  double d = 0.0;
+  if (edges != nullptr) d = feature_distance(px, py, edges[one ? f1 >> 1 : 0], one && (f1 & 1));
+  if (i < m) buf[i] = one ? d : exact_distance(px, py, edges, poly, nv);
+}
+
+// a warp: the distances of a leaf's m <= PAIRWISE_BLOCK points into buf
+// (rounds of round_distance), then the leaf's sum as numpy's pairwise_sum
+// forms it: below 8 elements a plain sum from -0.0; else 8 accumulators
+// r[q] = a[q] + a[q + 8] + ... over the whole 8-element rows (lanes 0-7
+// each run one), combined ((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 +
+// r7)) by shuffles, then the m % 8 rest in order.  Lane 0 returns the sum.
+__device__ double leaf_sum(const int2* pts, int m, const Edge* edges, const int2* poly, int nv, unsigned vmax,
+                           int4 box, double* buf) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < m; base += 32) round_distance(pts, m, base, edges, poly, nv, vmax, box, buf);
+  __syncwarp();
+  double s;
+  if (m < 8) {
+    s = -0.0;
+    if (lane == 0)
+      for (int i = 0; i < m; ++i) s = __dadd_rn(s, buf[i]);
+  } else {
+    const int rows = m - m % 8;
+    double r = 0.0;
+    if (lane < 8) {
+      r = buf[lane];
+      for (int i = 8 + lane; i < rows; i += 8) r = __dadd_rn(r, buf[i]);
+    }
+    r = __dadd_rn(r, __shfl_down_sync(FULL, r, 1));  // lanes 0, 2, 4, 6: r[q] + r[q + 1]
+    r = __dadd_rn(r, __shfl_down_sync(FULL, r, 2));  // lanes 0, 4
+    s = __dadd_rn(r, __shfl_down_sync(FULL, r, 4));  // lane 0
+    if (lane == 0)
+      for (int i = rows; i < m; ++i) s = __dadd_rn(s, buf[i]);
+  }
+  __syncwarp();  // buf is read before the warp's next leaf writes it
+  return s;
+}
+
+// a chunk's sum from its L leaves' sums, level by level as ops/polygon.py:
+// leaf_plan lists them (bounds: the H + 1 level bounds, op: the L - 1
+// sums; a height's sums at once, a lane each); node: the warp's scratch for
+// the sums.  Every lane returns the root.
+__device__ double combine(int L, int H, const long long* bounds, const long long* op, const double* leaf,
+                          double* node) {
+  const int lane = threadIdx.x & 31;
+  for (int h = 0; h < H; ++h) {
+    for (int k = static_cast<int>(bounds[h]) + lane; k < bounds[h + 1]; k += 32) {
+      const int a = static_cast<int>(op[k] & 0xffff), b = static_cast<int>(op[k] >> 16);
+      node[k] = __dadd_rn(a < L ? leaf[a] : node[a - L], b < L ? leaf[b] : node[b - L]);
+    }
+    __syncwarp();
+  }
+  return L == 1 ? leaf[0] : node[L - 2];
+}
+
+// leaf l of a chunk's plan: its start and length
+__device__ __forceinline__ int2 leaf_bounds(const long long* plan, int l) {
+  const int m = static_cast<int>(plan[0]), L = static_cast<int>(plan[1]), H = static_cast<int>(plan[2]);
+  const long long* start = plan + 4 + H;
+  const int s = static_cast<int>(start[l]);
+  return make_int2(s, (l + 1 < L ? static_cast<int>(start[l + 1]) : m) - s);
+}
+
+// the block route: block b takes the records bounds[b] .. bounds[b + 1] - 1
+// (at most BLOCK_WARPS), and their leaves in order: leaf t of the block is
+// leaf t - base of the candidate whose leaves begin at base
+__global__ void __launch_bounds__(32 * BLOCK_WARPS, BLOCK_MIN_BLOCKS)
+polygon_block_kernel(const int2* __restrict__ points, const int2* __restrict__ verts,
+                     const long long* __restrict__ recs, long long stride, const long long* __restrict__ bounds,
+                     const long long* __restrict__ plans, double* __restrict__ out) {
+  extern __shared__ double2 edge_sh[];
+  Edge* staged = reinterpret_cast<Edge*>(edge_sh);
+  __shared__ double leaf[MAX_LEAVES];
+  __shared__ double buf[BLOCK_WARPS][PAIRWISE_BLOCK];
+  __shared__ long long first_vertex[MAX_LEAVES];  // a block holds fewer candidates than leaves
+  __shared__ int vertices[MAX_LEAVES], slot[MAX_LEAVES];
+  __shared__ unsigned vmax[MAX_LEAVES];
+  __shared__ int4 box[MAX_LEAVES];  // a candidate's vertices' least and largest x and y
+  __shared__ long long program[BLOCK_WARPS][MAX_LEAVES + 8];  // a warp's candidate's level bounds and sums
+  __shared__ int2 shape[BLOCK_WARPS];                          // and its leaves and height
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long rb = bounds[blockIdx.x], re = bounds[blockIdx.x + 1];
+  // a block holds at most BLOCK_WARPS candidates (ops/polygon.py:ErrorsLaunch): a
+  // warp stages one candidate's edges and program, and combines it
+  for (long long j = rb + warp; j < re; j += BLOCK_WARPS) {
+    const Rec rec{recs + j, stride};
+    const int2* poly = verts + rec[3];
+    const int nv = static_cast<int>(rec[4]), at = static_cast<int>(rec[5]);
+    const long long* plan = plans + rec[6];
+    const int L = static_cast<int>(plan[1]), H = static_cast<int>(plan[2]);
+    for (int k = lane; k < H + L; k += 32) program[warp][k] = plan[k < H + 1 ? 3 + k : 3 + L + k];
+    shape[warp] = make_int2(L, H);
+    unsigned big = 0;
+    int4 span = make_int4(INT_MAX, INT_MAX, INT_MIN, INT_MIN);
+    for (int e = lane; e < nv; e += 32) {
+      const int2 a = __ldg(poly + e);
+      big = max(big, max(uabs(a.x), uabs(a.y)));
+      span = make_int4(min(span.x, a.x), min(span.y, a.y), max(span.z, a.x), max(span.w, a.y));
+      if (at >= 0) staged[at + e] = form_edge(poly, nv, e);
+    }
+    big = __reduce_max_sync(FULL, big);
+    span = make_int4(__reduce_min_sync(FULL, span.x), __reduce_min_sync(FULL, span.y),
+                     __reduce_max_sync(FULL, span.z), __reduce_max_sync(FULL, span.w));
+    if (lane == 0) {
+      vmax[j - rb] = big;
+      box[j - rb] = span;
+      first_vertex[j - rb] = rec[3];
+      vertices[j - rb] = nv;
+      slot[j - rb] = at;
+    }
+  }
+  __syncthreads();
+  const int cands = static_cast<int>(re - rb);
+  int leaves = 0, mine = 0;  // the block's leaves; those before this warp's candidate
+  for (int j = 0; j < cands; ++j) {
+    mine = j == warp ? leaves : mine;
+    leaves += shape[j].x;
+  }
+  for (int t = warp; t < leaves; t += BLOCK_WARPS) {  // a warp a leaf
+    int j = 0, base = 0;
+    while (t >= base + shape[j].x) base += shape[j++].x;
+    const Rec rec{recs + rb + j, stride};
+    const int2 range = leaf_bounds(plans + rec[6], t - base);
+    const double sum = leaf_sum(points + rec[1] + range.x, range.y, slot[j] >= 0 ? staged + slot[j] : nullptr,
+                                verts + first_vertex[j], vertices[j], vmax[j], box[j], buf[warp]);
+    if (lane == 0) leaf[t] = sum;
+  }
+  __syncthreads();
+  for (long long j = rb + warp; j < re; j += BLOCK_WARPS) {  // a warp a candidate's tree
+    const Rec rec{recs + j, stride};
+    const double total = combine(shape[warp].x, shape[warp].y, program[warp], program[warp] + shape[warp].y + 1,
+                                 leaf + mine, buf[warp]);
+    if (lane == 0) out[rec[0]] = __ddiv_rn(total, static_cast<double>(rec[2]));
+  }
+}
+
+// the cluster route: cluster k takes the candidate of record k
+__global__ void __launch_bounds__(32 * CLUSTER_WARPS, CLUSTER_MIN_BLOCKS)
+polygon_cluster_kernel(const int2* __restrict__ points, const int2* __restrict__ verts,
+                       const long long* __restrict__ recs, long long stride, const long long* __restrict__ plans,
+                       double* __restrict__ out) {
+  extern __shared__ double2 edge_sh[];
+  Edge* staged = reinterpret_cast<Edge*>(edge_sh);
+  __shared__ double leaf[2][MAX_LEAVES];  // the leader's: a chunk's leaf sums, alternate chunks
+  __shared__ double buf[CLUSTER_WARPS][PAIRWISE_BLOCK];
+  __shared__ unsigned vmax;
+  __shared__ int4 box;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Rec rec{recs + blockIdx.x / CLUSTER_BLOCKS, stride};
+  const int2* poly = verts + rec[3];
+  const int n = static_cast<int>(rec[2]), nv = static_cast<int>(rec[4]);
+  if (threadIdx.x == 0) {
+    vmax = 0;
+    box = make_int4(INT_MAX, INT_MAX, INT_MIN, INT_MIN);
+  }
+  __syncthreads();
+  unsigned big = 0;
+  int4 span = make_int4(INT_MAX, INT_MAX, INT_MIN, INT_MIN);
+  for (int e = threadIdx.x; e < nv; e += 32 * CLUSTER_WARPS) {
+    const int2 a = __ldg(poly + e);
+    big = max(big, max(uabs(a.x), uabs(a.y)));
+    span = make_int4(min(span.x, a.x), min(span.y, a.y), max(span.z, a.x), max(span.w, a.y));
+    if (rec[5] >= 0) staged[e] = form_edge(poly, nv, e);
+  }
+  big = __reduce_max_sync(FULL, big);
+  span = make_int4(__reduce_min_sync(FULL, span.x), __reduce_min_sync(FULL, span.y),
+                   __reduce_max_sync(FULL, span.z), __reduce_max_sync(FULL, span.w));
+  if (lane == 0) {
+    atomicMax(&vmax, big);
+    atomicMin(&box.x, span.x);
+    atomicMin(&box.y, span.y);
+    atomicMax(&box.z, span.z);
+    atomicMax(&box.w, span.w);
+  }
+  cluster.sync();  // the edges staged, and every block of the cluster running before the leader's memory is written
+  const Edge* edges = rec[5] >= 0 ? staged : nullptr;
+  double* lead = cluster.map_shared_rank(&leaf[0][0], 0);
+  const int chunks = (n + REDUCE_CHUNK - 1) / REDUCE_CHUNK;
+  double total = 0.0;
+  for (int j = 0; j < chunks; ++j) {
+    const long long* plan = plans + (j + 1 < chunks ? rec[6] : rec[7]);
+    const int L = static_cast<int>(plan[1]);
+    for (int l = static_cast<int>(rank) * CLUSTER_WARPS + warp; l < L; l += CLUSTER_BLOCKS * CLUSTER_WARPS) {
+      const int2 range = leaf_bounds(plan, l);
+      const double sum = leaf_sum(points + rec[1] + static_cast<long long>(j) * REDUCE_CHUNK + range.x, range.y,
+                                  edges, poly, nv, vmax, box, buf[warp]);
+      if (lane == 0) lead[(j & 1) * MAX_LEAVES + l] = sum;
+    }
+    // the chunk's sums in the leader; its first warp combines them before
+    // the barrier after the next chunk, the earliest that buffer is reused
+    cluster.sync();
+    if (rank == 0 && warp == 0) {
+      const int H = static_cast<int>(plan[2]);
+      const double part = combine(L, H, plan + 3, plan + 4 + H + L, leaf[j & 1], buf[0]);
+      total = j == 0 ? part : __dadd_rn(total, part);
+    }
+  }
+  if (rank == 0 && threadIdx.x == 0) out[rec[0]] = __ddiv_rn(total, static_cast<double>(n));
 }
 
 }  // namespace
@@ -724,26 +1045,54 @@ extern "C" int yam_fourier_lines(const void* points, const void* offsets, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// points: (P, 2) int32; offsets: (R + 1) int64, the longest contour max_n
-// points; verts: (V, 2) int32; vert_offsets: (C + 1) int64; owner: (C)
-// int64, each candidate's contour; scratch_offsets: (C + 1) int64, the
-// candidates' contour lengths scanned; scratch: float64 of
-// scratch_offsets[C]; out: (C) float64.  Two launches: the distances, the
-// means.
-extern "C" int yam_polygon_errors(const void* points, const void* offsets, const void* verts,
-                                  const void* vert_offsets, const void* owner, const void* scratch_offsets,
-                                  void* scratch, void* out, int candidates, int max_n, void* stream) {
-  if (candidates < 1 || max_n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned chunks = static_cast<unsigned>((max_n + POLY_THREADS - 1) / POLY_THREADS);
-  if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+// points: (P, 2) int32; verts: (V, 2) int32; table: int64, as
+// ops/polygon.py:ErrorsLaunch lays it out: the candidates' records
+// (CAND_FIELDS fields, field by field: a field's candidates in route
+// order, the block route's nshort, then the cluster route's nlong), the
+// block route's record bounds (nblocks + 1), then the chunk plans
+// (ops/polygon.py:leaf_plan, a record's plan fields index them);
+// block_shared / cluster_shared: the dynamic shared memory of a route's
+// block (the edges it stages); out: (candidates) float64.  Launches: the
+// block route's (nblocks blocks) and the cluster route's (nlong clusters of
+// CLUSTER_BLOCKS), each where it has work.
+extern "C" int yam_polygon_errors(const void* points, const void* verts, const void* table, int candidates,
+                                  int nshort, int nlong, int nblocks, int block_shared, int cluster_shared,
+                                  void* out, void* stream) {
+  if (candidates < 1 || nshort < 0 || nlong < 0 || nshort + nlong != candidates || nblocks < 0 ||
+      block_shared < 0 || cluster_shared < 0 || nlong > 0x7fffffff / CLUSTER_BLOCKS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long* o = static_cast<const long long*>(offsets);
-  const long long* ow = static_cast<const long long*>(owner);
-  const long long* so = static_cast<const long long*>(scratch_offsets);
-  double* d = static_cast<double*>(scratch);
-  polygon_distances_kernel<<<dim3(candidates, chunks), POLY_THREADS, 0, st>>>(
-      static_cast<const int*>(points), o, static_cast<const int*>(verts),
-      static_cast<const long long*>(vert_offsets), ow, so, d);
-  polygon_means_kernel<<<candidates, POLY_THREADS, 0, st>>>(o, ow, so, d, static_cast<double*>(out));
+  const int2* pts = static_cast<const int2*>(points);
+  const int2* vs = static_cast<const int2*>(verts);
+  const long long* recs = static_cast<const long long*>(table);
+  const long long* bounds = recs + static_cast<long long>(CAND_FIELDS) * candidates;
+  const long long* plans = bounds + nblocks + 1;
+  double* o = static_cast<double*>(out);
+  cudaError_t err = cudaSuccess;
+  if (nblocks > 0) {
+    err = cudaFuncSetAttribute(polygon_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, block_shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    polygon_block_kernel<<<nblocks, 32 * BLOCK_WARPS, block_shared, st>>>(pts, vs, recs, candidates, bounds,
+                                                                            plans, o);
+  }
+  if (nlong > 0) {
+    err = cudaFuncSetAttribute(polygon_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cluster_shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = CLUSTER_BLOCKS;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(nlong * CLUSTER_BLOCKS);
+    config.blockDim = dim3(32 * CLUSTER_WARPS);
+    config.dynamicSmemBytes = cluster_shared;
+    config.stream = st;
+    config.attrs = &cluster;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, polygon_cluster_kernel, pts, vs,
+                             recs + nshort, static_cast<long long>(candidates), plans, o);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

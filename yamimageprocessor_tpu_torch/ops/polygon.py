@@ -26,8 +26,9 @@ plain torch float64.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -191,45 +192,165 @@ def polygon_mean_errors_plain(points, offsets, verts, vert_offsets, owner) -> to
     return out
 
 
+#: a block route block's warps: a warp a leaf of numpy's tree at a time, a
+#: block's candidates' leaves together no more unless one candidate alone
+#: has more
+BLOCK_WARPS = 4
+#: edges a block stages in shared memory (EDGE_BYTES each); a candidate
+#: with more is read from device memory, every edge exactly
+STAGE_EDGES = 2048
+#: bytes of shared memory an edge staged: dx, dy, denom, 1 / denom, x0, y0
+#: in float64, then dx, dy, denom, 1 / denom in float32
+EDGE_BYTES = 64
+#: a candidate whose contour has more points goes to the cluster route
+CLUSTER_POINTS = REDUCE_CHUNK
+#: blocks of a long contour's cluster
+CLUSTER_BLOCKS = 8
+#: int64 fields of a candidate's record, the records in route order (the
+#: block route's in candidate order, then the cluster route's), the table
+#: field by field: the candidate, its first point, points, first vertex,
+#: vertices, staged edges' slot (-1: not staged), the plan of its first
+#: chunk and the plan of its last chunk
+CAND_FIELDS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def leaf_plan(m: int) -> Tuple[int, ...]:
+    """numpy's pairwise tree of a chunk of ``m`` elements (``1 <= m <=
+    REDUCE_CHUNK``) as the kernel reads it: ``(m, L, H, hb[0..H],
+    start[0..L-1], op[0..L-2])``.  The recursion halves a range at a
+    multiple of 8 until it holds at most :data:`PAIRWISE_BLOCK` elements:
+    its ``L`` leaves, left to right, begin at ``start`` (each ends where the
+    next begins, the last at ``m``).  Nodes ``0..L-1`` are the leaves, node
+    ``L + k`` is ``op[k] = a | b << 16``, the sum of nodes ``a`` (left) and
+    ``b`` (right); the ops run by height (a leaf's is 0, a sum's one more
+    than its taller child's), those of height ``h + 1`` at ``hb[h] <= k <
+    hb[h + 1]``, so each level's sums are independent; the root is the last."""
+
+    if not 1 <= m <= REDUCE_CHUNK:
+        raise ValueError(f"leaf_plan: a chunk holds 1 to {REDUCE_CHUNK} elements, not {m}")
+    starts, sums = [], []  # sums: (height, left, right), children as ("leaf" | "sum", index)
+
+    def walk(s, n):
+        if n <= PAIRWISE_BLOCK:
+            starts.append(s)
+            return ("leaf", len(starts) - 1), 0
+        half = n // 2 - (n // 2) % 8
+        left, hl = walk(s, half)
+        right, hr = walk(s + half, n - half)
+        sums.append((1 + max(hl, hr), left, right))
+        return ("sum", len(sums) - 1), 1 + max(hl, hr)
+
+    _, height = walk(0, m)
+    leaves = len(starts)
+    order = sorted(range(len(sums)), key=lambda j: sums[j][0])  # stable: left to right within a height
+    node = {j: leaves + k for k, j in enumerate(order)}
+
+    def ident(child):
+        return child[1] if child[0] == "leaf" else node[child[1]]
+
+    ops = [ident(sums[j][1]) | ident(sums[j][2]) << 16 for j in order]
+    bounds = [sum(1 for j in order if sums[j][0] <= h + 1) for h in range(height)]
+    return (m, leaves, height, 0, *bounds, *starts, *ops)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(m: int) -> np.ndarray:
+    return np.array(leaf_plan(m), np.int64)
+
+
 class ErrorsLaunch:
-    """The boundary errors' buffers and launch on the card (kernel 3 of
+    """The boundary errors' plan and launch on the card (kernel 3 of
     ``csrc/shape.cu``), shared by :func:`polygon_mean_errors` and by
-    timers, so that both run the same device work: building it validates
-    the arguments, moves the offsets to the card and allocates the
-    distances' scratch; :meth:`run` is a call's device work, one C call of
-    two launches, into the same buffers."""
+    timers, so that both run the same device work.  Building it validates
+    the arguments and plans the call on the host from the host offsets
+    (no read back from the card): each candidate's record, numpy's tree of
+    each chunk length (:func:`leaf_plan`), the block route's blocks (runs of
+    consecutive candidates of one leaf count L, BLOCK_WARPS // L of them,
+    fewer where their staged edges could pass STAGE_EDGES; a block's warps
+    take its candidates' leaves in order), the cluster route's candidates;
+    all of it goes to the card in one copy.  :meth:`run` is a call's device work:
+    one launch for the block route (contours of at most
+    :data:`CLUSTER_POINTS` points) and one for the cluster route, each only
+    where it has candidates."""
 
     def __init__(self, points, offsets, verts, vert_offsets, owner):
         if points.dtype != torch.int32 or verts.dtype != torch.int32 or not (
                 points.is_contiguous() and verts.is_contiguous()):
             raise ValueError("polygon_mean_errors takes contiguous int32 (x, y) points and vertices")
-        offs, voffs, own = (np.asarray(torch.as_tensor(t).cpu(), np.int64) for t in (offsets, vert_offsets, owner))
-        if (offs[0] != 0 or offs[-1] != points.shape[0] or (np.diff(offs) < 1).any() or voffs[0] != 0
-                or voffs[-1] != verts.shape[0] or (np.diff(voffs) < 1).any() or len(voffs) != len(own) + 1
-                or (own < 0).any() or (own >= len(offs) - 1).any()):
+        offs, voffs, own = (np.asarray(t.cpu() if torch.is_tensor(t) else t, np.int64)
+                            for t in (offsets, vert_offsets, owner))
+        rows, nv = offs[1:] - offs[:-1], voffs[1:] - voffs[:-1]
+        if (offs[0] != 0 or offs[-1] != points.shape[0] or rows.min(initial=1) < 1 or voffs[0] != 0
+                or voffs[-1] != verts.shape[0] or nv.min(initial=1) < 1 or len(voffs) != len(own) + 1
+                or own.min(initial=0) < 0 or own.max(initial=-1) >= len(rows)):
             raise ValueError("polygon_mean_errors: offsets must rise from 0 to the points and vertices, a contour "
                              "and a polygon at least one each, and every owner name a contour")
         dev = points.device
         self.points, self.verts = points, verts
-        self.offsets, self.vert_offsets, self.owner = (torch.from_numpy(t).to(dev) for t in (offs, voffs, own))
-        self.count, self.longest = len(own), int(np.diff(offs).max(initial=0))
+        self.count = len(own)
         self.out = torch.empty(self.count, dtype=torch.float64, device=dev)
-        lengths = (self.offsets[1:] - self.offsets[:-1])[self.owner]
-        self.scratch_offsets = torch.zeros(self.count + 1, dtype=torch.int64, device=dev)
-        self.scratch_offsets[1:] = torch.cumsum(lengths, 0)
-        self.scratch = torch.empty(int(self.scratch_offsets[-1]), dtype=torch.float64, device=dev)
+        # the candidates in route order: the block route's in order, then
+        # the cluster route's (contours past CLUSTER_POINTS points)
+        n, order, first_point, first_vertex = rows[own], np.arange(self.count), offs[own], voffs[:-1]
+        long = n > CLUSTER_POINTS
+        self.nlong = int(np.count_nonzero(long))
+        ns = self.nshort = self.count - self.nlong
+        if self.nlong:
+            order = np.argsort(long, kind="stable")
+            n, nv, first_point, first_vertex = n[order], nv[order], first_point[order], first_vertex[order]
+        staged = nv <= STAGE_EDGES
+        # every chunk length's plan once: a short contour is one chunk, a
+        # long one's first chunk is REDUCE_CHUNK long and its last the rest
+        head = np.minimum(n, REDUCE_CHUNK)
+        tail = n[ns:] - REDUCE_CHUNK * ((n[ns:] - 1) // REDUCE_CHUNK)
+        seen = np.zeros(REDUCE_CHUNK + 1, bool)
+        seen[head] = seen[tail] = True
+        lengths = np.flatnonzero(seen)
+        plans = [_plan_array(m) for m in lengths.tolist()]
+        plan_at = np.cumsum([0] + [len(p) for p in plans])
+        at = np.searchsorted(lengths, head)
+        first_plan = plan_at[at]
+        last_plan = np.concatenate([first_plan[:ns], plan_at[np.searchsorted(lengths, tail)]])
+        # the block route's blocks: runs of consecutive candidates of one
+        # leaf count L, BLOCK_WARPS // L of them (at least one), fewer where
+        # the widest staged candidate's edges could pass STAGE_EDGES
+        leaves = np.array([p[1] for p in plans], np.int64)[at[:ns]]
+        edges = np.where(staged[:ns], nv[:ns], 0)
+        per = np.maximum(1, np.minimum(BLOCK_WARPS // leaves, STAGE_EDGES // max(int(edges.max(initial=0)), 1)))
+        place = np.arange(ns)
+        place -= np.maximum.accumulate(np.where(np.diff(leaves, prepend=-1) != 0, place, 0))  # in its run
+        opens = place % per == 0
+        bounds = np.append(np.flatnonzero(opens), ns)
+        before = np.concatenate([[0], np.cumsum(edges)])  # staged edges before each candidate
+        slot = np.where(staged, 0, -1)
+        slot[:ns] = np.where(staged[:ns], before[:-1] - before[bounds[np.cumsum(opens) - 1]], -1)
+        self.block_shared = EDGE_BYTES * int(np.diff(before[bounds]).max(initial=0))
+        self.cluster_shared = EDGE_BYTES * int(nv[ns:][staged[ns:]].max(initial=0))
+        self.nblocks, self.nitems = len(bounds) - 1, int(leaves.sum())
+        # the records field by field (CAND_FIELDS), the blocks' bounds, the plans
+        self.table = torch.from_numpy(np.concatenate([order, first_point, n, first_vertex, nv, slot, first_plan,
+                                                      last_plan, bounds, *plans])).to(dev)
+        self.staged = int(staged.sum())
 
     @property
     def launching(self) -> bool:
         return self.count > 0
 
+    def counts(self) -> dict:
+        """The plan's shape: the block route's blocks and items (a
+        candidate's leaf each), the cluster route's clusters and blocks, and
+        the candidates whose edges are staged in shared memory."""
+
+        return {"blocks": self.nblocks, "items": self.nitems, "clusters": self.nlong,
+                "cluster_blocks": CLUSTER_BLOCKS * self.nlong, "staged": self.staged}
+
     def run(self) -> None:
         if self.launching:
             _build.launch(
-                "yam_polygon_errors", self.points.device, self.points.data_ptr(), self.offsets.data_ptr(),
-                self.verts.data_ptr(), self.vert_offsets.data_ptr(), self.owner.data_ptr(),
-                self.scratch_offsets.data_ptr(), self.scratch.data_ptr(), self.out.data_ptr(), self.count,
-                self.longest,
+                "yam_polygon_errors", self.points.device, self.points.data_ptr(), self.verts.data_ptr(),
+                self.table.data_ptr(), self.count, self.nshort, self.nlong, self.nblocks, self.block_shared,
+                self.cluster_shared, self.out.data_ptr(),
             )
 
 
@@ -238,17 +359,20 @@ def polygon_mean_errors(points, offsets, verts, vert_offsets, owner) -> torch.Te
     ``verts[vert_offsets[c]:vert_offsets[c + 1]]``, int32 ``(x, y)``) the
     mean over its contour's points (``points[offsets[r]:offsets[r + 1]]``,
     ``r = owner[c]``) of the distance to its nearest edge, the reference's
-    float64 bits.
+    float64 bits.  ``offsets``, ``vert_offsets`` and ``owner`` are host
+    arrays (lists, numpy arrays or CPU tensors).
 
     On the card (kernel 3 of ``csrc/shape.cu``, for the error loop of
     ``_optimize_epsilon`` and ``polygon_mean_errors_j``,
     ``yamimageprocessor_tpu/ops/extraction_device.py:339``;
-    :class:`ErrorsLaunch`): two launches for every candidate of a call,
-    the distances over (candidate, chunk of points), a thread a point
-    walking the edges with ``__dmul_rn``/``__dadd_rn``/``__ddiv_rn`` and
-    the glibc hypot, then a block a candidate summing them in numpy's
-    pairwise order (the tree's leaves at once).  Bound: about 20 FP64
-    operations and a hypot a (candidate, point, edge)."""
+    :class:`ErrorsLaunch`): one launch where every contour has at most
+    :data:`CLUSTER_POINTS` points, a warp a (candidate, leaf of numpy's
+    tree), each candidate's edge constants staged once in shared memory, a
+    cheap division-free squared distance choosing the one edge whose exact
+    distance (the reference's operations and glibc's hypot) is the
+    minimum, the leaf summed where its distances are and the leaves'
+    sums added level by level in the recursion's order; longer contours in
+    a launch of thread-block clusters.  Bound: ``chip_smoke.py:polygon_bound``."""
 
     if not _build.on_card("polygon_mean_errors", points):
         return polygon_mean_errors_plain(points, offsets, verts, vert_offsets, owner)
@@ -274,10 +398,12 @@ def pack_candidates(polygons: List) -> tuple:
 
 
 __all__ = [
+    "CLUSTER_POINTS",
     "ErrorsLaunch",
     "PAIRWISE_BLOCK",
     "REDUCE_CHUNK",
     "hypot",
+    "leaf_plan",
     "pack_candidates",
     "pairwise_sum",
     "polygon_mean_errors",

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Build and check the torch port on one CUDA card, then drive its nine
+"""Build and check the torch port on one CUDA card, then drive its ten
 main paths once each: the flagship preprocess chain, the segmentation
 chain, the batched CLAHE chain, the denoise chain, the bilateral filter,
-the region-properties extraction, the texture features, the shape
-features (Fourier descriptors, approximate shape) and the streaming of
-gigapixel slides.
+the edge and region ops of segmentation, the region-properties
+extraction, the texture features, the shape features (Fourier
+descriptors, approximate shape) and the streaming of gigapixel slides.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --streaming   # build, then the stream phase alone
+    python3 chip_smoke.py --edges   # build, then the edges phase alone
     python3 chip_smoke.py --times-of DIR [DIR ...]   # CC, the blend, histogram256, the median and bilateral
     python3 chip_smoke.py --extraction-times-of DIR [DIR ...]   # the hull and annotation kernels
     python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter, LBP, HOG and GLCM kernels, three tables
@@ -79,6 +80,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    profiler's split;
 8. bilateral: one Bilateral step at ksize 5 on the same batch, checked
    and timed the same way;
+8b. edges: Sobel, Prewitt, Laplacian, Canny edge, the adaptive threshold,
+   border removal and region growing, each one step at its defaults, and
+   a Gaussian 5 -> Canny chain, through the chain runner on the same BGR
+   batch and on the segmentation scene and through the manager on frame
+   0, with the counts set to 0: every output against the JAX package's
+   digest, 512^2 crops against the port's CPU run; the gradient kernel at
+   Sobel ksizes 1-31, Prewitt and Laplacian ksizes 1-19, Canny's
+   candidates at apertures 3, 5 and 7 (and the hysteresis on them), the
+   adaptive threshold at block sizes 3-255 and C -100, 2, 100 and region
+   growing against their plain versions, bit for bit; region growing and
+   the hysteresis on ``_spiral(2048)`` against ``scipy.ndimage.label``;
+   the four kernels' device time beside their plain versions', their
+   bounds and (the gradient) ``conv2d``'s, each chain's device time and
+   the profiler's split of four;
 9. extraction: ``extraction.region_properties``'s
    ``data_fn`` on ``bench.py:_extra_extraction``'s BGR 1024^2 dense scene
    (64 regions), ``region_tables`` on its batches of 8 and 32 frames
@@ -361,6 +376,20 @@ POLYGON_FILTER_LIMIT = 1 << 24
 POLYGON_SPAN_LIMIT = 1 << 11
 SPLIT_RUNS = 20  # calls a profiler session of a kernel's per-launch split spans
 SHAPE_CHAIN_CALLS = 10  # back-to-back calls of the Fourier chain's host-clock time in --shape-times-of
+EDGE_OPS = {  # the edges phase's ops, one step each at its defaults: (step name, op id)
+    "sobel": ("Sobel", "segmentation.sobel"),
+    "prewitt": ("Prewitt", "segmentation.prewitt"),
+    "laplacian": ("Laplacian", "segmentation.laplacian"),
+    "edge": ("Edge", "segmentation.edge"),
+    "adaptive": ("Adaptive", "segmentation.adaptive"),
+    "border_removal": ("Border Removal", "segmentation.border_removal"),
+    "region_growing": ("Region Growing", "segmentation.region_growing"),
+}
+EDGE_KERNELS = ("gradient", "canny_candidates", "adaptive_threshold", "region_grow")
+EDGE_SOBEL_KSIZES = (1, 3, 5, 7, 15, 31)  # from 7 the squares wrap in int32, from 15 the gradients
+EDGE_LAPLACIAN_KSIZES = (1, 3, 7, 19)  # 19: the largest whose aperture fits int32
+EDGE_BLOCK_SIZES = (3, 11, 13, 33, 35, 101, 255)  # the adaptive threshold's; past 13 on the scene
+EDGE_CPU_SIDE = 512  # crops of the edges phase's inputs the port's CPU run takes
 
 DIGESTS = {
     "segmentation_input": "789006ca990ec8e56fe63d5aa294f3853622819e9d010fb70d302ba9730050c0",
@@ -414,6 +443,22 @@ DIGESTS = {
     "stream_uint16_input": "c7fe580a47ed22a92b3fa900dce8c0abccd018bb7320ee8eb0bd70cdebc5b1e8",
     "stream_clahe_uint16_512": "e3b00dd19255355c6da5e091decd1d2e126fd5b11af86ee6565bac311b7696c9",
     "stream_clahe_uint16_500x300": "e3b00dd19255355c6da5e091decd1d2e126fd5b11af86ee6565bac311b7696c9",
+    "edges_sobel_bgr": "d0ff8306795cc730a616d7e33a0c0ccbf5a32429c0f0c1b8610d9cfc926829a0",
+    "edges_sobel_scene": "d894df8af8010e7108aad3e6e3aaf4067b15af5f094d45379a356ffc2d3e4f32",
+    "edges_prewitt_bgr": "81c26957c20dd08c6d552a90f277b4980e0bac0bbe3185ddeb313dd0e75eac2c",
+    "edges_prewitt_scene": "4f7d5e87ab359a45b239de24cdb5f1d083800583c538e35d50f5fa711c826250",
+    "edges_laplacian_bgr": "938525acebb81153c44b8806a02d51ab3c70e6c0a4eece94737b6d8ad0423069",
+    "edges_laplacian_scene": "79b15d7a8bc68348efc00c34b573c8329e270b1f60b4275eae026782db27f195",
+    "edges_edge_bgr": "d3a4281c06b9b90893f5c5d4330581806c60fd6a3a7a2b92937cbb3b57a7942e",
+    "edges_edge_scene": "2a1059fff42ff643466547c87e996bf47d83b0065c44e135e84862b0d6f0657e",
+    "edges_adaptive_bgr": "2ef117ca921192330be91219fe10510baa29fd5b86b51ba1cee6c5e967fe0854",
+    "edges_adaptive_scene": "c024467b7bd6b585911e9e041fb50e343772247f436485d6cad2d0a51dcac3ed",
+    "edges_border_removal_bgr": "b26f267c29004276e9cd3a2d6e46b0edf07835dc506c6cf0b13895a52d421695",
+    "edges_border_removal_scene": "3bc4552d6d9ef3b6d19e027bd64beabd614c3b751c6d9fd139ad4600402c64d5",
+    "edges_region_growing_bgr": "4d2a12f06b6fdbe9b071c73e711f99f5dc2489f9dc383e16af7775b622394c47",
+    "edges_region_growing_scene": "979fe221a8875e934a6321e747a9d61ec36dc68eebdf4e4d9ed6d0e06b5156f5",
+    "edges_gauss_canny_bgr": "701177f053fc0b42422b4ebc43b82184ebbcb951fc5a1da7452464053e2507d6",
+    "edges_gauss_canny_scene": "6cc15f43a8decb7ec4f43c0f9f551ce40c3acde778c727dd557fa95f277c740c",
 }
 
 
@@ -851,6 +896,15 @@ _SEG_GROUPS = {
     "cc_border": "cc",
     "cc_compress": "cc",
     "flood_kernel": "flood",
+}
+_EDGE_GROUPS = {
+    "gradient_kernel": "gradient",
+    "canny_kernel": "canny_candidates",
+    "adaptive_kernel": "adaptive_threshold",
+    "grow_": "region_grow",
+    "cc_local": "cc",
+    "cc_border": "cc",
+    "cc_compress": "cc",
 }
 _CLAHE_GROUPS = {
     "sepconv_": "sepconv",
@@ -1899,6 +1953,9 @@ def _counters():
     from yamimageprocessor_tpu_torch.ops.contours import trace_contours
     from yamimageprocessor_tpu_torch.ops.fourier import fourier_lines
     from yamimageprocessor_tpu_torch.ops.polygon import polygon_mean_errors
+    from yamimageprocessor_tpu_torch.ops import edges as ED
+    from yamimageprocessor_tpu_torch.ops import growing as GR
+    from yamimageprocessor_tpu_torch.ops import threshold as TH
 
     return {
         "sepconv": sep_filter_u8,
@@ -1923,6 +1980,10 @@ def _counters():
         "polygon_mean_errors": polygon_mean_errors,
         "stream_grid_histogram": CL.grid_hist_stream,
         "clahe_stream_blend": CL.clahe_stream_blend,
+        "gradient": ED.gradient_u8,
+        "canny_candidates": ED.canny_candidates,
+        "adaptive_threshold": TH.adaptive_threshold,
+        "region_grow": GR.region_grow,
     }
 
 
@@ -2176,6 +2237,195 @@ def phase_bilateral(dev) -> dict:
     run = _drive_chain("bilateral", bilateral_steps(), ("bilateral",), "bilateral_output", dev)
     print_profile("bilateral", chain_profile(lambda: run["fn"](run["x"], run["dyn"]), _BILATERAL_GROUPS))
     return run["launches"]
+
+
+# ---------------------------------------------------------------------------
+# edges: Sobel, Prewitt, Laplacian, Canny edge, adaptive threshold, border
+# removal and region growing
+
+
+def edge_steps():
+    """``{name: steps}``: each of the seven ops alone at its defaults, and
+    a Gaussian 5 -> Canny chain (``scripts/torch_port_digests.py:edge_steps``)."""
+
+    from yamimageprocessor_tpu_torch.ops.schema import Stage
+    from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+    seg = Stage.SEGMENTATION
+    chains = {name: [PipelineStep(name=n, op_id=op, stage=seg, params={})] for name, (n, op) in EDGE_OPS.items()}
+    chains["gauss_canny"] = [
+        PipelineStep(name="NoiseReduction", stage=Stage.PREPROCESSING, params={"method": "Gaussian", "ksize": 5}),
+        PipelineStep(name="Edge", op_id="segmentation.edge", stage=seg, params={}),
+    ]
+    return chains
+
+
+def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
+    """K1-K4 against their plain versions, bit for bit: the gradient at
+    every Sobel and Laplacian ksize of EDGE_SOBEL_KSIZES and
+    EDGE_LAPLACIAN_KSIZES and Prewitt, Canny's candidates at apertures 3, 5
+    and 7 and the hysteresis on them, on the BGR batch's gray frames; the
+    adaptive threshold at EDGE_BLOCK_SIZES (past 13 taps on the scene), the
+    region growing on both; then the growing and the hysteresis on
+    ``_spiral(2048)`` against ``scipy.ndimage.label`` (4-connected; 3x3)."""
+
+    from scipy import ndimage as ndi
+
+    from yamimageprocessor_tpu_torch.ops import edges as E
+    from yamimageprocessor_tpu_torch.ops import growing as G
+    from yamimageprocessor_tpu_torch.ops.tables import gaussian_taps
+    from yamimageprocessor_tpu_torch.ops.threshold import adaptive_threshold, adaptive_threshold_plain
+
+    err = {"gradient": 0, "canny_candidates": 0, "adaptive_threshold": 0, "region_grow": 0}
+    cases = [(E.SOBEL, k) for k in EDGE_SOBEL_KSIZES] + [(E.PREWITT, 3)]
+    cases += [(E.LAPLACIAN, k) for k in EDGE_LAPLACIAN_KSIZES]
+    for kind, ksize in cases:
+        err["gradient"] = max(err["gradient"], exact(f"gradient kind {kind} ksize {ksize}",
+                                                     E.gradient_u8(gray, kind, ksize), E.gradient_plain(gray, kind, ksize)))
+    low, high = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (50, 150))
+    for aperture in (3, 5, 7):
+        plane = E.canny_candidates(gray, low, high, aperture)
+        err["canny_candidates"] = max(err["canny_candidates"], exact(
+            f"canny candidates aperture {aperture}", plane, E.canny_candidates_plain(gray, low, high, aperture)))
+        exact(f"hysteresis aperture {aperture}", E.hysteresis(plane[:2]), E.hysteresis_plain(plane[:2]))
+    for block in EDGE_BLOCK_SIZES:
+        taps = torch.from_numpy(gaussian_taps(block, 0.0).astype(np.float32)).to(dev)
+        for c in (-100, 2, 100):
+            c_ceil = torch.tensor(c, dtype=torch.int32, device=dev)
+            frames = gray if block <= 13 else scene
+            err["adaptive_threshold"] = max(err["adaptive_threshold"], exact(
+                f"adaptive block {block} C {c}", adaptive_threshold(frames, taps, c_ceil),
+                adaptive_threshold_plain(frames, taps, c_ceil)))
+    for frames, seed, tol in ((gray, (50, 50), 10), (scene, (50, 50), 10), (scene, (0, 0), 12), (gray, (-7, 9999), 255)):
+        sx, sy, t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (*seed, tol))
+        err["region_grow"] = max(err["region_grow"], exact(
+            f"region grow seed {seed} tol {tol}", G.region_grow(frames, sx, sy, t), G.region_grow_plain(frames, sx, sy, t)))
+    spiral = _spiral(SEG_SIDE)
+    zero = torch.tensor(0, dtype=torch.int32, device=dev)
+    grown = G.region_grow(torch.from_numpy(spiral * 200).to(dev)[None], zero, zero, zero)[0].cpu().numpy() == 255
+    lab, _ = ndi.label(spiral == 1, structure=[[0, 1, 0], [1, 1, 1], [0, 1, 0]])
+    if not np.array_equal(grown, lab == lab[0, 0]):
+        raise AssertionError("region grow on the spiral != scipy.ndimage.label's component")
+    plane = spiral.copy()
+    corner = np.arange(0, SEG_SIDE // 2, 8)  # (4k, 4k) lies on ring k: every even ring holds a strong pixel
+    plane[corner, corner] = 2
+    edges = E.hysteresis(torch.from_numpy(plane).to(dev)[None])[0].cpu().numpy()
+    lab8, _ = ndi.label(plane > 0, structure=np.ones((3, 3)))
+    keep = np.zeros(lab8.max() + 1, bool)
+    keep[np.unique(lab8[plane == 2])] = True
+    keep[0] = False
+    if not np.array_equal(edges, keep[lab8]):
+        raise AssertionError("hysteresis on the spiral != scipy.ndimage.label's components")
+    print(f"edges kernels == plain: gradient {len(cases)} cases, canny candidates 3 apertures and the hysteresis, "
+          f"adaptive {len(EDGE_BLOCK_SIZES)} block sizes x 3 C, region grow 4 cases; spiral {SEG_SIDE}^2: region "
+          f"grow ({int(grown.sum())} px) and hysteresis ({int(edges.sum())} px, {int(keep.sum())} rings) == scipy")
+    return err
+
+
+def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
+    """Device ms of K1-K4, their plain versions and (the gradient) conv2d
+    in float32, on the BGR batch's gray frames at the ops' defaults, with
+    the bounds."""
+
+    import torch.nn.functional as F
+
+    from yamimageprocessor_tpu_torch.ops import edges as E
+    from yamimageprocessor_tpu_torch.ops import growing as G
+    from yamimageprocessor_tpu_torch.ops.tables import gaussian_taps
+    from yamimageprocessor_tpu_torch.ops.threshold import adaptive_threshold, adaptive_threshold_plain
+
+    px = float(gray.numel())
+    low, high = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (50, 150))
+    taps = torch.from_numpy(gaussian_taps(11, 0.0).astype(np.float32)).to(dev)
+    c_ceil = torch.tensor(2, dtype=torch.int32, device=dev)
+    sx, sy, tol = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (50, 50, 10))
+    times = {
+        "gradient": paired_ms(lambda: E.gradient_u8(gray, E.SOBEL, 3), lambda: E.gradient_plain(gray, E.SOBEL, 3),
+                              plain_runs=3),
+        "canny_candidates": paired_ms(lambda: E.canny_candidates(gray, low, high, 3),
+                                      lambda: E.canny_candidates_plain(gray, low, high, 3), plain_runs=3),
+        "adaptive_threshold": paired_ms(lambda: adaptive_threshold(gray, taps, c_ceil),
+                                        lambda: adaptive_threshold_plain(gray, taps, c_ceil), plain_runs=3),
+        "region_grow": paired_ms(lambda: G.region_grow(gray, sx, sy, tol),
+                                 lambda: G.region_grow_plain(gray, sx, sy, tol), plain_runs=3),
+    }
+    # Sobel's two 3x3 derivatives as one float32 conv2d (zero padding, no magnitude: the yardstick only)
+    d = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], device=dev)
+    weight = torch.stack([d, d.t()]).unsqueeze(1)
+    planes = gray.to(torch.float32).unsqueeze(1)
+    torch.backends.cudnn.allow_tf32 = False
+    library = {"gradient": time_ms(lambda: F.conv2d(planes, weight, padding=1)), "canny_candidates": None,
+               "adaptive_threshold": None, "region_grow": None}
+    k3, k11 = 3, 11
+    bounds = {
+        # 4k multiply-adds a pixel (two x-passes, two y-passes), the magnitude's ~20 operations
+        "gradient": bound_ms(2 * px, int_ops=(4 * k3 + 20) * px),
+        # the same passes, then the magnitude and ~30 operations of the suppression
+        "canny_candidates": bound_ms(2 * px, int_ops=(4 * k3 + 30) * px),
+        # 2k fused multiply-adds a pixel (x-pass, y-pass)
+        "adaptive_threshold": bound_ms(2 * px, f32_inst=2 * k11 * px),
+        # gray in, output out (the labels are scratch)
+        "region_grow": bound_ms(2 * px),
+    }
+    for name in times:
+        print(f"edges {name}: {times[name][0]:.4f} ms (plain {times[name][1]:.4f} ms, library {library[name]}), "
+              f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} on {tuple(gray.shape)}")
+    return {"times": times, "bounds": bounds, "library": library}
+
+
+def phase_edges(dev) -> dict:
+    """The seven ops and the Gaussian -> Canny chain through the chain
+    runner on the BGR batch and the scene, and frame 0 through the
+    manager, in one run with the counts set to 0; each output against the
+    JAX package's digest, a 512^2 crop of each input against the port's CPU
+    run; then K1-K4 against their plain versions, and their times."""
+
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+    from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+
+    begin = time.perf_counter()
+    images = denoise_frames()
+    check_digest("denoise_input", images)
+    scene = dense_scene(SEG_SIDE)
+    check_digest("segmentation_input", scene)
+    x = torch.from_numpy(images).to(dev)
+    xs = torch.from_numpy(scene).to(dev)[None]
+    chains = edge_steps()
+    runners = {name: (_batch_chain(steps, DENOISE_SHAPE, dev), _batch_chain(steps, (1, SEG_SIDE, SEG_SIDE), dev))
+               for name, steps in chains.items()}
+    managers = {name: PipelineManager(steps, device=dev) for name, steps in chains.items()}
+
+    def main_path():
+        out = {}
+        for name, ((fb, db), (fs, ds)) in runners.items():
+            out[name] = (fb(x, db)[-1], fs(xs, ds)[-1], managers[name].apply(images[0]))
+        return out
+
+    run = drive("edges", EDGE_KERNELS + ("cc",), main_path)
+    for name, (bgr_out, scene_out, frame_out) in run["out"].items():
+        check_digest(f"edges_{name}_bgr", bgr_out)
+        check_digest(f"edges_{name}_scene", scene_out[0])
+        exact(f"edges {name} manager.apply frame 0", torch.from_numpy(frame_out), bgr_out[0].cpu())
+    crop = EDGE_CPU_SIDE
+    for name, steps in chains.items():
+        for label, frames in (("bgr", images[:1, :crop, :crop]), ("scene", scene[None, :crop, :crop])):
+            shape = frames.shape
+            card_fn, card_dyn = _batch_chain(steps, shape, dev)
+            cpu_fn, cpu_dyn = _batch_chain(steps, shape, "cpu")
+            exact(f"edges {name} {label} {crop}^2 cuda vs cpu", card_fn(torch.from_numpy(frames).to(dev), card_dyn)[-1].cpu(),
+                  cpu_fn(torch.from_numpy(frames), cpu_dyn)[-1])
+    print(f"edges: {len(chains)} chains on {DENOISE_SHAPE} and the {SEG_SIDE}^2 scene == the JAX package's digests; "
+          f"{crop}^2 crops == the port's CPU run; manager.apply == the chain runner")
+    gray = bgr_to_gray(x).contiguous()
+    err = edge_kernel_checks(gray, xs.contiguous(), dev)
+    timed = edge_kernel_times(gray, dev)
+    chain_ms = {name: time_ms(lambda f=f, d=d: f(x, d), runs=5) for name, ((f, d), _) in runners.items()}
+    print(f"edges chains device ms on {DENOISE_SHAPE}: {json.dumps(chain_ms)}")
+    for name in ("sobel", "edge", "adaptive", "region_growing"):
+        f, d = runners[name][0]
+        print_profile(f"edges {name}", chain_profile(lambda: f(x, d), _EDGE_GROUPS))
+    print(f"edges phase: {time.perf_counter() - begin:.1f} s")
+    return {"launches": run["launches"], "err": err, **timed}
 
 
 # ---------------------------------------------------------------------------
@@ -3908,6 +4158,12 @@ def main() -> None:
     if sys.argv[1:2] and sys.argv[1] in TIMES_FLAGS:
         times_in_turns(TIMES_FLAGS[sys.argv[1]], sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--edges"]:
+        phase_device()
+        phase_build()
+        edg = phase_edges(torch.device("cuda", 0))
+        print(json.dumps({k: edg[k] for k in ("launches", "err", "times", "bounds", "library")}))
+        return
     if sys.argv[1:2] == ["--streaming"]:
         phase_device()
         phase_build()
@@ -3926,6 +4182,10 @@ def main() -> None:
         for name, count in phase(dev).items():
             launches[name] = launches.get(name, 0) + count
         print(f"elapsed after {phase.__name__}: {time.perf_counter() - begin:.1f} s")
+    edg = phase_edges(dev)
+    for name, count in edg["launches"].items():
+        launches[name] = launches.get(name, 0) + count
+    print(f"elapsed after phase_edges: {time.perf_counter() - begin:.1f} s")
     ext = phase_extraction(dev)
     print(f"elapsed after phase_extraction: {time.perf_counter() - begin:.1f} s")
     for name, count in ext["launches"].items():
@@ -4045,6 +4305,28 @@ def main() -> None:
          "none: no single PyTorch call blends four table lookups a pixel; ms: the same 7 tiles; bound: the larger "
          "of the bytes and stream_blend_least_ops' float32 instructions; by_input: float32 and uint16"),
     ]
+    rows += [
+        ("gradient", "yamimageprocessor_tpu_torch/csrc/edges.cu",
+         "yamimageprocessor_tpu/ops/edges.py:89 sobel_j, :125 prewitt_j, :153 laplacian_j (XLA, not a pallas_call)",
+         "torch.nn.functional.conv2d in float32 (TF32 off) of Sobel's two 3x3 derivatives on the gray batch as "
+         "float32, zero padding, no magnitude: not bit-exact, the yardstick only; ms: Sobel ksize 3 (the default) "
+         "on the denoise batch's 8 gray 2048^2 frames"),
+        ("canny_candidates", "yamimageprocessor_tpu_torch/csrc/edges.cu",
+         "yamimageprocessor_tpu/ops/edges.py:219 canny_j's gradients and suppression (XLA, not a pallas_call)",
+         "none: PyTorch has no Canny; ms: aperture 3, thresholds 50/150 on the 8 gray 2048^2 frames; the "
+         "hysteresis runs on the CC kernel (cc's launches include it)"),
+        ("adaptive_threshold", "yamimageprocessor_tpu_torch/csrc/adaptive.cu",
+         "yamimageprocessor_tpu/ops/threshold.py:99 adaptive_threshold_j (XLA, not a pallas_call)",
+         "none: no single PyTorch call gives the rounded Gaussian mean and the compare; ms: block 11, C 2 on the "
+         "8 gray 2048^2 frames"),
+        ("region_grow", "yamimageprocessor_tpu_torch/csrc/growing.cu",
+         "yamimageprocessor_tpu/ops/growing.py:50 region_growing_j_dyn (XLA while_loop, not a pallas_call)",
+         "none: PyTorch has no flood fill; ms: seed (50, 50), tolerance 10 on the 8 gray 2048^2 frames (4 CUDA "
+         "launches: the tiles' union-find, the border unions, the compression, the paint)"),
+    ]
+    for name in EDGE_KERNELS:
+        for key in ("err", "times", "bounds", "library"):
+            kern[key][name] = edg[key][name]
     for name in STREAM_KERNELS:
         kern["err"][name] = max(v for k, v in stm["err"].items() if k.startswith("hist" if "hist" in name else "blend"))
         kern["times"][name] = stm["times"][name]

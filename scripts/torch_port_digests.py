@@ -327,6 +327,52 @@ def stream_digests(result: dict) -> None:
                 result[f"stream_{chain}_{kind}_{tiles}"] = digest(out)
 
 
+#: the edges phase's steps: each of the seven ops alone at its defaults, and a Gaussian 5 -> Canny chain
+EDGE_OPS = {
+    "sobel": ("Sobel", "segmentation.sobel", {}),
+    "prewitt": ("Prewitt", "segmentation.prewitt", {}),
+    "laplacian": ("Laplacian", "segmentation.laplacian", {}),
+    "edge": ("Edge", "segmentation.edge", {}),
+    "adaptive": ("Adaptive", "segmentation.adaptive", {}),
+    "border_removal": ("Border Removal", "segmentation.border_removal", {}),
+    "region_growing": ("Region Growing", "segmentation.region_growing", {}),
+}
+
+
+def edge_steps(step_cls, stage_cls):
+    """``{name: steps}`` of the edges phase (``chip_smoke.py`` builds the same)."""
+
+    seg = stage_cls.SEGMENTATION
+    chains = {name: [step_cls(name=n, op_id=op, stage=seg, params=dict(p))] for name, (n, op, p) in EDGE_OPS.items()}
+    chains["gauss_canny"] = [
+        step_cls(name="NoiseReduction", stage=stage_cls.PREPROCESSING, params={"method": "Gaussian", "ksize": 5}),
+        step_cls(name="Edge", op_id="segmentation.edge", stage=seg, params={}),
+    ]
+    return chains
+
+
+def edge_digests(result: dict) -> None:
+    """Each edges chain on the denoise batch (8 x 2048^2 x 3 BGR, batched)
+    and on the segmentation scene (``_dense_scene(2048, seed=3)``)."""
+
+    from bench import _dense_scene
+    from yamimageprocessor_tpu.ops.schema import Stage
+    from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep
+
+    bgr = np.random.default_rng(0).integers(0, 256, DENOISE_SHAPE, dtype=np.uint8)
+    scene = _dense_scene(SEG_SIDE, seed=3)
+    result["denoise_input"] = digest(bgr)
+    result["segmentation_input"] = digest(scene)
+    for name, steps in edge_steps(PipelineStep, Stage).items():
+        t = time.perf_counter()
+        out = get_compiled_chain(steps, bgr.shape, np.uint8, batch=bgr.shape[0]).run_final(bgr, steps)
+        result[f"edges_{name}_bgr"] = digest(np.asarray(out))
+        out = get_compiled_chain(steps, scene.shape, np.uint8).run_final(scene, steps)
+        result[f"edges_{name}_scene"] = digest(np.asarray(out))
+        print(f"edges {name}: {time.perf_counter() - t:.1f} s", file=sys.stderr, flush=True)
+
+
 def main() -> None:
     import jax
     import jax.numpy as jnp
@@ -336,7 +382,7 @@ def main() -> None:
     from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
 
     start = time.perf_counter()
-    only = {"--texture": texture_digests, "--shape": shape_digests, "--stream": stream_digests}
+    only = {"--texture": texture_digests, "--shape": shape_digests, "--stream": stream_digests, "--edges": edge_digests}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         result = {"backend": jax.default_backend()}
         only[sys.argv[1]](result)
@@ -390,6 +436,7 @@ def main() -> None:
     texture_digests(result)
     shape_digests(result)
     stream_digests(result)
+    edge_digests(result)
     result["seconds"] = round(time.perf_counter() - start, 1)
     print(json.dumps(result))
 

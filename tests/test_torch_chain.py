@@ -167,8 +167,8 @@ def test_clone_keeps_the_device():
 @pytest.mark.parametrize(
     "steps, frame_shape",
     [
-        ([PipelineStep(name="Sobel", op_id="segmentation.sobel", stage=Stage.SEGMENTATION)], (20, 20)),
-        ([PipelineStep(name="Adaptive", op_id="segmentation.adaptive", stage=Stage.SEGMENTATION)], (20, 20)),
+        ([PipelineStep(name="Mean Shift", op_id="segmentation.mean_shift", stage=Stage.SEGMENTATION)], (20, 20)),
+        ([PipelineStep(name="Graph Cuts", op_id="segmentation.graph_cuts", stage=Stage.SEGMENTATION)], (20, 20)),
         ([PipelineStep(name="K-Means", op_id="segmentation.kmeans", stage=Stage.SEGMENTATION)], (20, 20, 3)),
     ],
 )

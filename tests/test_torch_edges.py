@@ -1,0 +1,389 @@
+"""The port's Sobel, Prewitt, Laplacian, Canny edge and adaptive threshold
+against the JAX package, bit for bit, and numpy models of the gradient
+kernel's arithmetic.
+
+Each op runs one step on a seeded numpy frame through the JAX package's
+compiled chain on the CPU and through the port's ``PipelineManager(...,
+device="cpu")`` (where the kernel wrappers run their plain versions):
+uint8, float32 and uint16, gray and BGR; Sobel at ksize 1, 3, 7, 15 and 31
+(from 7 the int32 squares wrap, from 15 the gradients too); the Laplacian
+at 1, 3 and 19, and its ``OverflowError`` at 21 in both packages; Canny at
+apertures 3, 5 and 7 (whose fixed-point suppression wraps in int32) with
+thresholds in order, swapped and at 0 and 1000; the adaptive threshold at
+block sizes 3 to 255, on frames narrower than the block, with C from -100
+to 100.  Then numpy models: ``_isqrt_j`` in int32 against the JAX
+package's and the port's on every int32 boundary, and the gradient and
+candidate kernels' tile schedule (their staged windows, regrouped taps and
+uint32 sums) against the JAX package's functions.  The tests marked
+``cuda`` hold each kernel against its plain version on the card and skip
+where there is none; jax is imported only by the CPU tests::
+
+    python -m pytest --noconftest tests/test_torch_edges.py -m cuda
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from yamimageprocessor_tpu_torch.ops import edges as E
+from yamimageprocessor_tpu_torch.ops.schema import Stage
+from yamimageprocessor_tpu_torch.ops.tables import gaussian_taps
+from yamimageprocessor_tpu_torch.ops.threshold import adaptive_threshold, adaptive_threshold_plain
+from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
+from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
+
+torch.set_num_threads(1)
+
+cuda = pytest.mark.cuda
+needs_card = pytest.mark.skipif(
+    "not torch.cuda.is_available()", reason="needs a CUDA card (the kernels run only there)"
+)
+
+KINDS = ("uint8 gray", "uint8 bgr", "float32 gray", "float32 bgr", "uint16 gray", "uint16 bgr")
+
+
+def _frame(kind: str, shape=(40, 37), seed: int = 0) -> np.ndarray:
+    dtype, layout = kind.split()
+    full = tuple(shape) + ((3,) if layout == "bgr" else ())
+    rng = np.random.default_rng(seed + sum(map(ord, kind)))
+    if dtype == "float32":
+        return rng.uniform(0, 255, full).astype(np.float32)
+    if dtype == "uint16":
+        return rng.integers(0, 1000, full).astype(np.uint16)
+    return rng.integers(0, 256, full, dtype=np.uint8)
+
+
+def _binary_frame(kind: str, shape=(64, 61)) -> np.ndarray:
+    """Random 0/255 pixels: the steepest gradients uint8 gives."""
+
+    rng = np.random.default_rng(5)
+    dtype, layout = kind.split()
+    full = tuple(shape) + ((3,) if layout == "bgr" else ())
+    return (rng.integers(0, 2, full) * 255).astype(dtype)
+
+
+def _step(op: str, params) -> PipelineStep:
+    return PipelineStep(name=op, op_id=op, stage=Stage.SEGMENTATION, params=dict(params))
+
+
+def _jax_run(steps, frame):
+    from yamimageprocessor_tpu.pipeline.compiler import get_compiled_chain
+    from yamimageprocessor_tpu.pipeline.step import PipelineStep as JaxStep
+
+    jax_steps = [JaxStep.from_dict(s.to_dict()) for s in steps]
+    return np.asarray(get_compiled_chain(jax_steps, frame.shape, frame.dtype).run_final(frame, jax_steps))
+
+
+def _same(got, want) -> None:
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert int((got != want).sum()) == 0, int((got != want).sum())
+
+
+def _check(op: str, params, frame) -> np.ndarray:
+    steps = [_step(op, params)]
+    ours = PipelineManager(steps, device="cpu").apply(frame)
+    _same(ours, _jax_run(steps, frame))
+    return ours
+
+
+# ---------------------------------------------------------------------------
+# the ops against the JAX package's compiled chain
+
+GRADIENT_CASES = (
+    [("segmentation.sobel", {"ksize": k}, "uint8 gray") for k in (1, 3, 7, 15, 31)]
+    + [("segmentation.sobel", {"ksize": k}, kind) for k in (3, 7) for kind in KINDS[1:]]
+    + [("segmentation.prewitt", {}, kind) for kind in KINDS]
+    + [("segmentation.laplacian", {"ksize": k}, "uint8 gray") for k in (1, 19)]
+    + [("segmentation.laplacian", {"ksize": 3}, kind) for kind in KINDS]
+)
+
+
+@pytest.mark.parametrize(
+    "op, params, kind", GRADIENT_CASES, ids=[f"{o.split('.')[1]}-{p.get('ksize', 3)}-{k}" for o, p, k in GRADIENT_CASES]
+)
+def test_gradients_match_jax(op, params, kind):
+    _check(op, params, _frame(kind))
+
+
+def test_sobel_wraps_where_the_golden_does_not():
+    """From ksize 7 the JAX package's device function (and the port) wrap in
+    int32 where its numpy golden squares in int64: the cases above are not
+    vacuous."""
+
+    from yamimageprocessor_tpu.ops.edges import sobel_np
+
+    gray = _frame("uint8 gray")
+    for ksize in (7, 31):
+        ours = PipelineManager([_step("segmentation.sobel", {"ksize": ksize})], device="cpu").apply(gray)
+        assert int((ours != sobel_np(gray, ksize)).sum()) > 50
+
+
+def test_laplacian_past_ksize_19_raises_in_both_packages():
+    gray = _frame("uint8 gray")
+    for ksize in (21, 31):
+        steps = [_step("segmentation.laplacian", {"ksize": ksize})]
+        with pytest.raises(OverflowError):
+            _jax_run(steps, gray)
+        with pytest.raises(OverflowError):
+            PipelineManager(steps, device="cpu").apply(gray)
+        with pytest.raises(OverflowError):
+            E.gradient_u8(torch.from_numpy(gray)[None], E.LAPLACIAN, ksize)
+
+
+CANNY_CASES = [(ap, lo, hi, "uint8 gray") for ap in (3, 5, 7) for lo, hi in ((50, 150), (150, 50), (0, 1000))]
+CANNY_CASES += [(7, 1000, 0, "uint8 bgr"), (3, 50, 150, "float32 gray"), (5, 20, 90, "float32 bgr"),
+                (7, 50, 150, "uint16 gray"), (3, 100, 400, "uint16 bgr")]
+
+
+@pytest.mark.parametrize("aperture, low, high, kind", CANNY_CASES,
+                         ids=[f"ap{a}-{lo}-{hi}-{k}" for a, lo, hi, k in CANNY_CASES])
+def test_canny_edge_matches_jax(aperture, low, high, kind):
+    frame = _binary_frame(kind) if kind.startswith("uint8") else _frame(kind, (64, 61))
+    _check("segmentation.edge", {"low_threshold": low, "high_threshold": high, "aperture_size": aperture}, frame)
+
+
+def test_canny_aperture_7_wraps_where_the_golden_does_not():
+    from yamimageprocessor_tpu.ops.edges import canny_np
+
+    gray = _binary_frame("uint8 gray")
+    plane = E.canny_candidates_plain(torch.from_numpy(gray)[None], torch.tensor(50), torch.tensor(150), 7)
+    ours = torch.where(E.hysteresis(plane), 255, 0).to(torch.uint8)[0].numpy()
+    assert int((ours != canny_np(gray, 50, 150, 7)).sum()) > 50
+
+
+ADAPTIVE_CASES = [(bs, "uint8 gray", (48, 40)) for bs in (3, 11, 13, 33, 35, 101, 255)]
+ADAPTIVE_CASES += [(35, "uint8 gray", (20, 9)), (255, "uint8 gray", (7, 130)), (10, "uint8 bgr", (48, 40)),
+                   (11, "float32 gray", (48, 40)), (13, "float32 bgr", (48, 40)), (11, "uint16 gray", (48, 40)),
+                   (33, "uint16 bgr", (48, 40))]
+
+
+@pytest.mark.parametrize("block_size, kind, shape", ADAPTIVE_CASES,
+                         ids=[f"bs{b}-{k}-{s[0]}x{s[1]}" for b, k, s in ADAPTIVE_CASES])
+def test_adaptive_matches_jax(block_size, kind, shape):
+    """One compiled chain a block size; C sweeps -100..100 through it (the
+    steps carry the values)."""
+
+    frame = _frame(kind, shape)
+    for c in (-100, -7, 0, 2, 2.5, 100):
+        _check("segmentation.adaptive", {"block_size": block_size, "C": c}, frame)
+
+
+# ---------------------------------------------------------------------------
+# numpy models: _isqrt_j in int32, and the kernels' schedule
+
+
+def _isqrt_model(s: np.ndarray) -> np.ndarray:
+    """``_isqrt_j`` in numpy int32: a float32 root (numpy's is correctly
+    rounded), XLA's conversion (NaN -> 0), corrections that wrap."""
+
+    s = s.astype(np.int32)
+    with np.errstate(invalid="ignore"):
+        root = np.sqrt(s.astype(np.float32))
+    c = np.where(np.isnan(root), 0, root).astype(np.int32)
+    with np.errstate(over="ignore"):
+        c = np.where((c + np.int32(1)) * (c + np.int32(1)) <= s, c + np.int32(1), c)
+        c = np.where(c * c > s, c - np.int32(1), c)
+    return c
+
+
+def _boundary_values() -> np.ndarray:
+    """Every int32 near a boundary of ``_isqrt_j``: both ends of the range,
+    around 0, every perfect square and its neighbours, and the last 2^16
+    below 2^31 (where ``46341^2`` wraps)."""
+
+    k = np.arange(0, 46342, dtype=np.int64)
+    squares = (k * k)[:, None] + np.arange(-2, 3)
+    parts = [np.arange(-(1 << 31), -(1 << 31) + (1 << 16)), np.arange(-(1 << 16), 1 << 16),
+             np.arange((1 << 31) - (1 << 16), 1 << 31), squares.reshape(-1)]
+    out = np.concatenate(parts)
+    return out[(out >= -(1 << 31)) & (out < (1 << 31))].astype(np.int32)
+
+
+def test_isqrt_model_matches_jax_and_the_port_on_the_int32_boundaries():
+    import jax
+
+    from yamimageprocessor_tpu.ops.edges import _isqrt_j
+
+    s = _boundary_values()
+    model = _isqrt_model(s)
+    ref = np.asarray(jax.jit(_isqrt_j)(s))
+    assert np.array_equal(model, ref)
+    assert np.array_equal(E.isqrt32(torch.from_numpy(s).to(torch.int64)).numpy(), model.astype(np.int64))
+    # the closed form the corrections reduce to where the output is a byte
+    byte = np.clip(model, 0, 255)
+    exact = np.where(s < 0, 0, np.minimum(np.floor(np.sqrt(np.maximum(s, 0).astype(np.float64))), 255))
+    assert np.array_equal(byte, exact.astype(np.int32))
+
+
+def _reflect101(i: np.ndarray, n: int) -> np.ndarray:
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.mod(i, period)
+    return np.where(i < n, i, period - i)
+
+
+def _tile_passes(frame, y0, x0, oh, ow, t0, t1, replicate):
+    """The kernels' x_passes and y_passes on one window: staged input with
+    the border's index, both x-passes then both y-passes in uint32."""
+
+    h, w = frame.shape
+    k = len(t0)
+    r = k // 2
+    ys = np.arange(y0 - r, y0 + oh + r)
+    xs = np.arange(x0 - r, x0 + ow + r)
+    ys = np.clip(ys, 0, h - 1) if replicate else _reflect101(ys, h)
+    xs = np.clip(xs, 0, w - 1) if replicate else _reflect101(xs, w)
+    s_in = frame[np.ix_(ys, xs)].astype(np.uint32)
+    u0, u1 = t0.astype(np.int64).astype(np.uint32), t1.astype(np.int64).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        xa = sum(u1[t] * s_in[:, t : t + ow] for t in range(k))
+        xb = sum(u0[t] * s_in[:, t : t + ow] for t in range(k))
+        a = sum(u0[t] * xa[t : t + oh] for t in range(k))
+        b = sum(u1[t] * xb[t : t + oh] for t in range(k))
+    return a.astype(np.uint32).view(np.int32), b.astype(np.uint32).view(np.int32)
+
+
+def _gradient_model(gray: np.ndarray, kind: int, ksize: int, tile: int) -> np.ndarray:
+    t0, t1 = E.gradient_taps(kind, ksize)
+    h, w = gray.shape
+    out = np.zeros((h, w), np.uint8)
+    for y0 in range(0, h, tile):
+        for x0 in range(0, w, tile):
+            a, b = _tile_passes(gray, y0, x0, tile, tile, t0, t1, replicate=False)
+            with np.errstate(over="ignore"):
+                if kind == E.LAPLACIAN:
+                    s = a + b
+                    v = np.where(s == np.iinfo(np.int32).min, 0, np.minimum(np.abs(s.astype(np.int64)), 255))
+                else:
+                    if kind == E.PREWITT:
+                        a, b = np.clip(a, 0, 255), np.clip(b, 0, 255)
+                    v = np.clip(_isqrt_model(a * a + b * b), 0, 255)
+            rows, cols = min(tile, h - y0), min(tile, w - x0)
+            out[y0 : y0 + rows, x0 : x0 + cols] = v[:rows, :cols]
+    return out
+
+
+GRADIENT_MODEL_CASES = [("sobel", k) for k in (1, 3, 7, 15, 31)] + [("prewitt", 3)] + [("laplacian", k) for k in (1, 5, 19)]
+
+
+@pytest.mark.parametrize("name, ksize", GRADIENT_MODEL_CASES, ids=[f"{n}-{k}" for n, k in GRADIENT_MODEL_CASES])
+def test_gradient_kernel_model_matches_jax(name, ksize):
+    """The kernel's tiles (32 and a ragged 7), staged windows, regrouped
+    taps and uint32 sums give the JAX package's device function's bits,
+    on a frame narrower than the window too."""
+
+    import jax
+
+    from yamimageprocessor_tpu.ops import edges as JE
+
+    fn = {"sobel": lambda g: JE.sobel_j(g, ksize), "prewitt": JE.prewitt_j,
+          "laplacian": lambda g: JE.laplacian_j(g, ksize)}[name]
+    for shape in ((40, 37), (9, 13)):
+        gray = _frame("uint8 gray", shape)
+        ref = np.asarray(jax.jit(fn)(gray))
+        for tile in (32, 7):
+            assert np.array_equal(_gradient_model(gray, E.KINDS[name], ksize, tile), ref)
+
+
+def _canny_model(gray: np.ndarray, low: int, high: int, aperture: int, tile: int) -> np.ndarray:
+    """The candidate kernel: a tile and its ring of 1, magnitudes 0 outside
+    the frame, the suppression in wrapping int32."""
+
+    from yamimageprocessor_tpu_torch.ops.tables import deriv_taps
+
+    t0, t1 = deriv_taps(0, aperture), deriv_taps(1, aperture)
+    h, w = gray.shape
+    out = np.zeros((h, w), np.uint8)
+    with np.errstate(over="ignore"):
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                gx, gy = _tile_passes(gray, y0 - 1, x0 - 1, tile + 2, tile + 2, t0, t1, replicate=True)
+                yy = np.arange(y0 - 1, y0 + tile + 1)[:, None]
+                xx = np.arange(x0 - 1, x0 + tile + 1)[None, :]
+                inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                ax, ay = np.abs(gx), np.abs(gy)  # int32: |INT32_MIN| wraps
+                mag = np.where(inside, ax + ay, 0).astype(np.int32)
+                m, c = mag[1:-1, 1:-1], (slice(1, -1), slice(1, -1))
+                x, y = ax[c], ay[c] << np.int32(15)
+                tg22x = x * np.int32(13573)
+                tg67x = tg22x + ((x + x) << np.int32(15))
+
+                def at(dy, dx):
+                    return mag[1 + dy : mag.shape[0] - 1 + dy, 1 + dx : mag.shape[1] - 1 + dx]
+
+                horiz = (y < tg22x) & (m > at(0, -1)) & (m >= at(0, 1))
+                vert = (y > tg67x) & (m > at(-1, 0)) & (m >= at(1, 0))
+                s_neg = (gx[c] ^ gy[c]) < 0
+                diag = (y >= tg22x) & (y <= tg67x) & (
+                    (~s_neg & (m > at(-1, -1)) & (m > at(1, 1))) | (s_neg & (m > at(-1, 1)) & (m > at(1, -1)))
+                )
+                nms = (m > low) & (horiz | vert | diag)
+                v = np.where(nms, np.where(m > high, 2, 1), 0)
+                rows, cols = min(tile, h - y0), min(tile, w - x0)
+                out[y0 : y0 + rows, x0 : x0 + cols] = v[:rows, :cols]
+    return out
+
+
+@pytest.mark.parametrize("aperture", [3, 5, 7])
+def test_canny_kernel_model_matches_the_plain_candidates(aperture):
+    gray = _binary_frame("uint8 gray")
+    want = E.canny_candidates_plain(torch.from_numpy(gray)[None], torch.tensor(40), torch.tensor(300), aperture)
+    for tile in (32, 9):
+        assert np.array_equal(_canny_model(gray, 40, 300, aperture, tile), want[0].numpy())
+
+
+def test_hysteresis_by_components_equals_the_loop():
+    rng = np.random.default_rng(3)
+    plane = torch.from_numpy(rng.choice(np.array([0, 0, 1, 1, 1, 2], np.uint8), (3, 50, 70)))
+    assert torch.equal(E.hysteresis(plane), E.hysteresis_plain(plane))
+
+
+# ---------------------------------------------------------------------------
+# the kernels on the card against their plain versions
+
+
+def _card_gray(shape, seed=0, binary=False):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2, shape) * 255 if binary else rng.integers(0, 256, shape)
+    return torch.from_numpy(x.astype(np.uint8)).cuda()
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("kind, ksize", [(0, 1), (0, 3), (0, 5), (0, 7), (0, 15), (0, 31), (1, 3), (2, 1), (2, 3),
+                                         (2, 7), (2, 19)])
+def test_gradient_kernel_matches_plain(kind, ksize):
+    for shape in ((2, 300, 257), (1, 1, 1), (1, 5, 40), (3, 33, 31)):
+        g = _card_gray(shape)
+        before = E.gradient_u8.launches
+        got = E.gradient_u8(g, kind, ksize)
+        assert E.gradient_u8.launches == before + 1
+        assert torch.equal(got, E.gradient_plain(g, kind, ksize))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("aperture", [3, 5, 7])
+def test_canny_kernel_matches_plain(aperture):
+    for shape, lo, hi in (((2, 300, 257), 50, 150), ((1, 1, 1), 0, 0), ((1, 37, 5), 0, 1000), ((3, 64, 65), 300, 301)):
+        g = _card_gray(shape, binary=True)
+        low = torch.tensor(lo, dtype=torch.int32, device="cuda")
+        high = torch.tensor(hi, dtype=torch.int32, device="cuda")
+        got = E.canny_candidates(g, low, high, aperture)
+        assert torch.equal(got, E.canny_candidates_plain(g, low, high, aperture))
+        assert torch.equal(E.hysteresis(got), E.hysteresis_plain(got))
+
+
+@cuda
+@needs_card
+@pytest.mark.parametrize("block_size", [3, 11, 13, 33, 35, 101, 255])
+def test_adaptive_kernel_matches_plain(block_size):
+    taps = torch.from_numpy(gaussian_taps(block_size, 0.0).astype(np.float32)).cuda()
+    for shape in ((2, 300, 257), (1, 1, 1), (1, 20, 9), (2, 130, 7)):
+        g = _card_gray(shape)
+        for c in (-100, 0, 2, 100):
+            c_ceil = torch.tensor(c, dtype=torch.int32, device="cuda")
+            assert torch.equal(adaptive_threshold(g, taps, c_ceil), adaptive_threshold_plain(g, taps, c_ceil))

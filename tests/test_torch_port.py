@@ -28,7 +28,9 @@ def test_the_port_has_the_eleven_ops_of_its_two_chains():
     of the reference), the region-properties extraction, Hu moments,
     histogram statistics, the texture features (LBP, Haralick, Gabor,
     HOG, fractal dimension), the Fourier descriptors and the approximate
-    shape: 27 of the reference's 41 ids, every extraction id."""
+    shape, the stencil and reachability ops of segmentation (adaptive
+    threshold, Canny edge, Sobel, Prewitt, Laplacian, region growing,
+    border removal): 34 of the reference's 41 ids, every extraction id."""
 
     assert PORTED == sorted(
         [
@@ -49,6 +51,13 @@ def test_the_port_has_the_eleven_ops_of_its_two_chains():
             "segmentation.dilation",
             "segmentation.erosion",
             "segmentation.watershed",
+            "segmentation.adaptive",
+            "segmentation.edge",
+            "segmentation.sobel",
+            "segmentation.prewitt",
+            "segmentation.laplacian",
+            "segmentation.region_growing",
+            "segmentation.border_removal",
             "extraction.region_properties",
             "extraction.hu_moments",
             "extraction.histogram",
@@ -131,6 +140,20 @@ _SPLIT_CASES = [
     ("segmentation.closing", {"kernel_shape": "Elliptical", "kernel_size": 5, "iterations": 1}),
     ("segmentation.dilation", {}),
     ("segmentation.erosion", {"kernel_shape": "Cross", "kernel_size": 7, "iterations": 0}),
+    ("segmentation.adaptive", {}),
+    ("segmentation.adaptive", {"block_size": 10, "C": -2.5}),
+    ("segmentation.adaptive", {"block_size": "255", "C": 100}),
+    ("segmentation.edge", {}),
+    ("segmentation.edge", {"low_threshold": 300.7, "high_threshold": "20", "aperture_size": 7}),
+    ("segmentation.sobel", {}),
+    ("segmentation.sobel", {"ksize": 31}),
+    ("segmentation.prewitt", {}),
+    ("segmentation.laplacian", {"ksize": 1}),
+    ("segmentation.laplacian", {"ksize": 19}),
+    ("segmentation.region_growing", {}),
+    ("segmentation.region_growing", {"seed": (-3, 900), "tolerance": 0}),
+    ("segmentation.border_removal", {}),
+    ("segmentation.border_removal", {"border_distance": 400}),
     ("extraction.region_properties", {}),
     ("extraction.hu_moments", {}),
     ("extraction.histogram", {}),
@@ -173,6 +196,24 @@ def test_gaussian_tables_match_jax(ksize):
     for sigma in (0.0, 1.5):
         ours, ref = T.gaussian_taps(ksize, sigma), JK.gaussian_taps(ksize, sigma)
         assert ours.dtype == ref.dtype and (ours == ref).all()
+
+
+def test_sobel_halo_covers_the_ksize_1_derivative():
+    """The one halo that is not the JAX package's: Sobel at ksize 1 has a
+    3-tap derivative, so the port's halo is 1 where the reference's
+    ``ksize // 2`` is 0 (its tiles would miss their neighbours' columns)."""
+
+    assert get_impl("segmentation.sobel").halo_for({"ksize": 1}) == 1
+    assert jax_impl("segmentation.sobel").halo_for({"ksize": 1}) == 0
+
+
+@pytest.mark.parametrize("ksize", range(1, 32, 2))
+def test_derivative_and_laplacian_tables_match_jax(ksize):
+    for order in (0, 1, 2):
+        ours, ref = T.deriv_taps(order, ksize), JK.deriv_taps(order, ksize)
+        assert ours.dtype == ref.dtype and ours.shape == ref.shape and (ours == ref).all()
+    ours, ref = T.laplacian_kernel(ksize), JK.laplacian_kernel(ksize)
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape and (ours == ref).all()
 
 
 @pytest.mark.parametrize("ksize", [1, 2, 3, 5, 9, 21, 31])
@@ -297,9 +338,9 @@ def test_step_execution_metadata_round_trips():
 
 def test_unknown_ops_and_host_steps():
     with pytest.raises(NotImplementedError):
-        op_by_identifier("segmentation.sobel")
+        op_by_identifier("segmentation.kmeans")
     with pytest.raises(NotImplementedError):
-        _ = PipelineStep(name="Sobel", op_id="segmentation.sobel").impl
+        _ = PipelineStep(name="K-Means", op_id="segmentation.kmeans").impl
     host = PipelineStep(name="Invert", function=lambda img: 255 - img)
     assert host.impl is None and not host.is_device_capable()
     assert (host.apply(np.zeros((2, 2), np.uint8)) == 255).all()

@@ -49,6 +49,12 @@ CHAINS = {
     "crop": [GAUSS, ("Crop", "preprocessing", {"x_offset": 5, "y_offset": 7, "width": 40, "height": 30}, None)],
     "clahe_only": [CLAHE],
     "normalize_clahe": [NORMALIZE, CLAHE],
+    "sobel": [("Sobel", "segmentation", {"ksize": 3}, "segmentation.sobel")],
+    "sobel_k1": [("Sobel", "segmentation", {"ksize": 1}, "segmentation.sobel")],
+    "laplacian": [GAUSS, ("Laplacian", "segmentation", {"ksize": 5}, "segmentation.laplacian")],
+    "adaptive": [("Adaptive", "segmentation", {"block_size": 11, "C": 3}, "segmentation.adaptive")],
+    "border": [("Border Removal", "segmentation", {"border_distance": 10}, "segmentation.border_removal")],
+    "border_wide": [GAUSS, ("Border Removal", "segmentation", {"border_distance": 40}, "segmentation.border_removal")],
 }
 
 
@@ -202,6 +208,36 @@ def test_clahe_streamed_from_float32_and_uint16(case):
 def test_streamed_output_equals_the_ports_dense_chain(case):
     name, shape, tile, dtype, _ = CASES[case]
     assert_same(port_stream(name, shape, tile, dtype), port_dense(name, frame(shape, dtype)))
+
+
+# the stencil ops and border removal (whose mask depends on where a window
+# lies in the frame): (chain, frame shape, tile (w, h), dtype)
+STENCIL_CASES = {
+    "sobel-uniform-gray": ("sobel", (64, 96), (32, 32), np.uint8),
+    "sobel-k1-generic-bgr": ("sobel_k1", (64, 90, 3), (32, 32), np.uint8),
+    "laplacian-generic-gray": ("laplacian", (62, 91), (32, 32), np.uint8),
+    "adaptive-uniform-gray": ("adaptive", (64, 96), (32, 32), np.uint8),
+    "adaptive-generic-float32": ("adaptive", (62, 91), (32, 32), np.float32),
+    "border-generic-bgr": ("border", (64, 90, 3), (32, 32), np.uint8),
+    "border-past-half-uint16": ("border_wide", (62, 91), (16, 24), np.uint16),
+}
+
+
+@pytest.mark.parametrize("case", list(STENCIL_CASES))
+def test_stencil_ops_stream_equal_the_whole_frame(case):
+    """Each window carries its op's halo, and border removal gets the
+    window's box: the tiles equal the whole frame's result.  The JAX
+    package's streaming equals it too, except where it removes a border
+    around every tile and where its Sobel halo at ksize 1 is 0 (the two
+    deviations of the port's streaming)."""
+
+    name, shape, tile, dtype = STENCIL_CASES[case]
+    ours = port_stream(name, shape, tile, dtype)
+    assert_same(ours, port_dense(name, frame(shape, dtype)))
+    if name in ("border", "sobel_k1"):
+        assert not np.array_equal(ours, jax_stream(name, shape, tile, dtype))
+    else:
+        assert_same(ours, jax_stream(name, shape, tile, dtype))
 
 
 def test_gate_routes():

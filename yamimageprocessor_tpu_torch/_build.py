@@ -83,6 +83,10 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_fourier_shared_limit": (ctypes.POINTER(_I),),
     "yam_fourier_lines": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P),
     "yam_polygon_errors": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "yam_gradient_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "yam_canny_candidates_u8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "yam_adaptive_threshold_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "yam_region_grow_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

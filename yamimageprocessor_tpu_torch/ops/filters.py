@@ -3,7 +3,8 @@
 multiply-adds as the JAX package's CPU backend runs them.
 
 Both filters use reflect-101 borders (cv2 BORDER_REFLECT_101, numpy
-``mode="reflect"``) and run the x-pass and then the y-pass in float32,
+``mode="reflect"``; :func:`sep_filter_fma` also takes ``border="replicate"``,
+numpy ``mode="edge"``, for the adaptive threshold's local mean) and run the x-pass and then the y-pass in float32,
 taps in ascending order.  XLA's CPU backend contracts each pass of
 ``sep_filter_j`` into fused multiply-adds (``fma(t0, x0, t1 * x1)``, then
 ``fma(t_k, x_k, acc)``): :func:`sep_filter_fma` computes exactly that, and
@@ -34,6 +35,16 @@ def reflect101_index(n: int, r: int, device) -> torch.Tensor:
     period = 2 * (n - 1)
     i = torch.remainder(i, period)
     return torch.where(i < n, i, period - i)
+
+
+def replicate_index(n: int, r: int, device) -> torch.Tensor:
+    """Source index of each of the ``n + 2r`` positions of a replicate
+    padded axis (cv2 BORDER_REPLICATE, numpy ``mode="edge"``)."""
+
+    return torch.arange(-r, n + r, device=device).clamp_(0, n - 1)
+
+
+_BORDER_INDEX = {"reflect101": reflect101_index, "replicate": replicate_index}
 
 
 def sep_filter(img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
@@ -84,15 +95,19 @@ def _fma_chain(taps: torch.Tensor, terms) -> torch.Tensor:
     return acc
 
 
-def sep_filter_fma(img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor) -> torch.Tensor:
+def sep_filter_fma(
+    img: torch.Tensor, taps_y: torch.Tensor, taps_x: torch.Tensor, border: str = "reflect101"
+) -> torch.Tensor:
     """:func:`sep_filter` with each pass contracted into fused multiply-adds
     as XLA's CPU backend runs ``sep_filter_j``: the float32 result the JAX
-    package gives bit for bit.  Returns float32."""
+    package gives bit for bit.  ``border`` is ``"reflect101"`` or
+    ``"replicate"``.  Returns float32."""
 
     ky, kx = int(taps_y.shape[0]), int(taps_x.shape[0])
     h, w = img.shape[-2], img.shape[-1]
-    rows = reflect101_index(h, ky // 2, img.device)
-    cols = reflect101_index(w, kx // 2, img.device)
+    index = _BORDER_INDEX[border]
+    rows = index(h, ky // 2, img.device)
+    cols = index(w, kx // 2, img.device)
     work = img.to(torch.float32).index_select(-2, rows).index_select(-1, cols)  # exact: any frame type
     acc = _fma_chain(taps_x, [work[..., t : t + w] for t in range(kx)])
     return _fma_chain(taps_y, [acc[..., t : t + h, :] for t in range(ky)])
@@ -142,6 +157,13 @@ def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced modulo 2^32 into int32's range (still int64):
+    what an int32 sum or product that wrapped holds, as XLA's do."""
+
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
     """``saturate_cast<uchar>(cvRound(x))``: round half to even, clamp to
     [0, 255], then cast (a cast before the clamp would wrap)."""
@@ -155,7 +177,9 @@ __all__ = [
     "filter2d_plain",
     "fma32",
     "reflect101_index",
+    "replicate_index",
     "sep_filter",
     "sep_filter_fma",
     "to_uint8",
+    "wrap32",
 ]

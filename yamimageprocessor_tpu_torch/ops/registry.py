@@ -27,10 +27,12 @@ streams has a two-pass decomposition: ``tile_stats_fn(tiles, dyn,
 merged over the batch; ``merge_stats_fn(a, b)`` merges two such
 statistics; ``apply_stats_fn(imgs, stats, dyn, **static)`` applies the
 merged statistics pointwise; ``stats_lut_fn(stats, dyn, **static)`` is
-the same action as a ``(256,)`` uint8 table, where there is one.  The
-functions may also declare ``box=`` (the batch's ``(left, top, right,
-bottom)`` boxes in the frame, host integers) and ``frame_shape=``;
-:func:`call_with_position` passes them only to those that do.
+the same action as a ``(256,)`` uint8 table, where there is one.  These
+functions and ``device_fn`` may also declare ``box=`` (the batch's
+``(left, top, right, bottom)`` boxes in the frame, host integers) and
+``frame_shape=``; tiled streaming passes them through
+:func:`call_with_position` to those that do (a ``device_fn`` gets None
+for both on a whole frame).
 ``stream_gate(static, frame_shape)`` refuses the decomposition for a
 frame it does not hold on.  Statistics are torch tensors on the images'
 device: a histogram, a (min, max) pair, CLAHE's ``(gh, gw, 256)`` grid.

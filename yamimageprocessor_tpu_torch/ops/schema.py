@@ -7,13 +7,15 @@ PipelineStep` resolves it by.  Identifiers, methods and step names are
 letter for letter the JAX package's, so ``PipelineStep(name="Otsu",
 stage=Stage.SEGMENTATION)`` resolves to ``segmentation.otsu`` in both
 packages, and a step's ``to_dict()`` from one package loads in the other.
-Parameter specs, settings keys and the ops not ported yet are not copied.
+Parameter specs and the ops not ported yet are not copied; of the settings
+conversions, region growing's (``settings_to_params``: the settings hold
+``seed_x`` and ``seed_y``, the op takes ``seed=(x, y)``) is.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 
 class Stage(Enum):
@@ -34,6 +36,17 @@ class OpSchema:
     #: the pipeline-step name: the reference module identifier for
     #: preprocessing ops, the method for segmentation ops
     step_name: str
+    #: ``fn(settings, prefix) -> params`` where the op's parameters are not
+    #: its settings keys one for one (None: they are)
+    settings_to_params: Optional[Callable[[Mapping[str, Any], str], Dict[str, Any]]] = None
+
+
+def _region_growing_params(settings: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    # settings hold seed_x/seed_y; the op takes seed=(x, y)
+    sx = int(settings.get(f"{prefix}/Region Growing/seed_x", 50))
+    sy = int(settings.get(f"{prefix}/Region Growing/seed_y", 50))
+    tol = int(settings.get(f"{prefix}/Region Growing/tolerance", 10))
+    return {"seed": (sx, sy), "tolerance": tol}
 
 
 ALL_OPS: Tuple[OpSchema, ...] = (
@@ -54,11 +67,30 @@ ALL_OPS: Tuple[OpSchema, ...] = (
     OpSchema("preprocessing.crop", Stage.PREPROCESSING, "crop", "Crop"),
     OpSchema("segmentation.global_threshold", Stage.SEGMENTATION, "Global", "Global"),
     OpSchema("segmentation.otsu", Stage.SEGMENTATION, "Otsu", "Otsu"),
+    # block_size: int, default 11, 3..255, odd; C: int, default 2, -100..100
+    OpSchema("segmentation.adaptive", Stage.SEGMENTATION, "Adaptive", "Adaptive"),
+    # low_threshold, high_threshold: int, defaults 50 and 150, 0..1000; aperture_size: 3, 5 or 7
+    OpSchema("segmentation.edge", Stage.SEGMENTATION, "Edge", "Edge"),
     OpSchema("segmentation.watershed", Stage.SEGMENTATION, "Watershed", "Watershed"),
+    # ksize: int, default 3, 1..31, odd
+    OpSchema("segmentation.sobel", Stage.SEGMENTATION, "Sobel", "Sobel"),
+    OpSchema("segmentation.prewitt", Stage.SEGMENTATION, "Prewitt", "Prewitt"),
+    # ksize: int, default 3, 1..31, odd (past 19 the op raises, as the JAX package's does)
+    OpSchema("segmentation.laplacian", Stage.SEGMENTATION, "Laplacian", "Laplacian"),
+    # seed_x, seed_y: int, default 50, 0..; tolerance: int, default 10, 0..255
+    OpSchema(
+        "segmentation.region_growing",
+        Stage.SEGMENTATION,
+        "Region Growing",
+        "Region Growing",
+        settings_to_params=_region_growing_params,
+    ),
     OpSchema("segmentation.opening", Stage.SEGMENTATION, "Opening", "Opening"),
     OpSchema("segmentation.closing", Stage.SEGMENTATION, "Closing", "Closing"),
     OpSchema("segmentation.dilation", Stage.SEGMENTATION, "Dilation", "Dilation"),
     OpSchema("segmentation.erosion", Stage.SEGMENTATION, "Erosion", "Erosion"),
+    # border_distance: int, default 25, 1..
+    OpSchema("segmentation.border_removal", Stage.SEGMENTATION, "Border Removal", "Border Removal"),
     OpSchema("extraction.region_properties", Stage.ANALYSIS, "Region Properties", "Region Properties"),
     OpSchema("extraction.hu_moments", Stage.ANALYSIS, "Hu Moments", "Hu Moments"),
     OpSchema("extraction.histogram", Stage.ANALYSIS, "Histogram", "Histogram"),

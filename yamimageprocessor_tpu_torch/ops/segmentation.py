@@ -2,11 +2,22 @@
 (the port of part of ``yamimageprocessor_tpu/ops/segmentation.py``).
 
 Ported: ``segmentation.global_threshold``, ``segmentation.otsu``,
-``segmentation.watershed`` and the morphology quartet ``opening``,
-``closing``, ``dilation``, ``erosion``.  The splits and halos are copies
-of the JAX package's (``ops/segmentation.py:46-51, 97-107, 250-264,
-682-698``), with its host dtypes (an int32 threshold, a float32 distance
-factor).
+``segmentation.adaptive``, ``segmentation.edge``, ``segmentation.watershed``,
+the gradients ``sobel``, ``prewitt`` and ``laplacian``,
+``segmentation.region_growing``, the morphology quartet ``opening``,
+``closing``, ``dilation``, ``erosion``, and ``segmentation.border_removal``.
+The splits and halos are copies of the JAX package's
+(``ops/segmentation.py:46-51, 97-180, 250-350, 682-740``), with its host
+dtypes (int32 thresholds, seeds and distances, float32 taps and distance
+factor), and one deviation: Sobel's halo is at least 1 (the JAX package's
+``ksize // 2`` is 0 at ksize 1, whose derivative has 3 taps, so its tiles
+would miss their neighbours' columns).
+
+Border removal is the one op whose output depends on where a pixel lies in
+the frame: tiled streaming passes it each window's ``box`` and the
+``frame_shape`` (:func:`~.registry.call_with_position`), so a tile's border
+is the frame's, not the tile's own (the JAX package's streaming removes a
+border around every tile).
 
 Each function takes a batch ``(B, *item_shape)`` of any dtype the
 reference takes (uint8, float32, uint16); the per-frame
@@ -19,13 +30,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yamimageprocessor_tpu_torch.ops import edges as E
 from yamimageprocessor_tpu_torch.ops import morphology as M
 from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
 from yamimageprocessor_tpu_torch.ops.distance import distance_transform
+from yamimageprocessor_tpu_torch.ops.growing import region_growing as grow
 from yamimageprocessor_tpu_torch.ops.labeling import label_seeds
 from yamimageprocessor_tpu_torch.ops.registry import register_op
 from yamimageprocessor_tpu_torch.ops.lutops import histogram256_batch
-from yamimageprocessor_tpu_torch.ops.threshold import binary, otsu_from_hist, otsu_threshold
+from yamimageprocessor_tpu_torch.ops.tables import gaussian_taps
+from yamimageprocessor_tpu_torch.ops.threshold import adaptive_threshold, adaptive_threshold_plain, binary
+from yamimageprocessor_tpu_torch.ops.threshold import otsu_from_hist, otsu_threshold
 from yamimageprocessor_tpu_torch.ops.watershed import flood, paint_boundaries
 
 
@@ -76,6 +91,67 @@ register_op(
     tile_stats_fn=otsu_tile_stats,
     merge_stats_fn=lambda a, b: a + b,
     apply_stats_fn=otsu_apply_stats,
+)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive threshold
+
+
+def adaptive(imgs, dyn, *, block_size: int = 11):
+    gray = bgr_to_gray(imgs)
+    if gray.dtype == torch.uint8:
+        return adaptive_threshold(gray.contiguous(), dyn["taps"], dyn["C_ceil"])
+    return adaptive_threshold_plain(gray, dyn["taps"], dyn["C_ceil"])
+
+
+def _adaptive_split(p):
+    bs = int(p.get("block_size", 11))
+    if bs % 2 == 0:
+        bs += 1
+    return (
+        {"block_size": bs},
+        {
+            "taps": gaussian_taps(bs, 0.0).astype(np.float32),
+            "C_ceil": np.int32(np.ceil(float(p.get("C", 2)))),
+        },
+    )
+
+
+register_op(
+    "segmentation.adaptive",
+    device_fn=adaptive,
+    split=_adaptive_split,
+    halo=lambda p: int(p.get("block_size", 11)) // 2,
+    out_item=_gray_item,
+)
+
+
+# ---------------------------------------------------------------------------
+# Edge-based segmentation: Canny, then a 3x3 dilate
+
+
+def edge(imgs, dyn, *, aperture_size: int = 3):
+    edges = E.canny(bgr_to_gray(imgs), dyn["low"], dyn["high"], int(aperture_size))
+    return M.dilate(edges, np.ones((3, 3), np.uint8), 1)
+
+
+def _edge_split(p):
+    low = int(np.floor(float(p.get("low_threshold", 50))))
+    high = int(np.floor(float(p.get("high_threshold", 150))))
+    if low > high:
+        low, high = high, low
+    ap = int(p.get("aperture_size", 3))
+    return ({"aperture_size": ap}, {"low": np.int32(low), "high": np.int32(high)})
+
+
+register_op(
+    "segmentation.edge",
+    device_fn=edge,
+    split=_edge_split,
+    halo=lambda p: int(p.get("aperture_size", 3)) // 2 + 2,
+    global_stats=True,  # the hysteresis is a reachability over the whole frame
+    out_item=_gray_item,
 )
 
 
@@ -153,4 +229,119 @@ _register_morph("segmentation.dilation", M.dilate)
 _register_morph("segmentation.erosion", M.erode)
 
 
-__all__ = ["global_threshold", "otsu", "watershed_markers", "watershed_seg"]
+# ---------------------------------------------------------------------------
+# Sobel, Prewitt, Laplacian
+
+
+def sobel(imgs, dyn, *, ksize: int = 3):
+    return E.sobel(bgr_to_gray(imgs), int(ksize))
+
+
+register_op(
+    "segmentation.sobel",
+    device_fn=sobel,
+    split=lambda p: ({"ksize": int(p.get("ksize", 3))}, {}),
+    halo=lambda p: max(int(p.get("ksize", 3)) // 2, 1),
+    out_item=_gray_item,
+)
+
+
+def prewitt(imgs, dyn):
+    return E.prewitt(bgr_to_gray(imgs))
+
+
+register_op("segmentation.prewitt", device_fn=prewitt, halo=1, out_item=_gray_item)
+
+
+def laplacian(imgs, dyn, *, ksize: int = 3):
+    return E.laplacian(bgr_to_gray(imgs), int(ksize))
+
+
+register_op(
+    "segmentation.laplacian",
+    device_fn=laplacian,
+    split=lambda p: ({"ksize": int(p.get("ksize", 3))}, {}),
+    halo=lambda p: max(int(p.get("ksize", 3)) // 2, 1),
+    out_item=_gray_item,
+)
+
+
+# ---------------------------------------------------------------------------
+# Region growing
+
+
+def region_growing(imgs, dyn):
+    return grow(bgr_to_gray(imgs), dyn["seed_x"], dyn["seed_y"], dyn["tol"])
+
+
+def _grown_item(item_shape, dtype, **static):
+    """A 2-D item in the type ``where(region, uint8(255), gray)`` promotes
+    to: uint8 for BGR items (their gray is uint8), else the item's own."""
+
+    gray = np.dtype(np.uint8) if len(item_shape) == 3 else np.dtype(dtype)
+    return tuple(item_shape[:2]), np.result_type(np.uint8, gray)
+
+
+register_op(
+    "segmentation.region_growing",
+    device_fn=region_growing,
+    split=lambda p: (
+        {},
+        {
+            "seed_x": np.int32(p.get("seed", (50, 50))[0]),
+            "seed_y": np.int32(p.get("seed", (50, 50))[1]),
+            "tol": np.int32(p.get("tolerance", 10)),
+        },
+    ),
+    global_stats=True,
+    out_item=_grown_item,
+)
+
+
+# ---------------------------------------------------------------------------
+# Border removal
+
+
+def border_removal(imgs, dyn, box=None, frame_shape=None):
+    """Zero every pixel nearer than ``border_distance`` to the frame's edge.
+    ``box`` (each item's ``(left, top, right, bottom)`` in the frame) and
+    ``frame_shape`` place stream windows in their frame; without them each
+    item is the whole frame."""
+
+    d = dyn["border_distance"].to(torch.int64)
+    b, h, w = imgs.shape[:3]
+    if box is None:
+        tops, lefts, fh, fw = [0] * b, [0] * b, h, w
+    else:
+        tops, lefts = [bx[1] for bx in box], [bx[0] for bx in box]
+        fh, fw = int(frame_shape[0]), int(frame_shape[1])
+    yy = torch.tensor(tops, device=imgs.device).reshape(b, 1) + torch.arange(h, device=imgs.device)
+    xx = torch.tensor(lefts, device=imgs.device).reshape(b, 1) + torch.arange(w, device=imgs.device)
+    rows = (yy >= d) & (yy < fh - d)
+    cols = (xx >= d) & (xx < fw - d)
+    inside = rows.reshape(b, h, 1) & cols.reshape(b, 1, w)
+    if imgs.ndim == 4:
+        inside = inside.unsqueeze(-1)
+    return torch.where(inside, imgs, torch.zeros((), dtype=imgs.dtype, device=imgs.device))
+
+
+register_op(
+    "segmentation.border_removal",
+    device_fn=border_removal,
+    split=lambda p: ({}, {"border_distance": np.int32(p.get("border_distance", 25))}),
+)
+
+
+__all__ = [
+    "adaptive",
+    "border_removal",
+    "edge",
+    "global_threshold",
+    "laplacian",
+    "otsu",
+    "prewitt",
+    "region_growing",
+    "sobel",
+    "watershed_markers",
+    "watershed_seg",
+]

@@ -5,7 +5,8 @@ They run in numpy on the host, in float64 where the reference does, and
 feed the device as small dynamic inputs, so a parameter change is a new
 value and not new code.  Semantics are OpenCV's (``getGaussianKernel``,
 the reference's gamma table, ``getStructuringElement``, the circular
-window and colour table of ``bilateralFilter``).
+window and colour table of ``bilateralFilter``, ``getDerivKernels`` and
+the dense ``Laplacian`` aperture).
 """
 from __future__ import annotations
 
@@ -107,6 +108,45 @@ def bilateral_color_weights(sigma_color: float, channels: int) -> np.ndarray:
     return np.exp(coeff * k * k)
 
 
+def deriv_taps(order: int, ksize: int) -> np.ndarray:
+    """1-D Sobel derivative taps matching ``cv2.getDerivKernels`` (float64,
+    integer-valued): ksize 1 is a 3-tap derivative beside a 1-tap smooth."""
+
+    if ksize == 1:
+        if order == 0:
+            return np.array([1.0])
+        if order == 1:
+            return np.array([-1.0, 0.0, 1.0])
+        return np.array([1.0, -2.0, 1.0])
+    ker = np.zeros(ksize + 1, dtype=np.float64)
+    ker[0] = 1.0
+    for _ in range(ksize - order - 1):
+        old = ker[0]
+        for j in range(1, ksize + 1):
+            new = ker[j] + ker[j - 1]
+            ker[j - 1] = old
+            old = new
+    for _ in range(order):
+        old = -ker[0]
+        for j in range(1, ksize + 1):
+            new = ker[j - 1] - ker[j]
+            ker[j - 1] = old
+            old = new
+    return ker[:ksize].copy()
+
+
+def laplacian_kernel(ksize: int) -> np.ndarray:
+    """Dense Laplacian aperture (cv2.Laplacian): the sum of the two second
+    derivatives, ``outer(smooth, d2) + outer(d2, smooth)``; the 3x3 cross
+    at ksize 1."""
+
+    if ksize == 1:
+        return np.array([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]])
+    kx2 = deriv_taps(2, ksize)
+    smooth = deriv_taps(0, ksize)
+    return np.outer(smooth, kx2) + np.outer(kx2, smooth)
+
+
 def gabor_kernel(ksize: int, sigma: float, theta: float, lambd: float, gamma: float, psi: float) -> np.ndarray:
     """Real Gabor kernel matching ``cv2.getGaborKernel`` (CV_32F): float64
     math, both axes flipped as cv2 stores ``kernel.at(ymax - y, xmax - x)``,
@@ -132,11 +172,13 @@ def gabor_kernel(ksize: int, sigma: float, theta: float, lambd: float, gamma: fl
 
 __all__ = [
     "bilateral_color_weights",
+    "deriv_taps",
     "gabor_kernel",
     "bilateral_space_weights",
     "gamma_lut",
     "gaussian_ksize_for_sigma",
     "gaussian_sigma_for_ksize",
     "gaussian_taps",
+    "laplacian_kernel",
     "structuring_element",
 ]

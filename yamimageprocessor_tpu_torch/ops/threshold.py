@@ -1,5 +1,14 @@
-"""Global and Otsu thresholds (the port of
-``yamimageprocessor_tpu/ops/threshold.py:43-79``).
+"""Global, Otsu and adaptive thresholds (the port of
+``yamimageprocessor_tpu/ops/threshold.py:43-79, 99-106``).
+
+The adaptive threshold (``adaptive_threshold_j``, cv2's
+ADAPTIVE_THRESH_GAUSSIAN_C with THRESH_BINARY) is the CUDA kernel of
+``csrc/adaptive.cu`` on uint8 frames and its plain version elsewhere: a
+replicate-border float32 separable Gaussian in XLA's contracted order
+(:func:`~.filters.sep_filter_fma`; the JAX package's compiled chain keeps
+that order at every block size 3-255, on frames narrower than the block
+too), rounded half to even and saturated to uint8, then ``gray > mean -
+C_ceil`` in int32 -> 255, else 0.
 
 Masks are integer comparisons, so they are exact; the one place where bits
 are at risk is the Otsu score, a float32 formula over cumulative sums of
@@ -21,10 +30,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yamimageprocessor_tpu_torch import _build
+from yamimageprocessor_tpu_torch.ops.filters import convert, sep_filter_fma, to_uint8, wrap32
 from yamimageprocessor_tpu_torch.ops.lutops import histogram256_batch
 
 _EPS = np.float32(1.19209290e-07)  # FLT_EPSILON, cv2's validity guard
 _ONE_MINUS_EPS = np.float32(1.0) - _EPS
+#: the most taps ``csrc/adaptive.cu`` takes (the schema's block size 255)
+ADAPTIVE_MAX_TAPS = 255
 
 
 def _running(x: torch.Tensor) -> torch.Tensor:
@@ -108,4 +121,50 @@ def binary(gray: torch.Tensor, thresh: torch.Tensor, maxval: int = 255, inverse:
     return torch.where(above, lo, hi) if inverse else torch.where(above, hi, lo)
 
 
-__all__ = ["binary", "otsu_from_hist", "otsu_threshold"]
+def adaptive_threshold_plain(gray: torch.Tensor, taps: torch.Tensor, c_ceil: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``(B, H, W)`` gray of any dtype, float32 ``taps`` (odd
+    length), an int32 ``c_ceil`` -> uint8 mask, 255 where ``int32(gray) >
+    int32(mean) - c_ceil`` (int32, wrapping)."""
+
+    mean = to_uint8(sep_filter_fma(gray, taps, taps, border="replicate"))
+    below = wrap32(mean.to(torch.int64) - c_ceil.to(torch.int64))
+    above = convert(gray, torch.int32).to(torch.int64) > below
+    return torch.where(above, 255, 0).to(torch.uint8)
+
+
+def adaptive_threshold(gray: torch.Tensor, taps: torch.Tensor, c_ceil: torch.Tensor) -> torch.Tensor:
+    """``(N, H, W)`` uint8 gray -> :func:`adaptive_threshold_plain`'s mask:
+    one launch of ``csrc/adaptive.cu`` on a CUDA tensor (the taps, at most
+    :data:`ADAPTIVE_MAX_TAPS`, and ``c_ceil`` read on the card), the plain
+    version on a CPU tensor."""
+
+    if not _build.on_card("adaptive_threshold", gray):
+        return adaptive_threshold_plain(gray, taps, c_ceil)
+    if gray.dtype != torch.uint8 or gray.ndim != 3 or not gray.is_contiguous():
+        raise ValueError(f"adaptive_threshold takes contiguous (N, H, W) uint8, got {tuple(gray.shape)} {gray.dtype}")
+    k = int(taps.shape[0])
+    if k % 2 != 1 or k > ADAPTIVE_MAX_TAPS:
+        raise ValueError(f"adaptive_threshold takes an odd number of taps up to {ADAPTIVE_MAX_TAPS}, got {k}")
+    out = torch.empty_like(gray)
+    if gray.numel() == 0:
+        return out
+    n, h, w = gray.shape
+    taps = taps.to(device=gray.device, dtype=torch.float32).contiguous()
+    c_ceil = c_ceil.to(device=gray.device, dtype=torch.int32).contiguous()
+    _build.launch("yam_adaptive_threshold_u8", gray.device, gray.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                  c_ceil.data_ptr(), k, n, h, w)
+    adaptive_threshold.launches += 1
+    return out
+
+
+adaptive_threshold.launches = 0
+
+
+__all__ = [
+    "ADAPTIVE_MAX_TAPS",
+    "adaptive_threshold",
+    "adaptive_threshold_plain",
+    "binary",
+    "otsu_from_hist",
+    "otsu_threshold",
+]

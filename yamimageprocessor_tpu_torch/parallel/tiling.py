@@ -386,7 +386,7 @@ def _run_range(
             pending = _compose(pending, impl.lut_fn(cur, dyn, **static))
         else:
             cur, pending = _flush(cur, pending), None
-            cur = impl.device_fn(cur, dyn, **static)
+            cur = call_with_position(impl.device_fn, cur, dyn, frame_shape=frame_shape, box=boxes, **static)
     return cur, pending
 
 

@@ -13,6 +13,7 @@ descriptors, approximate shape) and the streaming of gigapixel slides.
     python3 chip_smoke.py --extraction-times-of DIR [DIR ...]   # the hull and annotation kernels
     python3 chip_smoke.py --texture-times-of DIR [DIR ...]   # the filter, LBP, HOG and GLCM kernels, three tables
     python3 chip_smoke.py --shape-times-of DIR [DIR ...]   # the trace, the lines, the errors, two tables' host clock
+    python3 chip_smoke.py --edges-times-of DIR [DIR ...]   # the gradient, Canny's candidates, region growing
 
 Phases, each of which raises on failure (the script then exits nonzero):
 
@@ -86,14 +87,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    batch and on the segmentation scene and through the manager on frame
    0, with the counts set to 0: every output against the JAX package's
    digest, 512^2 crops against the port's CPU run; the gradient kernel at
-   Sobel ksizes 1-31, Prewitt and Laplacian ksizes 1-19, Canny's
-   candidates at apertures 3, 5 and 7 (and the hysteresis on them), the
-   adaptive threshold at block sizes 3-255 and C -100, 2, 100 and region
-   growing against their plain versions, bit for bit; region growing and
-   the hysteresis on ``_spiral(2048)`` against ``scipy.ndimage.label``;
-   the four kernels' device time beside their plain versions', their
-   bounds and (the gradient) ``conv2d``'s, each chain's device time and
-   the profiler's split of four;
+   Sobel ksizes 1-31, Prewitt and Laplacian ksizes 1-19 (on the batch and
+   on 2047 x 2049, 1 x 2048 and 2048 x 1 frames), Canny's candidates at
+   apertures 3, 5 and 7 (and the hysteresis on them), the adaptive
+   threshold at block sizes 3-255 and C -100, 2, 100 and region growing
+   (noise, the scene and its background, an all-equal frame, tol -1,
+   unaligned rows) against their plain versions, bit for bit; region
+   growing and the hysteresis on ``_spiral(2048)`` against
+   ``scipy.ndimage.label``; the four kernels' device time beside their
+   plain versions', their bounds and (the gradient) ``conv2d``'s, the
+   gradient at Sobel 5 and 7, Prewitt 3 and the Laplacian 1 and 3 and
+   region growing on 8 copies of the scene (its background) the same way,
+   each chain's device time and the profiler's split of four;
 9. extraction: ``extraction.region_properties``'s
    ``data_fn`` on ``bench.py:_extra_extraction``'s BGR 1024^2 dense scene
    (64 regions), ``region_tables`` on its batches of 8 and 32 frames
@@ -219,7 +224,10 @@ counts, and the HOG, Gabor and Hu-moments tables' host ms a frame (not
 compared: an older checkout's float64 columns need not be the reference's
 bits); ``--shape-times-of`` the trace, the lines and the boundary errors
 with their split by launch, the Fourier chain's host clock on the 32
-scenes and the approximate-shape table's split by part on 8 of them.
+scenes and the approximate-shape table's split by part on 8 of them;
+``--edges-times-of`` the gradient at its compiled tap pairs and Sobel 9,
+Canny's candidates at apertures 3, 5 and 7, and region growing on the
+denoise batch's gray frames and on the scene's background.
 Nothing falls back to the CPU: without a card the script exits nonzero.
 """
 from __future__ import annotations
@@ -390,6 +398,9 @@ EDGE_SOBEL_KSIZES = (1, 3, 5, 7, 15, 31)  # from 7 the squares wrap in int32, fr
 EDGE_LAPLACIAN_KSIZES = (1, 3, 7, 19)  # 19: the largest whose aperture fits int32
 EDGE_BLOCK_SIZES = (3, 11, 13, 33, 35, 101, 255)  # the adaptive threshold's; past 13 on the scene
 EDGE_CPU_SIDE = 512  # crops of the edges phase's inputs the port's CPU run takes
+EDGE_ODD_SHAPES = ((1, 2047, 2049), (1, 1, 2048), (1, 2048, 1))  # unaligned rows, 1 pixel tall and wide
+#: the gradients timed beside Sobel 3: every compiled tap pair (csrc/edges.cu) the ops reach by default or near it
+EDGE_TIMED_GRADIENTS = (("sobel", 3), ("sobel", 5), ("sobel", 7), ("prewitt", 3), ("laplacian", 1), ("laplacian", 3))
 
 DIGESTS = {
     "segmentation_input": "789006ca990ec8e56fe63d5aa294f3853622819e9d010fb70d302ba9730050c0",
@@ -898,7 +909,8 @@ _SEG_GROUPS = {
     "flood_kernel": "flood",
 }
 _EDGE_GROUPS = {
-    "gradient_kernel": "gradient",
+    "gradient_window": "gradient",
+    "gradient_tile": "gradient",
     "canny_kernel": "canny_candidates",
     "adaptive_kernel": "adaptive_threshold",
     "grow_": "region_grow",
@@ -1295,14 +1307,6 @@ def stream_cases(dev) -> dict:
                        ("copy", lambda: copy.copy_(middle))):
         times[f"{kernel} middle row, L2 evicted"] = time_ms(fn, before=flush)
     return {"times": times, "digests": digests, "pixels": counts}
-
-
-#: each timed phase's cases, by the name ``--times-one`` takes
-TIMED_PHASES = {"filters": filter_cases, "extraction": extraction_cases, "texture": texture_cases,
-                "shape": shape_cases, "stream": stream_cases}
-#: the command-line flag of each timed phase
-TIMES_FLAGS = {"--times-of": "filters", "--extraction-times-of": "extraction", "--texture-times-of": "texture",
-               "--shape-times-of": "shape", "--stream-times-of": "stream"}
 
 
 def times_one(phase: str, root: str) -> None:
@@ -2279,9 +2283,13 @@ def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
     err = {"gradient": 0, "canny_candidates": 0, "adaptive_threshold": 0, "region_grow": 0}
     cases = [(E.SOBEL, k) for k in EDGE_SOBEL_KSIZES] + [(E.PREWITT, 3)]
     cases += [(E.LAPLACIAN, k) for k in EDGE_LAPLACIAN_KSIZES]
+    rng = np.random.default_rng(24)
+    odd = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev) for shape in EDGE_ODD_SHAPES]
     for kind, ksize in cases:
-        err["gradient"] = max(err["gradient"], exact(f"gradient kind {kind} ksize {ksize}",
-                                                     E.gradient_u8(gray, kind, ksize), E.gradient_plain(gray, kind, ksize)))
+        for frames in [gray] + odd:
+            err["gradient"] = max(err["gradient"], exact(
+                f"gradient kind {kind} ksize {ksize} {tuple(frames.shape)}", E.gradient_u8(frames, kind, ksize),
+                E.gradient_plain(frames, kind, ksize)))
     low, high = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (50, 150))
     for aperture in (3, 5, 7):
         plane = E.canny_candidates(gray, low, high, aperture)
@@ -2296,10 +2304,14 @@ def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
             err["adaptive_threshold"] = max(err["adaptive_threshold"], exact(
                 f"adaptive block {block} C {c}", adaptive_threshold(frames, taps, c_ceil),
                 adaptive_threshold_plain(frames, taps, c_ceil)))
-    for frames, seed, tol in ((gray, (50, 50), 10), (scene, (50, 50), 10), (scene, (0, 0), 12), (gray, (-7, 9999), 255)):
+    equal = torch.full((1, SEG_SIDE, SEG_SIDE), 77, dtype=torch.uint8, device=dev)
+    grow_cases = ((gray, (50, 50), 10), (scene, (50, 50), 10), (scene, (0, 0), 12), (gray, (-7, 9999), 255),
+                  (equal, (1000, 3), 0), (gray, (50, 50), -1), (scene, (0, 0), -1), (odd[0], (2048, 2046), 40))
+    for frames, seed, tol in grow_cases:
         sx, sy, t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (*seed, tol))
         err["region_grow"] = max(err["region_grow"], exact(
-            f"region grow seed {seed} tol {tol}", G.region_grow(frames, sx, sy, t), G.region_grow_plain(frames, sx, sy, t)))
+            f"region grow {tuple(frames.shape)} seed {seed} tol {tol}", G.region_grow(frames, sx, sy, t),
+            G.region_grow_plain(frames, sx, sy, t)))
     spiral = _spiral(SEG_SIDE)
     zero = torch.tensor(0, dtype=torch.int32, device=dev)
     grown = G.region_grow(torch.from_numpy(spiral * 200).to(dev)[None], zero, zero, zero)[0].cpu().numpy() == 255
@@ -2316,16 +2328,51 @@ def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
     keep[0] = False
     if not np.array_equal(edges, keep[lab8]):
         raise AssertionError("hysteresis on the spiral != scipy.ndimage.label's components")
-    print(f"edges kernels == plain: gradient {len(cases)} cases, canny candidates 3 apertures and the hysteresis, "
-          f"adaptive {len(EDGE_BLOCK_SIZES)} block sizes x 3 C, region grow 4 cases; spiral {SEG_SIDE}^2: region "
+    print(f"edges kernels == plain: gradient {len(cases)} cases on the batch and {EDGE_ODD_SHAPES}, canny "
+          f"candidates 3 apertures and the hysteresis, adaptive {len(EDGE_BLOCK_SIZES)} block sizes x 3 C, region "
+          f"grow {len(grow_cases)} cases (noise, the scene, its background, all-equal, tol -1, unaligned rows); "
+          f"spiral {SEG_SIDE}^2: region "
           f"grow ({int(grown.sum())} px) and hysteresis ({int(edges.sum())} px, {int(keep.sum())} rings) == scipy")
     return err
+
+
+def gradient_bounds(kind: int, ksize: int, px: float) -> dict:
+    """``{"taps": (ms, by), "folded": (ms, by)}``: the gradient's bound from
+    the first count, 4k multiply-adds a pixel (two x-passes and two y-passes)
+    and ~20 operations of the magnitude, and from the least count once the
+    taps are folded, a pixel's two x-passes and two y-passes costing one
+    int32 operation for each nonzero tap but the first of each pass, the
+    output ~20 (Sobel, Prewitt: the magnitude) or 5 (the Laplacian's add,
+    absolute value, INT32_MIN test and saturation); 1 B in and 1 B out a
+    pixel both ways."""
+
+    from yamimageprocessor_tpu_torch.ops import edges as E
+
+    t0, t1 = E.gradient_taps(kind, ksize)
+    folded = 2 * (int(np.count_nonzero(t0)) - 1 + int(np.count_nonzero(t1)) - 1)
+    out = 5 if kind == E.LAPLACIAN else 20
+    return {"taps": bound_ms(2 * px, int_ops=(4 * len(t0) + 20) * px),
+            "folded": bound_ms(2 * px, int_ops=(folded + out) * px)}
+
+
+def edge_inputs(dev) -> dict:
+    """The edge kernels' timed inputs: the denoise batch's 8 gray 2048^2
+    frames and 8 copies of the 2048^2 dense scene (region growing at (0, 0)
+    grows over its background: one component over most of each frame)."""
+
+    from yamimageprocessor_tpu_torch.ops.color import bgr_to_gray
+
+    gray = bgr_to_gray(torch.from_numpy(denoise_frames()).to(dev)).contiguous()
+    scene = torch.from_numpy(dense_scene(SEG_SIDE)).to(dev)[None].repeat(gray.shape[0], 1, 1).contiguous()
+    return {"gray": gray, "background": scene}
 
 
 def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
     """Device ms of K1-K4, their plain versions and (the gradient) conv2d
     in float32, on the BGR batch's gray frames at the ops' defaults, with
-    the bounds."""
+    the bounds; then the gradient at EDGE_TIMED_GRADIENTS and region growing
+    on the background stack (:func:`edge_inputs`), each beside its plain
+    version and its bound (the gradient's both ways, :func:`gradient_bounds`)."""
 
     import torch.nn.functional as F
 
@@ -2357,9 +2404,10 @@ def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
     library = {"gradient": time_ms(lambda: F.conv2d(planes, weight, padding=1)), "canny_candidates": None,
                "adaptive_threshold": None, "region_grow": None}
     k3, k11 = 3, 11
+    sobel3 = gradient_bounds(E.SOBEL, 3, px)
     bounds = {
-        # 4k multiply-adds a pixel (two x-passes, two y-passes), the magnitude's ~20 operations
-        "gradient": bound_ms(2 * px, int_ops=(4 * k3 + 20) * px),
+        # the least count once the taps fold (the 4k + 20 count beside it below)
+        "gradient": sobel3["folded"],
         # the same passes, then the magnitude and ~30 operations of the suppression
         "canny_candidates": bound_ms(2 * px, int_ops=(4 * k3 + 30) * px),
         # 2k fused multiply-adds a pixel (x-pass, y-pass)
@@ -2370,7 +2418,58 @@ def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
     for name in times:
         print(f"edges {name}: {times[name][0]:.4f} ms (plain {times[name][1]:.4f} ms, library {library[name]}), "
               f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} on {tuple(gray.shape)}")
-    return {"times": times, "bounds": bounds, "library": library}
+    print(f"edges gradient sobel 3: bound {sobel3['taps'][0]:.4f} ms (4k + 20 int32 a pixel), "
+          f"{sobel3['folded'][0]:.4f} ms (folded taps)")
+    cases = {}
+    for name, ksize in EDGE_TIMED_GRADIENTS[1:]:
+        kind = E.KINDS[name]
+        ms, plain = paired_ms(lambda: E.gradient_u8(gray, kind, ksize), lambda: E.gradient_plain(gray, kind, ksize),
+                              plain_runs=3)
+        both = gradient_bounds(kind, ksize, px)
+        cases[f"gradient {name} {ksize}"] = {"ms": ms, "plain_ms": plain, "bound_ms": both["folded"][0],
+                                             "taps_bound_ms": both["taps"][0]}
+    background = edge_inputs(dev)["background"]
+    zero, tol12 = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (0, 12))
+    ms, plain = paired_ms(lambda: G.region_grow(background, zero, zero, tol12),
+                          lambda: G.region_grow_plain(background, zero, zero, tol12), plain_runs=3)
+    cases["region_grow background (0, 0) tol 12"] = {"ms": ms, "plain_ms": plain,
+                                                     "bound_ms": bound_ms(2 * background.numel())[0]}
+    for name, row in cases.items():
+        print(f"edges {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" on {tuple(gray.shape)}")
+    return {"times": times, "bounds": bounds, "library": library, "cases": cases}
+
+
+def edge_cases(dev) -> dict:
+    """The gradient at EDGE_TIMED_GRADIENTS and Sobel 9 (the runtime-k
+    kernel), Canny's candidates at apertures 3, 5 and 7, and region growing
+    on the noise (seed (50, 50), tol 10) and the background (seed (0, 0),
+    tol 12) of :func:`edge_inputs`: device ms and a SHA-256 of every
+    output."""
+
+    from yamimageprocessor_tpu_torch.ops import edges as E
+    from yamimageprocessor_tpu_torch.ops import growing as G
+
+    inputs = edge_inputs(dev)
+    gray = inputs["gray"]
+    calls = {f"gradient {name} {k}": (lambda kind=E.KINDS[name], k=k: E.gradient_u8(gray, kind, k))
+             for name, k in EDGE_TIMED_GRADIENTS + (("sobel", 9),)}
+    low, high = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (50, 150))
+    for aperture in (3, 5, 7):
+        calls[f"canny_candidates {aperture}"] = lambda a=aperture: E.canny_candidates(gray, low, high, a)
+    for name, seed, tol in (("gray", (50, 50), 10), ("background", (0, 0), 12)):
+        sx, sy, t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (*seed, tol))
+        calls[f"region_grow {name} {seed} tol {tol}"] = lambda f=inputs[name], a=sx, b=sy, c=t: G.region_grow(f, a, b, c)
+    digests = {name: sha256(fn()) for name, fn in calls.items()}
+    times = {name: time_ms(fn) for name, fn in calls.items()}
+    return {"times": times, "digests": digests}
+
+
+#: each timed phase's cases, by the name ``--times-one`` takes
+TIMED_PHASES = {"filters": filter_cases, "extraction": extraction_cases, "texture": texture_cases,
+                "shape": shape_cases, "stream": stream_cases, "edges": edge_cases}
+#: the command-line flag of each timed phase
+TIMES_FLAGS = {"--times-of": "filters", "--extraction-times-of": "extraction", "--texture-times-of": "texture",
+               "--shape-times-of": "shape", "--stream-times-of": "stream", "--edges-times-of": "edges"}
 
 
 def phase_edges(dev) -> dict:
@@ -4310,7 +4409,7 @@ def main() -> None:
          "yamimageprocessor_tpu/ops/edges.py:89 sobel_j, :125 prewitt_j, :153 laplacian_j (XLA, not a pallas_call)",
          "torch.nn.functional.conv2d in float32 (TF32 off) of Sobel's two 3x3 derivatives on the gray batch as "
          "float32, zero padding, no magnitude: not bit-exact, the yardstick only; ms: Sobel ksize 3 (the default) "
-         "on the denoise batch's 8 gray 2048^2 frames"),
+         "on the denoise batch's 8 gray 2048^2 frames; bound: the folded taps' least count (gradient_bounds)"),
         ("canny_candidates", "yamimageprocessor_tpu_torch/csrc/edges.cu",
          "yamimageprocessor_tpu/ops/edges.py:219 canny_j's gradients and suppression (XLA, not a pallas_call)",
          "none: PyTorch has no Canny; ms: aperture 3, thresholds 50/150 on the 8 gray 2048^2 frames; the "
@@ -4321,8 +4420,8 @@ def main() -> None:
          "8 gray 2048^2 frames"),
         ("region_grow", "yamimageprocessor_tpu_torch/csrc/growing.cu",
          "yamimageprocessor_tpu/ops/growing.py:50 region_growing_j_dyn (XLA while_loop, not a pallas_call)",
-         "none: PyTorch has no flood fill; ms: seed (50, 50), tolerance 10 on the 8 gray 2048^2 frames (4 CUDA "
-         "launches: the tiles' union-find, the border unions, the compression, the paint)"),
+         "none: PyTorch has no flood fill; ms: seed (50, 50), tolerance 10 on the 8 gray 2048^2 frames (3 CUDA "
+         "launches: the tiles' pieces and perimeter nodes, the seam unions, the paint)"),
     ]
     for name in EDGE_KERNELS:
         for key in ("err", "times", "bounds", "library"):

@@ -246,24 +246,164 @@ def _tile_passes(frame, y0, x0, oh, ow, t0, t1, replicate):
     return a.astype(np.uint32).view(np.int32), b.astype(np.uint32).view(np.int32)
 
 
-def _gradient_model(gray: np.ndarray, kind: int, ksize: int, tile: int) -> np.ndarray:
-    t0, t1 = E.gradient_taps(kind, ksize)
+def _combine(kind: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The output byte from the two int32 sums (``csrc/edges.cu:combine``)."""
+
+    with np.errstate(over="ignore"):
+        if kind == E.LAPLACIAN:
+            s = a + b
+            return np.where(s == np.iinfo(np.int32).min, 0, np.minimum(np.abs(s.astype(np.int64)), 255))
+        if kind == E.PREWITT:
+            a, b = np.clip(a, 0, 255), np.clip(b, 0, 255)
+        return np.clip(_isqrt_model(a * a + b * b), 0, 255)
+
+
+def _passes(window: np.ndarray, t0, t1):
+    """Both x-passes of a staged window's rows, then both y-passes, in
+    uint32: ``(A, B)`` as int32, ``window.shape - (k - 1)`` each."""
+
+    k = len(t0)
+    oh, ow = window.shape[0] - k + 1, window.shape[1] - k + 1
+    u0, u1 = np.asarray(t0).astype(np.int64).astype(np.uint32), np.asarray(t1).astype(np.int64).astype(np.uint32)
+    win = window.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        xa = sum(u1[t] * win[:, t : t + ow] for t in range(k))
+        xb = sum(u0[t] * win[:, t : t + ow] for t in range(k))
+        a = sum(u0[t] * xa[t : t + oh] for t in range(k))
+        b = sum(u1[t] * xb[t : t + oh] for t in range(k))
+    return a.astype(np.uint32).view(np.int32), b.astype(np.uint32).view(np.int32)
+
+
+def _compiled_instances():
+    """``[(kind, t0, t1, S)]``: the tap pairs ``csrc/edges.cu`` compiles a
+    register-window instance for (``try_window<KIND, T0, T1, S>``), S
+    columns a lane."""
+
+    import re
+    from pathlib import Path
+
+    src = (Path(E.__file__).resolve().parent.parent / "csrc" / "edges.cu").read_text()
+    taps = {name: [int(v) for v in body.split(",")] for name, body in re.findall(r"using (\w+) = Ints<([^>]*)>;", src)}
+    kinds = {"SOBEL": E.SOBEL, "PREWITT": E.PREWITT, "LAPLACIAN": E.LAPLACIAN}
+    found = re.findall(r"try_window<(\w+), (\w+), (\w+), (\d+)>\(", src)
+    return [(kinds[k], taps[a], taps[b], int(s)) for k, a, b, s in found]
+
+
+def _instance(kind: int, t0, t1):
+    """S of the compiled instance for the tap pair, None for the runtime-k
+    tile kernel."""
+
+    for k, a, b, strip in _compiled_instances():
+        if k == kind and a == [int(v) for v in t0] and b == [int(v) for v in t1]:
+            return strip
+    return None
+
+
+def _byte_perm(lo: np.ndarray, hi: np.ndarray, selector: int) -> np.ndarray:
+    """``__byte_perm(lo, hi, selector)`` on words given as their 4 bytes (here
+    the frame columns those bytes come from)."""
+
+    both = np.concatenate([lo, hi])
+    return np.array([both[(selector >> (4 * i)) & 7] for i in range(4)])
+
+
+def _window_columns(w: int, x: int, strip: int, r: int, interior: bool, vec: bool) -> np.ndarray:
+    """The frame column of each of a lane's ``strip + 2r`` window bytes
+    (``csrc/edges.cu:fetch_row``): its row's left word, S main bytes and
+    right word, then the window's bytes picked from them."""
+
+    main = x + np.arange(strip)
+    if interior or vec:
+        words = main.reshape(-1, 4)
+        if interior or x >= 4:
+            left = x - 4 + np.arange(4)
+        else:  # the frame's first strip: the reflection from its own bytes
+            left = _byte_perm(words[0], words[1], 0x1234)
+        if interior or x + strip + 4 <= w:
+            right = x + strip + np.arange(4)
+        else:  # the frame's last strip
+            right = _byte_perm(words[-2], words[-1], 0x3456)
+    else:  # byte by byte; through reflect101 unless the window lies inside the frame
+        pos = x - r + np.arange(strip + 2 * r)
+        cols = pos if (x >= r and x + strip + r <= w) else _reflect101(pos, w)
+        left = np.concatenate([np.zeros(4 - r, np.int64), cols[:r]])
+        main = cols[r : r + strip]
+        right = np.concatenate([cols[r + strip :], np.zeros(4 - r, np.int64)])
+    return np.concatenate([left[4 - r :], main, right[:r]])
+
+
+def _window_model(gray: np.ndarray, kind: int, t0, t1, strip: int, band: int, lanes: int = 32):
+    """``gradient_window``'s schedule: units of ``band`` rows x ``lanes *
+    strip`` columns, each interior (its window with a ring of R rows and a
+    word of columns inside the frame, rows 16-byte aligned) or not; each
+    lane's rows (reflected where they leave the frame on edge units) and
+    window columns, its passes and its stores.  Returns the output and the
+    units' interior flags, ``(row bands, column bands)``."""
+
     h, w = gray.shape
+    r = len(t0) // 2
+    vec = w % 16 == 0
+    span = lanes * strip
+    row_bands, col_bands = -(-h // band), -(-w // span)
     out = np.zeros((h, w), np.uint8)
+    written = np.zeros((h, w), np.int64)
+    interior = np.zeros((row_bands, col_bands), bool)
+    for rb in range(row_bands):
+        for cb in range(col_bands):
+            y0, x0 = rb * band, cb * span
+            rows = min(band, h - y0)
+            inside = vec and x0 >= 4 and x0 + span + 4 <= w and y0 >= r and y0 + band + r <= h
+            interior[rb, cb] = inside
+            for lane in range(lanes):
+                x = x0 + lane * strip
+                if x >= w:
+                    assert not inside
+                    continue
+                ys = np.arange(y0 - r, y0 + rows + r)
+                if not inside:
+                    ys = np.where((ys >= 0) & (ys < h), ys, _reflect101(ys, h))
+                cols = _window_columns(w, x, strip, r, inside, vec)
+                assert cols.min() >= 0 and cols.max() < w
+                a, b = _passes(gray[np.ix_(ys, cols)], t0, t1)
+                keep = strip if (inside or vec) else min(strip, w - x)
+                out[y0 : y0 + rows, x : x + keep] = _combine(kind, a, b)[:, :keep]
+                written[y0 : y0 + rows, x : x + keep] += 1
+    assert (written == 1).all()
+    return out, interior
+
+
+def _tile_model(gray: np.ndarray, kind: int, t0, t1, tile: int):
+    """``gradient_tile``: tiles staged directly where the tile and its ring
+    lie inside the frame, through reflect101 elsewhere.  Returns the output
+    and the tiles' interior flags."""
+
+    h, w = gray.shape
+    r = len(t0) // 2
+    out = np.zeros((h, w), np.uint8)
+    interior = np.zeros((-(-h // tile), -(-w // tile)), bool)
     for y0 in range(0, h, tile):
         for x0 in range(0, w, tile):
-            a, b = _tile_passes(gray, y0, x0, tile, tile, t0, t1, replicate=False)
-            with np.errstate(over="ignore"):
-                if kind == E.LAPLACIAN:
-                    s = a + b
-                    v = np.where(s == np.iinfo(np.int32).min, 0, np.minimum(np.abs(s.astype(np.int64)), 255))
-                else:
-                    if kind == E.PREWITT:
-                        a, b = np.clip(a, 0, 255), np.clip(b, 0, 255)
-                    v = np.clip(_isqrt_model(a * a + b * b), 0, 255)
+            ys, xs = np.arange(y0 - r, y0 + tile + r), np.arange(x0 - r, x0 + tile + r)
+            inside = y0 >= r and y0 + tile + r <= h and x0 >= r and x0 + tile + r <= w
+            interior[y0 // tile, x0 // tile] = inside
+            if not inside:
+                ys, xs = _reflect101(ys, h), _reflect101(xs, w)
+            a, b = _passes(gray[np.ix_(ys, xs)], t0, t1)
             rows, cols = min(tile, h - y0), min(tile, w - x0)
-            out[y0 : y0 + rows, x0 : x0 + cols] = v[:rows, :cols]
-    return out
+            out[y0 : y0 + rows, x0 : x0 + cols] = _combine(kind, a, b)[:rows, :cols]
+    return out, interior
+
+
+def _gradient_model(gray: np.ndarray, kind: int, ksize: int, tile: int) -> np.ndarray:
+    """The kernel ``yam_gradient_u8`` launches for the tap pair: the
+    register window (units of ``tile`` rows; 32 lanes at 32, else 1) or the
+    runtime-k tile kernel (tiles of ``tile``)."""
+
+    t0, t1 = E.gradient_taps(kind, ksize)
+    strip = _instance(kind, t0, t1)
+    if strip is None:
+        return _tile_model(gray, kind, t0, t1, tile)[0]
+    return _window_model(gray, kind, t0, t1, strip, tile, 32 if tile == 32 else 1)[0]
 
 
 GRADIENT_MODEL_CASES = [("sobel", k) for k in (1, 3, 7, 15, 31)] + [("prewitt", 3)] + [("laplacian", k) for k in (1, 5, 19)]
@@ -271,9 +411,10 @@ GRADIENT_MODEL_CASES = [("sobel", k) for k in (1, 3, 7, 15, 31)] + [("prewitt", 
 
 @pytest.mark.parametrize("name, ksize", GRADIENT_MODEL_CASES, ids=[f"{n}-{k}" for n, k in GRADIENT_MODEL_CASES])
 def test_gradient_kernel_model_matches_jax(name, ksize):
-    """The kernel's tiles (32 and a ragged 7), staged windows, regrouped
-    taps and uint32 sums give the JAX package's device function's bits,
-    on a frame narrower than the window too."""
+    """The kernel's schedule (register-window units of 32 and 7 rows, or
+    tiles of 32 and a ragged 7), regrouped taps and uint32 sums give the
+    JAX package's device function's bits, on a frame narrower than the
+    window too."""
 
     import jax
 
@@ -286,6 +427,60 @@ def test_gradient_kernel_model_matches_jax(name, ksize):
         ref = np.asarray(jax.jit(fn)(gray))
         for tile in (32, 7):
             assert np.array_equal(_gradient_model(gray, E.KINDS[name], ksize, tile), ref)
+
+
+def test_compiled_tap_pairs_are_the_ops_own():
+    """``csrc/edges.cu``'s compile-time tap pairs are ``gradient_taps`` at
+    Sobel 1-7, Prewitt 3 and the Laplacian 1-7, 8 columns a lane; every
+    other ksize takes the runtime-k kernel."""
+
+    want = [(E.SOBEL, k) for k in (1, 3, 5, 7)] + [(E.PREWITT, 3)] + [(E.LAPLACIAN, k) for k in (1, 3, 5, 7)]
+    got = _compiled_instances()
+    assert len(got) == len(want)
+    for (kind, t0, t1, strip), (want_kind, ksize) in zip(got, want):
+        w0, w1 = E.gradient_taps(want_kind, ksize)
+        assert (kind, t0, t1) == (want_kind, w0.tolist(), w1.tolist())
+        assert strip == 8
+    for kind, ksize in ((E.SOBEL, 9), (E.SOBEL, 31), (E.LAPLACIAN, 9), (E.LAPLACIAN, 19)):
+        assert _instance(kind, *E.gradient_taps(kind, ksize)) is None
+
+
+SPLIT_CASES = [("sobel", 1), ("sobel", 3), ("sobel", 7), ("sobel", 31), ("prewitt", 3), ("laplacian", 1),
+               ("laplacian", 3), ("laplacian", 7)]
+
+
+@pytest.mark.parametrize("name, ksize", SPLIT_CASES, ids=[f"{n}-{k}" for n, k in SPLIT_CASES])
+def test_gradient_interior_edge_split_matches_jax(name, ksize):
+    """Interior units (no reflect101) and edge units (the row reflected,
+    the frame's side formed from the strip's own bytes, byte by byte on
+    unaligned rows) give the JAX package's bits on frames whose sides sit
+    at and around 1, k - 1 and the strip and tile multiples; at the
+    kernel's geometry (32 lanes, 16-row units; tiles of 32) and at one
+    small enough for these frames to hold interior units (1 lane, 5-row
+    units; tiles of 2)."""
+
+    import jax
+
+    from yamimageprocessor_tpu.ops import edges as JE
+
+    kind = E.KINDS[name]
+    fn = {"sobel": lambda g: JE.sobel_j(g, ksize), "prewitt": JE.prewitt_j,
+          "laplacian": lambda g: JE.laplacian_j(g, ksize)}[name]
+    t0, t1 = E.gradient_taps(kind, ksize)
+    strip = _instance(kind, t0, t1)
+    shapes = [(1, 64), (63, 1), (max(ksize - 1, 2), 33), (31, 65), (32, 48), (33, 63), (64, 32), (65, 31)]
+    seen = set()
+    for i, shape in enumerate(shapes):
+        gray = _frame("uint8 gray", shape, seed=i)
+        ref = np.asarray(jax.jit(fn)(gray))
+        for geometry in ((32, 16), (1, 5)) if strip else (32, 2):
+            if strip:
+                got, interior = _window_model(gray, kind, t0, t1, strip, geometry[1], geometry[0])
+            else:
+                got, interior = _tile_model(gray, kind, t0, t1, geometry)
+            assert np.array_equal(got, ref), (shape, geometry)
+            seen.update(interior.reshape(-1).tolist())
+    assert seen == {True, False}  # both paths ran
 
 
 def _canny_model(gray: np.ndarray, low: int, high: int, aperture: int, tile: int) -> np.ndarray:
@@ -353,10 +548,15 @@ def _card_gray(shape, seed=0, binary=False):
 
 @cuda
 @needs_card
-@pytest.mark.parametrize("kind, ksize", [(0, 1), (0, 3), (0, 5), (0, 7), (0, 15), (0, 31), (1, 3), (2, 1), (2, 3),
-                                         (2, 7), (2, 19)])
+@pytest.mark.parametrize("kind, ksize", [(0, 1), (0, 3), (0, 5), (0, 7), (0, 9), (0, 15), (0, 31), (1, 3), (2, 1),
+                                         (2, 3), (2, 5), (2, 7), (2, 19)])
 def test_gradient_kernel_matches_plain(kind, ksize):
-    for shape in ((2, 300, 257), (1, 1, 1), (1, 5, 40), (3, 33, 31)):
+    """Every compiled tap pair and the runtime-k tile kernel, on frames
+    with aligned and unaligned rows, interior units and none, 1 pixel wide
+    and tall."""
+
+    for shape in ((2, 300, 257), (1, 1, 1), (1, 5, 40), (3, 33, 31), (1, 2047, 2049), (1, 1, 2048), (1, 2048, 1),
+                  (2, 160, 1056), (1, 48, 16)):
         g = _card_gray(shape)
         before = E.gradient_u8.launches
         got = E.gradient_u8(g, kind, ksize)

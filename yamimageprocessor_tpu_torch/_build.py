@@ -86,7 +86,7 @@ SIGNATURES: Dict[str, Tuple] = {
     "yam_gradient_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yam_canny_candidates_u8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "yam_adaptive_threshold_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "yam_region_grow_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "yam_region_grow_u8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

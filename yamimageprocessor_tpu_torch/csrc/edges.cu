@@ -6,27 +6,48 @@
 // (:125), laplacian_j (:153) and the candidate half of canny_j (:219):
 // XLA fusions there, not pallas_calls.  C++ leaves signed overflow
 // undefined, so the sums run in uint32_t and are reinterpreted; sums modulo
-// 2^32 are exact in any order, so the taps may be regrouped freely.  Every
-// gradient is then two separable correlations of one integer tap pair
-// (t0, t1): A = sep(ky = t0, kx = t1), B = sep(ky = t1, kx = t0)
+// 2^32 are exact in any order, so the taps may be regrouped and folded
+// freely.  Every gradient is then two separable correlations of one integer
+// tap pair (t0, t1): A = sep(ky = t0, kx = t1), B = sep(ky = t1, kx = t0)
 // (ops/edges.py:gradient_taps gives the pairs; the Laplacian's dense
-// aperture is outer(t0, t1) + outer(t1, t0)).
+// aperture is outer(t0, t1) + outer(t1, t0)).  Sobel is isqrt32(A^2 + B^2),
+// Prewitt the same with A and B saturated to 0..255 first, the Laplacian
+// |A + B| (|INT32_MIN| wraps, then saturates to 0).
 //
-//   gradient_kernel   a block a TILE x TILE tile of one frame.  The input
-//                     tile and its reflect-101 ring of R = k / 2 come into
-//                     shared memory (any frame size: the index reflects as
-//                     numpy's pad does, periodically where R >= n), the
-//                     x-passes of both correlations go to shared memory,
-//                     then each thread takes the y-passes of its pixels and
-//                     combines: Sobel isqrt32(A^2 + B^2), Prewitt the same
-//                     with A and B saturated to 0..255 first, Laplacian
-//                     |A + B| (|INT32_MIN| wraps, then saturates to 0).
-//   canny_kernel      the same with a replicate border, on a tile with a
-//                     ring of 1 more: the L1 magnitudes of the tile and the
-//                     ring (0 outside the frame, canny_j's magp) stay in
-//                     shared memory for the non-maximum suppression, which
-//                     compares in fixed point (TG22 = 13573, shift 15) in
-//                     wrapping int32 with canny_j's > and >= ties.  It
+//   gradient_window   the tap pairs of Sobel 1-7, Prewitt 3 and the
+//                     Laplacian 1-7 (the Ints tap pairs below: the compiler
+//                     folds the taps into adds and shifts).  A persistent
+//                     grid of warps walks units of `band` rows x 32 * S
+//                     columns of one frame.  A lane takes a strip of S = 8
+//                     consecutive output columns and walks down the band: each input row of the strip
+//                     is read once, as an S-byte vector and the 4-byte words
+//                     on either side (the ring of R = K / 2 columns), both
+//                     x-pass sums of the row go into a register ring of the
+//                     last K rows (indices fixed at compile time: the row
+//                     loop is unrolled by K), the y-passes read the ring,
+//                     and each output row goes out as one S-byte vector.
+//                     The next row's loads are issued before this row's
+//                     arithmetic.  A unit whose window, with its ring of R
+//                     rows and of a word of columns, lies inside a frame
+//                     whose rows are 16-byte aligned takes a path with no
+//                     reflect101 and no %.  Edge units reflect the row index
+//                     where it leaves the frame, form the ring's columns at
+//                     the frame's side from the strip's own bytes, and read
+//                     byte by byte through reflect101 where rows are not
+//                     aligned (periodically where R >= n, and on frames 1
+//                     pixel wide or tall).
+//   gradient_tile     any other odd k up to 31 (Sobel 9-31, the Laplacian
+//                     9-19): a block a TILE x TILE tile, the tile and its
+//                     ring staged in shared memory (directly inside the
+//                     frame, through reflect101 at its edges), both
+//                     x-passes to shared memory, the y-passes with runtime
+//                     taps.
+//   canny_kernel      the same staging with a replicate border, on a tile
+//                     with a ring of 1 more: the L1 magnitudes of the tile
+//                     and the ring (0 outside the frame, canny_j's magp)
+//                     stay in shared memory for the non-maximum suppression,
+//                     which compares in fixed point (TG22 = 13573, shift 15)
+//                     in wrapping int32 with canny_j's > and >= ties.  It
 //                     writes 0 (none), 1 (a candidate, mag > low) or 2 (a
 //                     strong one, mag > high); low and high are int32
 //                     scalars on the card.
@@ -37,11 +58,13 @@
 // squares wrap in int32 near 46341^2.
 //
 // Bound on the card: device memory or the integer pipe.  A pixel reads 1 B
-// and writes 1 B; the gradient takes 4k multiply-adds a pixel (two x-passes
-// and two y-passes of k taps), Canny 4k plus the suppression.
+// and writes 1 B; the gradient takes 4k multiply-adds a pixel at most (two
+// x-passes and two y-passes of k taps; fewer where taps fold), Canny 4k plus
+// the suppression.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -95,20 +118,22 @@ __device__ __forceinline__ int magnitude(int a, int b) {
 }
 
 // Stage the (oh + 2r) x (ow + 2r) input window whose top-left output lies at
-// (y0, x0) into s_in, then both x-passes of its rows into s_xa (taps t1) and
-// s_xb (taps t0), (oh + 2r) x ow each.
+// (y0, x0) into s_in through the border's index.
 template <bool REPLICATE>
-__device__ void x_passes(const uint8_t* __restrict__ frame, int h, int w, int y0, int x0, int oh, int ow,
-                         int k, const Taps& taps, uint8_t* s_in, unsigned* s_xa, unsigned* s_xb) {
-  const int r = k / 2;
-  const int ih = oh + 2 * r, iw = ow + 2 * r;
+__device__ void stage_window(const uint8_t* __restrict__ frame, int h, int w, int y0, int x0, int ih, int iw, int r,
+                             uint8_t* s_in) {
   for (int i = threadIdx.x; i < ih * iw; i += THREADS) {
     const int row = i / iw, col = i - row * iw;
     const int y = REPLICATE ? clamp_index(y0 - r + row, h) : reflect101(y0 - r + row, h);
     const int x = REPLICATE ? clamp_index(x0 - r + col, w) : reflect101(x0 - r + col, w);
     s_in[i] = __ldg(frame + static_cast<long long>(y) * w + x);
   }
-  __syncthreads();
+}
+
+// both x-passes of the staged rows into s_xa (taps t1) and s_xb (taps t0),
+// ih x ow each
+__device__ void x_pass_rows(int ih, int iw, int ow, int k, const Taps& taps, const uint8_t* s_in, unsigned* s_xa,
+                            unsigned* s_xb) {
   for (int i = threadIdx.x; i < ih * ow; i += THREADS) {
     const int row = i / ow, col = i - row * ow;
     const uint8_t* src = s_in + row * iw + col;
@@ -121,6 +146,17 @@ __device__ void x_passes(const uint8_t* __restrict__ frame, int h, int w, int y0
     s_xa[i] = a;
     s_xb[i] = b;
   }
+}
+
+// Stage the window, then both x-passes of its rows, (oh + 2r) x ow each.
+template <bool REPLICATE>
+__device__ void x_passes(const uint8_t* __restrict__ frame, int h, int w, int y0, int x0, int oh, int ow,
+                         int k, const Taps& taps, uint8_t* s_in, unsigned* s_xa, unsigned* s_xb) {
+  const int r = k / 2;
+  const int ih = oh + 2 * r, iw = ow + 2 * r;
+  stage_window<REPLICATE>(frame, h, w, y0, x0, ih, iw, r, s_in);
+  __syncthreads();
+  x_pass_rows(ih, iw, ow, k, taps, s_in, s_xa, s_xb);
   __syncthreads();
 }
 
@@ -136,16 +172,35 @@ __device__ __forceinline__ void y_passes(const unsigned* s_xa, const unsigned* s
   b = static_cast<int>(sb);
 }
 
+constexpr int SOBEL = 0, PREWITT = 1, LAPLACIAN = 2;
+
+// the output byte of a gradient from its two sums
+template <int KIND>
+__device__ __forceinline__ unsigned combine(unsigned ua, unsigned ub) {
+  if (KIND == LAPLACIAN) {
+    const int sum = static_cast<int>(ua + ub);
+    const int mag = sum == INT_MIN ? INT_MIN : (sum < 0 ? -sum : sum);
+    return mag < 0 ? 0 : (mag > 255 ? 255 : mag);
+  }
+  int a = static_cast<int>(ua), b = static_cast<int>(ub);
+  if (KIND == PREWITT) {
+    a = a < 0 ? 0 : (a > 255 ? 255 : a);
+    b = b < 0 ? 0 : (b > 255 ? 255 : b);
+  }
+  return magnitude(a, b);
+}
+
 __host__ __device__ constexpr size_t gradient_shared(int k) {
   return static_cast<size_t>((TILE + k - 1) * (TILE + k - 1)) +
          2 * sizeof(unsigned) * static_cast<size_t>((TILE + k - 1) * TILE) + 16;
 }
 
-// grid (tiles, frames); kind 0 Sobel, 1 Prewitt, 2 Laplacian
+// grid (tiles, frames); runtime taps (any odd k up to MAX_TAPS)
 __global__ void __launch_bounds__(THREADS)
-    gradient_kernel(const uint8_t* __restrict__ in_all, uint8_t* __restrict__ out_all, int h, int w,
-                    int tiles_x, int k, int kind, Taps taps) {
+    gradient_tile(const uint8_t* __restrict__ in_all, uint8_t* __restrict__ out_all, int h, int w, int tiles_x,
+                  int k, int kind, Taps taps) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int r = k / 2;
   const int ih = TILE + k - 1;
   unsigned* s_xa = reinterpret_cast<unsigned*>(smem);
   unsigned* s_xb = s_xa + ih * TILE;
@@ -155,26 +210,270 @@ __global__ void __launch_bounds__(THREADS)
   uint8_t* out = out_all + blockIdx.y * hw;
   const int y0 = blockIdx.x / tiles_x * TILE;
   const int x0 = blockIdx.x % tiles_x * TILE;
-  x_passes<false>(frame, h, w, y0, x0, TILE, TILE, k, taps, s_in, s_xa, s_xb);
+  static_assert(TILE + MAX_TAPS - 1 <= 64 && THREADS % 64 == 0, "a thread a staged column, 64 a row");
+  if (y0 >= r && y0 + TILE + r <= h && x0 >= r && x0 + TILE + r <= w) {
+    // interior: the window lies inside the frame
+    const int col = threadIdx.x % 64;
+    const uint8_t* src = frame + static_cast<long long>(y0 - r) * w + x0 - r + col;
+    if (col < ih)
+      for (int row = threadIdx.x / 64; row < ih; row += THREADS / 64)
+        s_in[row * ih + col] = __ldg(src + static_cast<long long>(row) * w);
+  } else {
+    stage_window<false>(frame, h, w, y0, x0, ih, ih, r, s_in);
+  }
+  __syncthreads();
+  x_pass_rows(ih, ih, TILE, k, taps, s_in, s_xa, s_xb);
+  __syncthreads();
   for (int i = threadIdx.x; i < TILE * TILE; i += THREADS) {
     const int row = i / TILE, col = i - row * TILE;
     if (y0 + row >= h || x0 + col >= w) continue;
     int a, b;
     y_passes(s_xa, s_xb, TILE, row, col, k, taps, a, b);
-    int v;
-    if (kind == 2) {
-      const int sum = static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-      const int mag = sum == INT_MIN ? INT_MIN : (sum < 0 ? -sum : sum);
-      v = mag < 0 ? 0 : (mag > 255 ? 255 : mag);
-    } else {
-      if (kind == 1) {
-        a = a < 0 ? 0 : (a > 255 ? 255 : a);
-        b = b < 0 ? 0 : (b > 255 ? 255 : b);
-      }
-      v = magnitude(a, b);
-    }
+    const unsigned ua = static_cast<unsigned>(a), ub = static_cast<unsigned>(b);
+    const unsigned v = kind == LAPLACIAN ? combine<LAPLACIAN>(ua, ub)
+                                         : (kind == PREWITT ? combine<PREWITT>(ua, ub) : combine<SOBEL>(ua, ub));
     out[static_cast<long long>(y0 + row) * w + x0 + col] = static_cast<uint8_t>(v);
   }
+}
+
+// ---------------------------------------------------------------------------
+// gradient_window: compile-time taps, a register window a lane
+
+constexpr int GRAD_WARPS = 4;
+constexpr int GRAD_THREADS = 32 * GRAD_WARPS;
+constexpr int MIN_BAND = 16;  // rows of a unit at least: the K - 1 rows before the first output stay a few percent
+// units a warp of the resident grid takes, where the frames hold enough
+// rows: two at K = 7, whose window holds the most registers and the fewest
+// warps an SM, so that shorter units even out the SMs' ends (PERF.md, section 6)
+__host__ __device__ constexpr int units_a_warp(int k) { return k >= 7 ? 2 : 1; }
+
+template <int... V>
+struct Ints {
+  static constexpr int size = sizeof...(V);
+  __host__ __device__ static constexpr int at(int i) {
+    constexpr int v[] = {V...};
+    return v[i];
+  }
+};
+
+// A lane's input row: S bytes at the strip's columns [x, x + S) and the
+// 4-byte words on either side ([x - 4, x) and [x + S, x + S + 4)).
+template <int S>
+struct Row {
+  unsigned main[S / 4];
+  unsigned left, right;
+};
+
+template <int S>
+__device__ __forceinline__ void load_main(Row<S>& row, const uint8_t* p) {
+  static_assert(S == 8, "a strip is one 8-byte vector");
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  row.main[0] = v.x;
+  row.main[1] = v.y;
+}
+
+__device__ __forceinline__ unsigned load_word(const uint8_t* p) { return __ldg(reinterpret_cast<const unsigned*>(p)); }
+
+// byte i of the lane's window [x - R, x + S + R)
+template <int S, int R>
+__device__ __forceinline__ int window_byte(const Row<S>& row, int i) {
+  if (i < R) return __byte_perm(row.left, 0, 0x4440 | (4 - R + i));
+  if (i < R + S) return __byte_perm(row.main[(i - R) / 4], 0, 0x4440 | ((i - R) % 4));
+  return __byte_perm(row.right, 0, 0x4440 | (i - R - S));
+}
+
+// Row y of the lane's window.  INTERIOR: the row, the strip and both words
+// lie inside the frame and rows are 16-byte aligned.  Otherwise the row index
+// is reflected where it leaves the frame; with aligned rows (`vec`) a strip
+// lies inside or outside the frame as a whole (the caller skips the outside
+// ones), and a word past the frame's side is its reflection, formed from the
+// strip's own bytes (w >= 16 > R); without, byte by byte through reflect101.
+template <int S, int R, bool INTERIOR>
+__device__ __forceinline__ Row<S> fetch_row(const uint8_t* __restrict__ frame, int h, int w, int y, int x, bool vec) {
+  Row<S> row;
+  if (INTERIOR) {
+    const uint8_t* p = frame + static_cast<long long>(y) * w + x;
+    load_main(row, p);
+    row.left = load_word(p - 4);
+    row.right = load_word(p + S);
+    return row;
+  }
+  const int yy = (y >= 0 && y < h) ? y : reflect101(y, h);
+  const uint8_t* p = frame + static_cast<long long>(yy) * w;
+  if (vec) {
+    load_main(row, p + x);
+    row.left = x >= 4 ? load_word(p + x - 4) : __byte_perm(row.main[0], row.main[1], 0x1234);
+    row.right = x + S + 4 <= w ? load_word(p + x + S) : __byte_perm(row.main[S / 4 - 2], row.main[S / 4 - 1], 0x3456);
+    return row;
+  }
+  const bool inside = x >= R && x + S + R <= w;
+  row.left = row.right = 0;
+#pragma unroll
+  for (int q = 0; q < S / 4; ++q) row.main[q] = 0;
+#pragma unroll
+  for (int i = 0; i < S + 2 * R; ++i) {
+    const int pos = x - R + i;
+    const unsigned b = __ldg(p + (inside ? pos : reflect101(pos, w)));
+    if (i < R)
+      row.left |= b << (8 * (4 - R + i));
+    else if (i < R + S)
+      row.main[(i - R) / 4] |= b << (8 * ((i - R) % 4));
+    else
+      row.right |= b << (8 * (i - R - S));
+  }
+  return row;
+}
+
+// both x-passes of a window row: xa with taps T1, xb with taps T0
+template <class T0, class T1, int S>
+__device__ __forceinline__ void x_pass(const Row<S>& row, unsigned (&xa)[S], unsigned (&xb)[S]) {
+  constexpr int K = T0::size, R = K / 2;
+  int v[S + K - 1];
+#pragma unroll
+  for (int i = 0; i < S + K - 1; ++i) v[i] = window_byte<S, R>(row, i);
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    unsigned a = 0, b = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      a += static_cast<unsigned>(T1::at(t)) * static_cast<unsigned>(v[c + t]);
+      b += static_cast<unsigned>(T0::at(t)) * static_cast<unsigned>(v[c + t]);
+    }
+    xa[c] = a;
+    xb[c] = b;
+  }
+}
+
+// A lane's strip of S columns at x down the unit's rows [y0, y0 + rows).
+template <int KIND, class T0, class T1, int S, bool INTERIOR>
+__device__ __forceinline__ void window_strip(const uint8_t* __restrict__ frame, uint8_t* __restrict__ out, int h,
+                                             int w, int y0, int x, int rows, bool vec) {
+  constexpr int K = T0::size, R = K / 2;
+  static_assert(T1::size == K && K % 2 == 1 && R <= 3, "odd tap pairs of at most 7: the ring is one word");
+  if (!INTERIOR && x >= w) return;
+  unsigned ra[K][S], rb[K][S];  // the last K rows' x-passes, row i in slot i % K
+  const int last = rows + K - 1;  // input rows
+  Row<S> next = fetch_row<S, R, INTERIOR>(frame, h, w, y0 - R, x, vec);
+#pragma unroll
+  for (int i = 0; i < K - 1; ++i) {
+    const Row<S> cur = next;
+    next = fetch_row<S, R, INTERIOR>(frame, h, w, y0 - R + i + 1, x, vec);
+    x_pass<T0, T1, S>(cur, ra[i], rb[i]);
+  }
+  for (int base = K - 1; base < last; base += K) {
+#pragma unroll
+    for (int ph = 0; ph < K; ++ph) {
+      const int i = base + ph;  // i % K == (K - 1 + ph) % K
+      if (i >= last) break;
+      const Row<S> cur = next;
+      if (i + 1 < last) next = fetch_row<S, R, INTERIOR>(frame, h, w, y0 - R + i + 1, x, vec);
+      x_pass<T0, T1, S>(cur, ra[(K - 1 + ph) % K], rb[(K - 1 + ph) % K]);
+      // output row i - (K - 1): input rows i - K + 1 .. i, slots (ph + t) % K
+      unsigned o[S];
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        unsigned sa = 0, sb = 0;
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          sa += static_cast<unsigned>(T0::at(t)) * ra[(ph + t) % K][c];
+          sb += static_cast<unsigned>(T1::at(t)) * rb[(ph + t) % K][c];
+        }
+        o[c] = combine<KIND>(sa, sb);
+      }
+      uint8_t* dst = out + static_cast<long long>(y0 + i - (K - 1)) * w + x;
+      if (INTERIOR || vec) {
+        unsigned words[S / 4];
+#pragma unroll
+        for (int q = 0; q < S / 4; ++q)
+          words[q] = __byte_perm(__byte_perm(o[4 * q], o[4 * q + 1], 0x0040), __byte_perm(o[4 * q + 2], o[4 * q + 3], 0x0040),
+                                 0x5410);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(words[0], words[1]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < S; ++c)
+          if (x + c < w) dst[c] = static_cast<uint8_t>(o[c]);
+      }
+    }
+  }
+}
+
+// A persistent 1-D grid; warp u of the grid takes units u, u + warps, ...:
+// unit (frame, row band, column band) covers rows [rb * band, rb * band +
+// band) and columns [cb * 32 * S, (cb + 1) * 32 * S), a lane S of them.
+template <int KIND, class T0, class T1, int S>
+__global__ void __launch_bounds__(GRAD_THREADS)
+    gradient_window(const uint8_t* __restrict__ in_all, uint8_t* __restrict__ out_all, int h, int w, int col_bands,
+                    int row_bands, int band, long long units, bool vec) {
+  constexpr int R = T0::size / 2;
+  const long long hw = static_cast<long long>(h) * w;
+  const long long per_frame = static_cast<long long>(col_bands) * row_bands;
+  const long long warps = static_cast<long long>(gridDim.x) * GRAD_WARPS;
+  const int lane = threadIdx.x % 32;
+  for (long long u = static_cast<long long>(blockIdx.x) * GRAD_WARPS + threadIdx.x / 32; u < units; u += warps) {
+    const long long f = u / per_frame;
+    const int rest = static_cast<int>(u - f * per_frame);
+    const int rb = rest / col_bands, cb = rest - rb * col_bands;
+    const int y0 = rb * band, x0 = cb * 32 * S;
+    const int rows = min(band, h - y0);
+    const bool interior = vec && x0 >= 4 && x0 + 32 * S + 4 <= w && y0 >= R && y0 + band + R <= h;
+    if (interior)
+      window_strip<KIND, T0, T1, S, true>(in_all + f * hw, out_all + f * hw, h, w, y0, x0 + lane * S, rows, vec);
+    else
+      window_strip<KIND, T0, T1, S, false>(in_all + f * hw, out_all + f * hw, h, w, y0, x0 + lane * S, rows, vec);
+  }
+}
+
+// The tap pairs with compiled instances: (t0, t1) of ops/edges.py:gradient_taps.
+using Centre3 = Ints<0, 1, 0>;
+using Smooth3 = Ints<1, 2, 1>;
+using Smooth5 = Ints<1, 4, 6, 4, 1>;
+using Smooth7 = Ints<1, 6, 15, 20, 15, 6, 1>;
+using Deriv3 = Ints<-1, 0, 1>;
+using Deriv5 = Ints<-1, -2, 0, 2, 1>;
+using Deriv7 = Ints<-1, -4, -5, 0, 5, 4, 1>;
+using Box3 = Ints<1, 1, 1>;
+using Diff3 = Ints<1, 0, -1>;
+using Second3 = Ints<1, -2, 1>;
+using Second5 = Ints<1, 0, -2, 0, 1>;
+using Second7 = Ints<1, 2, -1, -4, -1, 2, 1>;
+
+template <class T>
+bool same_taps(const int* taps, int k) {
+  if (k != T::size) return false;
+  for (int i = 0; i < k; ++i)
+    if (taps[i] != T::at(i)) return false;
+  return true;
+}
+
+// Launch the instance for (kind, t0, t1) if it is this one; false if not.
+template <int KIND, class T0, class T1, int S>
+bool try_window(int kind, const int* t0, const int* t1, int k, const uint8_t* in, uint8_t* out, int n, int h, int w,
+                cudaStream_t stream, cudaError_t& err) {
+  if (kind != KIND || !same_taps<T0>(t0, k) || !same_taps<T1>(t1, k)) return false;
+  const auto kernel = gradient_window<KIND, T0, T1, S>;
+  static int resident = 0;  // blocks the card holds at once, from the first call
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GRAD_THREADS, 0);
+    if (err != cudaSuccess) return true;
+    resident = per_sm * sms;
+  }
+  // one unit a warp of the grid where the frames allow: band rows a unit
+  const int col_bands = (w + 32 * S - 1) / (32 * S);
+  const long long warps = static_cast<long long>(resident) * GRAD_WARPS;
+  const long long rows_total = static_cast<long long>(n) * col_bands * h;
+  const long long slots = warps * units_a_warp(T0::size);
+  const int band = static_cast<int>(std::min<long long>(h, std::max<long long>(MIN_BAND, (rows_total + slots - 1) / slots)));
+  const int row_bands = (h + band - 1) / band;
+  const long long units = static_cast<long long>(n) * col_bands * row_bands;
+  const int blocks = static_cast<int>(std::min<long long>(resident, (units + GRAD_WARPS - 1) / GRAD_WARPS));
+  const bool vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   w % 16 == 0;
+  kernel<<<blocks, GRAD_THREADS, 0, stream>>>(in, out, h, w, col_bands, row_bands, band, units, vec);
+  err = cudaGetLastError();
+  return true;
 }
 
 constexpr int RING = TILE + 2;  // the tile and its ring of 1
@@ -256,17 +555,29 @@ extern "C" int yam_gradient_u8(const void* in, void* out, const int* t0, const i
                                int h, int w, void* stream) {
   if (k < 1 || k > MAX_TAPS || k % 2 == 0 || kind < 0 || kind > 2 || h <= 0 || w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto* src = static_cast<const uint8_t*>(in);
+  auto* dst = static_cast<uint8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (try_window<SOBEL, Centre3, Deriv3, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<SOBEL, Smooth3, Deriv3, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<SOBEL, Smooth5, Deriv5, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<SOBEL, Smooth7, Deriv7, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<PREWITT, Box3, Diff3, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<LAPLACIAN, Centre3, Second3, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<LAPLACIAN, Smooth3, Second3, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<LAPLACIAN, Smooth5, Second5, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err) ||
+      try_window<LAPLACIAN, Smooth7, Second7, 8>(kind, t0, t1, k, src, dst, n, h, w, s, err))
+    return static_cast<int>(err);
   const Taps taps = taps_from(t0, t1, k);
   const int tiles_x = (w + TILE - 1) / TILE;
   const int tiles = (h + TILE - 1) / TILE * tiles_x;
   const size_t shared = gradient_shared(k);
   const long long hw = static_cast<long long>(h) * w;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int first = 0; first < n; first += MAX_FRAMES) {
     const int frames = n - first < MAX_FRAMES ? n - first : MAX_FRAMES;
-    gradient_kernel<<<dim3(tiles, frames), THREADS, shared, s>>>(
-        static_cast<const uint8_t*>(in) + first * hw, static_cast<uint8_t*>(out) + first * hw, h, w, tiles_x, k,
-        kind, taps);
+    gradient_tile<<<dim3(tiles, frames), THREADS, shared, s>>>(src + first * hw, dst + first * hw, h, w, tiles_x, k,
+                                                               kind, taps);
   }
   return static_cast<int>(cudaGetLastError());
 }

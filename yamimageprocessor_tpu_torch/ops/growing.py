@@ -24,8 +24,10 @@ import torch
 from yamimageprocessor_tpu_torch import _build
 from yamimageprocessor_tpu_torch.ops.filters import convert, wrap32
 
-#: the kernel's tile (``csrc/growing.cu``: TILE_ROWS, TILE_COLS), checked there
+#: the kernel's tile (``csrc/growing.cu``: TILE_ROWS, TILE_COLS) and its
+#: perimeter slots (PERIMETER: the first and last rows and columns), checked there
 TILE_ROWS, TILE_COLS = 32, 64
+PERIMETER = 2 * TILE_COLS + 2 * (TILE_ROWS - 2)
 
 
 def _joins(vals: torch.Tensor, tol: torch.Tensor):
@@ -84,9 +86,10 @@ def region_grow_plain(gray: torch.Tensor, seed_x, seed_y, tol) -> torch.Tensor:
 
 def region_grow(gray: torch.Tensor, seed_x: torch.Tensor, seed_y: torch.Tensor, tol: torch.Tensor) -> torch.Tensor:
     """``(N, H, W)`` uint8 gray -> uint8 ``where(region, 255, gray)``: one
-    call of ``csrc/growing.cu`` on a CUDA tensor (four launches: the tiles'
-    union-find in shared memory, the unions across tile borders, the
-    relinked tiles' compression, the seed's region written; the seed and
+    call of ``csrc/growing.cu`` on a CUDA tensor (three launches: each
+    tile's pieces in shared memory, its perimeter's global nodes and the
+    gray copy, the unions across tile seams, the seed's region painted over
+    the tiles it reaches; the seed and
     ``tol`` are int32 scalars read on the card), the plain version on a CPU
     tensor."""
 
@@ -101,10 +104,11 @@ def region_grow(gray: torch.Tensor, seed_x: torch.Tensor, seed_y: torch.Tensor, 
     if gray.numel() == 0:
         return out
     scalars = torch.stack([s.reshape(()).to(device=gray.device, dtype=torch.int32) for s in (seed_x, seed_y, tol)])
-    lab = torch.empty(gray.shape, dtype=torch.int32, device=gray.device)
-    dirty = torch.empty(n * -(-h // TILE_ROWS) * -(-w // TILE_COLS), dtype=torch.uint8, device=gray.device)
-    _build.launch("yam_region_grow_u8", gray.device, gray.data_ptr(), out.data_ptr(), lab.data_ptr(),
-                  dirty.data_ptr(), scalars.data_ptr(), n, h, w, TILE_ROWS, TILE_COLS)
+    tiles = -(-h // TILE_ROWS) * -(-w // TILE_COLS)
+    node = torch.empty(n * tiles * PERIMETER, dtype=torch.int32, device=gray.device)
+    seed_node = torch.empty(n, dtype=torch.int32, device=gray.device)
+    _build.launch("yam_region_grow_u8", gray.device, gray.data_ptr(), out.data_ptr(), node.data_ptr(),
+                  seed_node.data_ptr(), scalars.data_ptr(), n, h, w, TILE_ROWS, TILE_COLS, PERIMETER)
     region_grow.launches += 1
     return out
 
@@ -121,4 +125,4 @@ def region_growing(gray: torch.Tensor, seed_x, seed_y, tol) -> torch.Tensor:
     return region_grow_plain(gray, seed_x, seed_y, tol)
 
 
-__all__ = ["TILE_COLS", "TILE_ROWS", "grow_labels_plain", "region_grow", "region_grow_plain", "region_growing"]
+__all__ = ["PERIMETER", "TILE_COLS", "TILE_ROWS", "grow_labels_plain", "region_grow", "region_grow_plain", "region_growing"]

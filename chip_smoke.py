@@ -399,6 +399,7 @@ EDGE_LAPLACIAN_KSIZES = (1, 3, 7, 19)  # 19: the largest whose aperture fits int
 EDGE_BLOCK_SIZES = (3, 11, 13, 33, 35, 101, 255)  # the adaptive threshold's; past 13 on the scene
 EDGE_CPU_SIDE = 512  # crops of the edges phase's inputs the port's CPU run takes
 EDGE_ODD_SHAPES = ((1, 2047, 2049), (1, 1, 2048), (1, 2048, 1))  # unaligned rows, 1 pixel tall and wide
+EDGE_TIMED_BLOCK_SIZES = (3, 11, 13, 33, 35, 101, 255)  # the adaptive threshold's timed sizes: windows to 33, then tiles
 #: the gradients timed beside Sobel 3: every compiled tap pair (csrc/edges.cu) the ops reach by default or near it
 EDGE_TIMED_GRADIENTS = (("sobel", 3), ("sobel", 5), ("sobel", 7), ("prewitt", 3), ("laplacian", 1), ("laplacian", 3))
 
@@ -911,8 +912,8 @@ _SEG_GROUPS = {
 _EDGE_GROUPS = {
     "gradient_window": "gradient",
     "gradient_tile": "gradient",
-    "canny_kernel": "canny_candidates",
-    "adaptive_kernel": "adaptive_threshold",
+    "canny_window": "canny_candidates",
+    "adaptive_": "adaptive_threshold",
     "grow_": "region_grow",
     "cc_local": "cc",
     "cc_border": "cc",
@@ -2270,8 +2271,10 @@ def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
     EDGE_LAPLACIAN_KSIZES and Prewitt, Canny's candidates at apertures 3, 5
     and 7 and the hysteresis on them, on the BGR batch's gray frames; the
     adaptive threshold at EDGE_BLOCK_SIZES (past 13 taps on the scene), the
-    region growing on both; then the growing and the hysteresis on
-    ``_spiral(2048)`` against ``scipy.ndimage.label`` (4-connected; 3x3)."""
+    region growing on both; the gradient, Canny's candidates and the
+    adaptive threshold on EDGE_ODD_SHAPES too; then the growing and the
+    hysteresis on ``_spiral(2048)`` against ``scipy.ndimage.label``
+    (4-connected; 3x3)."""
 
     from scipy import ndimage as ndi
 
@@ -2296,14 +2299,18 @@ def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
         err["canny_candidates"] = max(err["canny_candidates"], exact(
             f"canny candidates aperture {aperture}", plane, E.canny_candidates_plain(gray, low, high, aperture)))
         exact(f"hysteresis aperture {aperture}", E.hysteresis(plane[:2]), E.hysteresis_plain(plane[:2]))
+        for frames in odd:
+            err["canny_candidates"] = max(err["canny_candidates"], exact(
+                f"canny candidates aperture {aperture} {tuple(frames.shape)}", E.canny_candidates(frames, low, high, aperture),
+                E.canny_candidates_plain(frames, low, high, aperture)))
     for block in EDGE_BLOCK_SIZES:
         taps = torch.from_numpy(gaussian_taps(block, 0.0).astype(np.float32)).to(dev)
         for c in (-100, 2, 100):
             c_ceil = torch.tensor(c, dtype=torch.int32, device=dev)
-            frames = gray if block <= 13 else scene
-            err["adaptive_threshold"] = max(err["adaptive_threshold"], exact(
-                f"adaptive block {block} C {c}", adaptive_threshold(frames, taps, c_ceil),
-                adaptive_threshold_plain(frames, taps, c_ceil)))
+            for frames in [gray if block <= 13 else scene] + (odd if c == 2 else []):
+                err["adaptive_threshold"] = max(err["adaptive_threshold"], exact(
+                    f"adaptive block {block} C {c} {tuple(frames.shape)}", adaptive_threshold(frames, taps, c_ceil),
+                    adaptive_threshold_plain(frames, taps, c_ceil)))
     equal = torch.full((1, SEG_SIDE, SEG_SIDE), 77, dtype=torch.uint8, device=dev)
     grow_cases = ((gray, (50, 50), 10), (scene, (50, 50), 10), (scene, (0, 0), 12), (gray, (-7, 9999), 255),
                   (equal, (1000, 3), 0), (gray, (50, 50), -1), (scene, (0, 0), -1), (odd[0], (2048, 2046), 40))
@@ -2328,8 +2335,9 @@ def edge_kernel_checks(gray: torch.Tensor, scene: torch.Tensor, dev) -> dict:
     keep[0] = False
     if not np.array_equal(edges, keep[lab8]):
         raise AssertionError("hysteresis on the spiral != scipy.ndimage.label's components")
-    print(f"edges kernels == plain: gradient {len(cases)} cases on the batch and {EDGE_ODD_SHAPES}, canny "
-          f"candidates 3 apertures and the hysteresis, adaptive {len(EDGE_BLOCK_SIZES)} block sizes x 3 C, region "
+    print(f"edges kernels == plain: gradient {len(cases)} cases, canny candidates 3 apertures, adaptive "
+          f"{len(EDGE_BLOCK_SIZES)} block sizes x 3 C (C 2 on the odd shapes), each on the batch and {EDGE_ODD_SHAPES}; "
+          f"the hysteresis; region "
           f"grow {len(grow_cases)} cases (noise, the scene, its background, all-equal, tol -1, unaligned rows); "
           f"spiral {SEG_SIDE}^2: region "
           f"grow ({int(grown.sum())} px) and hysteresis ({int(edges.sum())} px, {int(keep.sum())} rings) == scipy")
@@ -2353,6 +2361,24 @@ def gradient_bounds(kind: int, ksize: int, px: float) -> dict:
     out = 5 if kind == E.LAPLACIAN else 20
     return {"taps": bound_ms(2 * px, int_ops=(4 * len(t0) + 20) * px),
             "folded": bound_ms(2 * px, int_ops=(folded + out) * px)}
+
+
+def canny_bounds(aperture: int, px: float) -> dict:
+    """``{"taps": (ms, by), "folded": (ms, by)}``: Canny's candidates'
+    bound from the first count, 4k + 30 int32 operations a pixel (the two
+    x-passes and two y-passes, then the magnitude and the suppression), and
+    from the least count once the taps fold (:func:`gradient_bounds`' count
+    of the passes) plus the same 30: the L1 magnitude and the directions'
+    fixed-point products and compares (~13), the eight neighbour compares,
+    the two thresholds and the selects (~17); 1 B in and 1 B out a pixel
+    both ways."""
+
+    from yamimageprocessor_tpu_torch.ops.tables import deriv_taps
+
+    t0, t1 = deriv_taps(0, aperture), deriv_taps(1, aperture)
+    folded = 2 * (int(np.count_nonzero(t0)) - 1 + int(np.count_nonzero(t1)) - 1)
+    return {"taps": bound_ms(2 * px, int_ops=(4 * aperture + 30) * px),
+            "folded": bound_ms(2 * px, int_ops=(folded + 30) * px)}
 
 
 def edge_inputs(dev) -> dict:
@@ -2403,13 +2429,14 @@ def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     library = {"gradient": time_ms(lambda: F.conv2d(planes, weight, padding=1)), "canny_candidates": None,
                "adaptive_threshold": None, "region_grow": None}
-    k3, k11 = 3, 11
+    k11 = 11
     sobel3 = gradient_bounds(E.SOBEL, 3, px)
+    canny3 = canny_bounds(3, px)
     bounds = {
         # the least count once the taps fold (the 4k + 20 count beside it below)
         "gradient": sobel3["folded"],
-        # the same passes, then the magnitude and ~30 operations of the suppression
-        "canny_candidates": bound_ms(2 * px, int_ops=(4 * k3 + 30) * px),
+        # the same, plus the magnitude and the suppression (the 4k + 30 count beside it below)
+        "canny_candidates": canny3["folded"],
         # 2k fused multiply-adds a pixel (x-pass, y-pass)
         "adaptive_threshold": bound_ms(2 * px, f32_inst=2 * k11 * px),
         # gray in, output out (the labels are scratch)
@@ -2420,6 +2447,8 @@ def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
               f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} on {tuple(gray.shape)}")
     print(f"edges gradient sobel 3: bound {sobel3['taps'][0]:.4f} ms (4k + 20 int32 a pixel), "
           f"{sobel3['folded'][0]:.4f} ms (folded taps)")
+    print(f"edges canny_candidates aperture 3: bound {canny3['taps'][0]:.4f} ms (4k + 30 int32 a pixel), "
+          f"{canny3['folded'][0]:.4f} ms (folded taps + 30)")
     cases = {}
     for name, ksize in EDGE_TIMED_GRADIENTS[1:]:
         kind = E.KINDS[name]
@@ -2428,6 +2457,20 @@ def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
         both = gradient_bounds(kind, ksize, px)
         cases[f"gradient {name} {ksize}"] = {"ms": ms, "plain_ms": plain, "bound_ms": both["folded"][0],
                                              "taps_bound_ms": both["taps"][0]}
+    for aperture in (5, 7):
+        ms, plain = paired_ms(lambda: E.canny_candidates(gray, low, high, aperture),
+                              lambda: E.canny_candidates_plain(gray, low, high, aperture), plain_runs=3)
+        both = canny_bounds(aperture, px)
+        cases[f"canny_candidates {aperture}"] = {"ms": ms, "plain_ms": plain, "bound_ms": both["folded"][0],
+                                                 "taps_bound_ms": both["taps"][0]}
+    for block in EDGE_TIMED_BLOCK_SIZES:
+        if block == k11 or block > 35:  # past 35 the plain version takes seconds a call
+            continue
+        taps_k = torch.from_numpy(gaussian_taps(block, 0.0).astype(np.float32)).to(dev)
+        ms, plain = paired_ms(lambda: adaptive_threshold(gray, taps_k, c_ceil),
+                              lambda: adaptive_threshold_plain(gray, taps_k, c_ceil), plain_runs=3)
+        cases[f"adaptive_threshold {block}"] = {"ms": ms, "plain_ms": plain,
+                                                "bound_ms": bound_ms(2 * px, f32_inst=2 * block * px)[0]}
     background = edge_inputs(dev)["background"]
     zero, tol12 = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (0, 12))
     ms, plain = paired_ms(lambda: G.region_grow(background, zero, zero, tol12),
@@ -2441,10 +2484,14 @@ def edge_kernel_times(gray: torch.Tensor, dev) -> dict:
 
 def edge_cases(dev) -> dict:
     """The gradient at EDGE_TIMED_GRADIENTS and Sobel 9 (the runtime-k
-    kernel), Canny's candidates at apertures 3, 5 and 7, and region growing
-    on the noise (seed (50, 50), tol 10) and the background (seed (0, 0),
-    tol 12) of :func:`edge_inputs`: device ms and a SHA-256 of every
-    output."""
+    kernel), Canny's candidates at apertures 3, 5 and 7, the adaptive
+    threshold at EDGE_TIMED_BLOCK_SIZES (C 2) on the gray frames, and region
+    growing on the noise (seed (50, 50), tol 10) and the background (seed
+    (0, 0), tol 12) of :func:`edge_inputs`: device ms and a SHA-256 of
+    every output."""
+
+    from yamimageprocessor_tpu_torch.ops.tables import gaussian_taps
+    from yamimageprocessor_tpu_torch.ops.threshold import adaptive_threshold
 
     from yamimageprocessor_tpu_torch.ops import edges as E
     from yamimageprocessor_tpu_torch.ops import growing as G
@@ -2456,6 +2503,10 @@ def edge_cases(dev) -> dict:
     low, high = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (50, 150))
     for aperture in (3, 5, 7):
         calls[f"canny_candidates {aperture}"] = lambda a=aperture: E.canny_candidates(gray, low, high, a)
+    c_ceil = torch.tensor(2, dtype=torch.int32, device=dev)
+    for block in EDGE_TIMED_BLOCK_SIZES:
+        taps = torch.from_numpy(gaussian_taps(block, 0.0).astype(np.float32)).to(dev)
+        calls[f"adaptive_threshold {block}"] = lambda t=taps: adaptive_threshold(gray, t, c_ceil)
     for name, seed, tol in (("gray", (50, 50), 10), ("background", (0, 0), 12)):
         sx, sy, t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (*seed, tol))
         calls[f"region_grow {name} {seed} tol {tol}"] = lambda f=inputs[name], a=sx, b=sy, c=t: G.region_grow(f, a, b, c)
@@ -4412,8 +4463,9 @@ def main() -> None:
          "on the denoise batch's 8 gray 2048^2 frames; bound: the folded taps' least count (gradient_bounds)"),
         ("canny_candidates", "yamimageprocessor_tpu_torch/csrc/edges.cu",
          "yamimageprocessor_tpu/ops/edges.py:219 canny_j's gradients and suppression (XLA, not a pallas_call)",
-         "none: PyTorch has no Canny; ms: aperture 3, thresholds 50/150 on the 8 gray 2048^2 frames; the "
-         "hysteresis runs on the CC kernel (cc's launches include it)"),
+         "none: PyTorch has no Canny; ms: aperture 3, thresholds 50/150 on the 8 gray 2048^2 frames; bound: the "
+         "folded taps' least count and the suppression's (canny_bounds); the hysteresis runs on the CC kernel "
+         "(cc's launches include it)"),
         ("adaptive_threshold", "yamimageprocessor_tpu_torch/csrc/adaptive.cu",
          "yamimageprocessor_tpu/ops/threshold.py:99 adaptive_threshold_j (XLA, not a pallas_call)",
          "none: no single PyTorch call gives the rounded Gaussian mean and the compare; ms: block 11, C 2 on the "

@@ -12,9 +12,10 @@ apertures 3, 5 and 7 (whose fixed-point suppression wraps in int32) with
 thresholds in order, swapped and at 0 and 1000; the adaptive threshold at
 block sizes 3 to 255, on frames narrower than the block, with C from -100
 to 100.  Then numpy models: ``_isqrt_j`` in int32 against the JAX
-package's and the port's on every int32 boundary, and the gradient and
-candidate kernels' tile schedule (their staged windows, regrouped taps and
-uint32 sums) against the JAX package's functions.  The tests marked
+package's and the port's on every int32 boundary, the gradient kernels'
+schedules (their windows, regrouped taps and uint32 sums) against the JAX
+package's functions, and the candidate kernel's window schedule (modelled
+in ``tests/test_torch_edges_window.py``) against the plain candidates.  The tests marked
 ``cuda`` hold each kernel against its plain version on the card and skip
 where there is none; jax is imported only by the CPU tests::
 
@@ -28,7 +29,7 @@ import torch
 
 from yamimageprocessor_tpu_torch.ops import edges as E
 from yamimageprocessor_tpu_torch.ops.schema import Stage
-from yamimageprocessor_tpu_torch.ops.tables import gaussian_taps
+from yamimageprocessor_tpu_torch.ops.tables import deriv_taps, gaussian_taps
 from yamimageprocessor_tpu_torch.ops.threshold import adaptive_threshold, adaptive_threshold_plain
 from yamimageprocessor_tpu_torch.pipeline.manager import PipelineManager
 from yamimageprocessor_tpu_torch.pipeline.step import PipelineStep
@@ -223,27 +224,6 @@ def _reflect101(i: np.ndarray, n: int) -> np.ndarray:
     period = 2 * (n - 1)
     i = np.mod(i, period)
     return np.where(i < n, i, period - i)
-
-
-def _tile_passes(frame, y0, x0, oh, ow, t0, t1, replicate):
-    """The kernels' x_passes and y_passes on one window: staged input with
-    the border's index, both x-passes then both y-passes in uint32."""
-
-    h, w = frame.shape
-    k = len(t0)
-    r = k // 2
-    ys = np.arange(y0 - r, y0 + oh + r)
-    xs = np.arange(x0 - r, x0 + ow + r)
-    ys = np.clip(ys, 0, h - 1) if replicate else _reflect101(ys, h)
-    xs = np.clip(xs, 0, w - 1) if replicate else _reflect101(xs, w)
-    s_in = frame[np.ix_(ys, xs)].astype(np.uint32)
-    u0, u1 = t0.astype(np.int64).astype(np.uint32), t1.astype(np.int64).astype(np.uint32)
-    with np.errstate(over="ignore"):
-        xa = sum(u1[t] * s_in[:, t : t + ow] for t in range(k))
-        xb = sum(u0[t] * s_in[:, t : t + ow] for t in range(k))
-        a = sum(u0[t] * xa[t : t + oh] for t in range(k))
-        b = sum(u1[t] * xb[t : t + oh] for t in range(k))
-    return a.astype(np.uint32).view(np.int32), b.astype(np.uint32).view(np.int32)
 
 
 def _combine(kind: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -483,51 +463,21 @@ def test_gradient_interior_edge_split_matches_jax(name, ksize):
     assert seen == {True, False}  # both paths ran
 
 
-def _canny_model(gray: np.ndarray, low: int, high: int, aperture: int, tile: int) -> np.ndarray:
-    """The candidate kernel: a tile and its ring of 1, magnitudes 0 outside
-    the frame, the suppression in wrapping int32."""
-
-    from yamimageprocessor_tpu_torch.ops.tables import deriv_taps
-
-    t0, t1 = deriv_taps(0, aperture), deriv_taps(1, aperture)
-    h, w = gray.shape
-    out = np.zeros((h, w), np.uint8)
-    with np.errstate(over="ignore"):
-        for y0 in range(0, h, tile):
-            for x0 in range(0, w, tile):
-                gx, gy = _tile_passes(gray, y0 - 1, x0 - 1, tile + 2, tile + 2, t0, t1, replicate=True)
-                yy = np.arange(y0 - 1, y0 + tile + 1)[:, None]
-                xx = np.arange(x0 - 1, x0 + tile + 1)[None, :]
-                inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                ax, ay = np.abs(gx), np.abs(gy)  # int32: |INT32_MIN| wraps
-                mag = np.where(inside, ax + ay, 0).astype(np.int32)
-                m, c = mag[1:-1, 1:-1], (slice(1, -1), slice(1, -1))
-                x, y = ax[c], ay[c] << np.int32(15)
-                tg22x = x * np.int32(13573)
-                tg67x = tg22x + ((x + x) << np.int32(15))
-
-                def at(dy, dx):
-                    return mag[1 + dy : mag.shape[0] - 1 + dy, 1 + dx : mag.shape[1] - 1 + dx]
-
-                horiz = (y < tg22x) & (m > at(0, -1)) & (m >= at(0, 1))
-                vert = (y > tg67x) & (m > at(-1, 0)) & (m >= at(1, 0))
-                s_neg = (gx[c] ^ gy[c]) < 0
-                diag = (y >= tg22x) & (y <= tg67x) & (
-                    (~s_neg & (m > at(-1, -1)) & (m > at(1, 1))) | (s_neg & (m > at(-1, 1)) & (m > at(1, -1)))
-                )
-                nms = (m > low) & (horiz | vert | diag)
-                v = np.where(nms, np.where(m > high, 2, 1), 0)
-                rows, cols = min(tile, h - y0), min(tile, w - x0)
-                out[y0 : y0 + rows, x0 : x0 + cols] = v[:rows, :cols]
-    return out
-
-
 @pytest.mark.parametrize("aperture", [3, 5, 7])
 def test_canny_kernel_model_matches_the_plain_candidates(aperture):
+    """The candidate kernel's register-window schedule
+    (``tests/test_torch_edges_window.py:canny_window_model``) at its
+    geometry (32 lanes, 16-row units) and at a small one (2 lanes, 9-row
+    units) gives the plain candidates."""
+
+    from tests.test_torch_edges_window import canny_window_model, compiled_canny
+
+    strip = {tuple(t0): s for t0, _, s in compiled_canny()}[tuple(deriv_taps(0, aperture).astype(int))]
     gray = _binary_frame("uint8 gray")
     want = E.canny_candidates_plain(torch.from_numpy(gray)[None], torch.tensor(40), torch.tensor(300), aperture)
-    for tile in (32, 9):
-        assert np.array_equal(_canny_model(gray, 40, 300, aperture, tile), want[0].numpy())
+    for lanes, band in ((32, 16), (2, 9)):
+        got, _ = canny_window_model(gray, 40, 300, aperture, strip, band, lanes)
+        assert np.array_equal(got, want[0].numpy())
 
 
 def test_hysteresis_by_components_equals_the_loop():
@@ -564,16 +514,37 @@ def test_gradient_kernel_matches_plain(kind, ksize):
         assert torch.equal(got, E.gradient_plain(g, kind, ksize))
 
 
+def _off_boundary(g):
+    """``g``'s values in a tensor whose data starts one byte past a 16-byte
+    boundary (a view into a larger buffer)."""
+
+    buf = torch.empty(g.numel() + 1, dtype=g.dtype, device=g.device)
+    out = buf[1:].view(g.shape)
+    out.copy_(g)
+    return out
+
+
+#: (shape, off a 16-byte boundary): aligned and unaligned rows, interior
+#: units and none, 1 pixel wide and tall, widths of 16 and 48
+WINDOW_SHAPES = (((2, 300, 257), False), ((1, 1, 1), False), ((1, 37, 5), False), ((3, 64, 65), False),
+                 ((1, 40, 16), False), ((2, 33, 48), False), ((2, 100, 1024), False), ((2, 100, 1024), True),
+                 ((1, 31, 48), True))
+
+
 @cuda
 @needs_card
 @pytest.mark.parametrize("aperture", [3, 5, 7])
 def test_canny_kernel_matches_plain(aperture):
-    for shape, lo, hi in (((2, 300, 257), 50, 150), ((1, 1, 1), 0, 0), ((1, 37, 5), 0, 1000), ((3, 64, 65), 300, 301)):
+    for (shape, off), (lo, hi) in zip(WINDOW_SHAPES, [(50, 150), (0, 0), (0, 1000), (300, 301)] * 3):
         g = _card_gray(shape, binary=True)
+        if off:
+            g = _off_boundary(g)
         low = torch.tensor(lo, dtype=torch.int32, device="cuda")
         high = torch.tensor(hi, dtype=torch.int32, device="cuda")
+        before = E.canny_candidates.launches
         got = E.canny_candidates(g, low, high, aperture)
-        assert torch.equal(got, E.canny_candidates_plain(g, low, high, aperture))
+        assert E.canny_candidates.launches == before + 1
+        assert torch.equal(got, E.canny_candidates_plain(g, low, high, aperture)), (shape, off)
         assert torch.equal(E.hysteresis(got), E.hysteresis_plain(got))
 
 
@@ -582,8 +553,14 @@ def test_canny_kernel_matches_plain(aperture):
 @pytest.mark.parametrize("block_size", [3, 11, 13, 33, 35, 101, 255])
 def test_adaptive_kernel_matches_plain(block_size):
     taps = torch.from_numpy(gaussian_taps(block_size, 0.0).astype(np.float32)).cuda()
-    for shape in ((2, 300, 257), (1, 1, 1), (1, 20, 9), (2, 130, 7)):
+    shapes = ((2, 300, 257), (1, 1, 1), (1, 20, 9), (2, 130, 7), (1, 40, 16), (2, 33, 48), (1, 70, 2048))
+    for shape, off in [(s, False) for s in shapes] + [((2, 100, 1024), True), ((1, 31, 48), True)]:
         g = _card_gray(shape)
+        if off:
+            g = _off_boundary(g)
         for c in (-100, 0, 2, 100):
             c_ceil = torch.tensor(c, dtype=torch.int32, device="cuda")
-            assert torch.equal(adaptive_threshold(g, taps, c_ceil), adaptive_threshold_plain(g, taps, c_ceil))
+            before = adaptive_threshold.launches
+            got = adaptive_threshold(g, taps, c_ceil)
+            assert adaptive_threshold.launches == before + 1
+            assert torch.equal(got, adaptive_threshold_plain(g, taps, c_ceil)), (shape, off, c)

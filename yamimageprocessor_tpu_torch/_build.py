@@ -98,10 +98,11 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources (headers included) and
+    flags lives."""
 
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_sources() + list(CSRC.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"yam_kernels_{digest.hexdigest()[:16]}.so"
